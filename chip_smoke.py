@@ -1,0 +1,355 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, each fatal on failure (the script exits non-zero and prints no
+result line):
+
+  1. device — the card's name and power limit (nvidia-smi);
+  2. build — compiles csrc/fused.cu with nvcc at first use;
+  3. kernels — each hand-written kernel against its plain PyTorch twin on the
+     card, at the main path's shapes (N=10240, d=256) and at a ragged
+     N=1000 with n_valid=937; kernels 2-4 must agree bit for bit, the
+     affinity within rtol=1e-5, atol=1e-6 (its float32 sums run in another
+     order). Then times (CUDA events, median of 20 after warm-up) of each
+     kernel, its twin and a one-call library yardstick where one exists,
+     beside the card's bound for the same work, and of the main path's
+     other device stages (blur, Diffuse, full eigh, top-k subspace);
+  4. main path — make_icassp2018_clusterer().predict on make_embeddings(N)
+     with both eigensolvers (one cold run, then the median of WARM_RUNS
+     warm runs); labels must equal
+     benchmarks/reference_labels.npz, and every kernel must have launched
+     during predict (launch counts are zeroed just before and read just
+     after; the comparison launches of phase 3 do not count).
+
+The last line of standard output is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+N_MAIN = 10240
+D_MAIN = 256
+N_RAGGED = 1000
+NV_RAGGED = 937
+P_ROWMAX = 0.95
+REPS = 20
+WARM_RUNS = 5
+
+# (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
+_PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H200", 4.8e12, 67e12),
+    ("H100", 3.35e12, 67e12),   # SXM: "NVIDIA H100 80GB HBM3"
+)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(*a):
+  print(*a, flush=True)
+
+
+def card_peaks(name: str):
+  for key, bw, flops in _PEAKS:
+    if key in name:
+      return bw, flops
+  raise RuntimeError(f"no data-sheet peaks for card {name!r}")
+
+
+def time_ms(torch, fn, reps=REPS, warmup=3) -> float:
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return statistics.median(times)
+
+
+def main() -> int:
+  parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+  parser.add_argument("--out", help="also write every result to this JSON")
+  args = parser.parse_args()
+
+  import torch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 2
+  # IEEE float32 everywhere, the yardsticks included.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  torch.set_float32_matmul_precision("highest")
+  sys.path.insert(0, HERE)
+  import numpy as np
+
+  from spectralcluster_tpu_torch import configs, pipeline, utils
+  from spectralcluster_tpu_torch.fixtures import make_embeddings
+  from spectralcluster_tpu_torch.kernels import build
+  from spectralcluster_tpu_torch.kernels import fused
+  from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+  from spectralcluster_tpu_torch.ops import quantile as quantile_ops
+  from spectralcluster_tpu_torch.ops import refinement as ref_ops
+  from spectralcluster_tpu_torch.types import EigenSolver
+
+  results = {}
+  dev = torch.device("cuda")
+
+  # 1. Device.
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+      capture_output=True, text=True, check=True).stdout.strip().splitlines()
+  kind = torch.cuda.get_device_name(0)
+  count = torch.cuda.device_count()
+  bw, fp32 = card_peaks(kind)
+  results["device"] = {"nvidia_smi": smi, "kind": kind, "count": count,
+                       "torch": torch.__version__, "cuda": torch.version.cuda,
+                       "peak_bytes_per_s": bw, "peak_fp32_flops": fp32}
+  log(json.dumps({"phase": "device", **results["device"]}))
+
+  # 2. Build.
+  t0 = time.perf_counter()
+  lib_path = build.build()
+  build.load()
+  build_s = time.perf_counter() - t0
+  with open(lib_path + ".log") as f:
+    ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+  results["build"] = {"seconds": build_s, "library": os.path.basename(lib_path),
+                      "ptxas": ptxas}
+  log(json.dumps({"phase": "build", **results["build"]}))
+
+  # 3. Kernels against their twins.
+  rng = np.random.RandomState(0)
+  x = torch.as_tensor(make_embeddings(N_MAIN, D_MAIN)).to(dev)
+  aff = fused.affinity(x)
+  # The main path's inputs: crop gets the fresh affinity, row_max and
+  # threshold_symmetrize get the blurred, cropped affinity.
+  blurred = ref_ops.gaussian_blur(fused.crop_diagonal_plain(aff), 1.0)
+  blurred = blurred.contiguous()
+  ragged = torch.as_tensor(rng.randn(N_RAGGED, N_RAGGED).astype(np.float32)
+                           - 0.5).to(dev)
+  x_ragged = torch.as_tensor(
+      rng.randn(N_RAGGED, 100).astype(np.float32)).to(dev)
+
+  def t2d_thresholds(mat, n_valid=None):
+    eye = torch.eye(mat.shape[0], dtype=torch.bool, device=dev)
+    a = torch.where(eye, 0.0, mat)
+    if n_valid is None:
+      q = quantile_ops.quantile_from_sorted(quantile_ops.sort_rows(a), 0.85)
+    else:
+      q = quantile_ops.quantile_from_sorted_masked(
+          quantile_ops.sort_rows_masked(a, n_valid), 0.85, n_valid)
+    return q[:, None].contiguous()
+
+  checks = []
+
+  def check(name, case, got, want, exact):
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(got - want)))
+    ok = (err == 0.0 if exact else
+          bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)))
+    checks.append({"kernel": name, "case": case, "max_abs_err": err,
+                   "tolerance": "exact" if exact else "rtol=1e-5,atol=1e-6",
+                   "ok": ok})
+    log(json.dumps({"phase": "kernels", **checks[-1]}))
+
+  check("affinity", f"N={N_MAIN},d={D_MAIN}", aff, fused.affinity_plain(x),
+        False)
+  check("affinity", f"N={N_RAGGED},d=100", fused.affinity(x_ragged),
+        fused.affinity_plain(x_ragged), False)
+  check("row_max", f"N={N_MAIN}", fused.row_max(blurred),
+        fused.row_max_plain(blurred), True)
+  for excl in (False, True):
+    check("row_max", f"N={N_RAGGED},n_valid={NV_RAGGED},exclude={excl}",
+          fused.row_max(ragged, excl, NV_RAGGED),
+          fused.row_max_plain(ragged, excl, NV_RAGGED), True)
+  check("crop_diagonal", f"N={N_MAIN},in_place",
+        fused.crop_diagonal(aff.clone(), inplace=True),
+        fused.crop_diagonal_plain(aff), True)
+  for inplace in (False, True):
+    check("crop_diagonal",
+          f"N={N_RAGGED},n_valid={NV_RAGGED},in_place={inplace}",
+          fused.crop_diagonal(ragged.clone(), NV_RAGGED, inplace=inplace),
+          fused.crop_diagonal_plain(ragged, NV_RAGGED), True)
+  thr_main = fused.row_max(blurred) * P_ROWMAX
+  thr_ragged = fused.row_max(ragged, n_valid=NV_RAGGED) * P_ROWMAX
+  t2d = dict(binarize=True, preserve_diagonal=True, average=True)
+  for case, mat, thr, flags in (
+      (f"N={N_MAIN},RowMax/Max", blurred, thr_main, {}),
+      (f"N={N_MAIN},T2D", blurred, t2d_thresholds(blurred), t2d),
+      (f"N={N_RAGGED},RowMax/Max", ragged, thr_ragged, {}),
+      (f"N={N_RAGGED},n_valid={NV_RAGGED},T2D", ragged,
+       t2d_thresholds(ragged, NV_RAGGED), t2d)):
+    check("threshold_symmetrize_general", case,
+          fused.threshold_symmetrize_general(mat, thr, 0.01, **flags),
+          fused.threshold_symmetrize_general_plain(mat, thr, 0.01, **flags),
+          True)
+  failed = [c for c in checks if not c["ok"]]
+  if failed:
+    raise SystemExit(f"kernel disagrees with its twin: {failed}")
+  results["checks"] = checks
+
+  # Times at the main path's shapes, and each kernel's bound on this card.
+  n, d = N_MAIN, D_MAIN
+  xn = fused.normalize_rows(x)
+  half = torch.full((), 0.5, device=dev)
+  crop_scratch = aff.clone()
+  timed = {
+      "affinity": (lambda: fused.affinity(x), lambda: fused.affinity_plain(x),
+                   lambda: torch.addmm(half, xn, xn.T, beta=1.0, alpha=0.5),
+                   (n * d + n * n) * 4, 2 * n * n * d),
+      "row_max": (lambda: fused.row_max(blurred),
+                  lambda: fused.row_max_plain(blurred),
+                  lambda: torch.amax(blurred, dim=1, keepdim=True),
+                  (n * n + n) * 4, n * n),
+      "crop_diagonal": (
+          lambda: fused.crop_diagonal(crop_scratch, inplace=True),
+          lambda: fused.crop_diagonal_plain(aff), None,
+          (n * n + n) * 4, n * n),
+      "threshold_symmetrize_general": (
+          lambda: fused.threshold_symmetrize_general(blurred, thr_main, 0.01),
+          lambda: fused.threshold_symmetrize_general_plain(blurred, thr_main,
+                                                           0.01),
+          None, (2 * n * n + n) * 4, 4 * n * n),
+  }
+  times = {}
+  with torch.no_grad():
+    for name, (kern, plain, library, nbytes, nops) in timed.items():
+      bytes_ms = nbytes / bw * 1e3
+      ops_ms = nops / fp32 * 1e3
+      times[name] = {
+          "ms": time_ms(torch, kern),
+          "plain_ms": time_ms(torch, plain),
+          "library_ms": time_ms(torch, library) if library else None,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+      }
+      log(json.dumps({"phase": "timing", "kernel": name, **times[name]}))
+
+  # Where the main path's time goes: its other device stages at N_MAIN,
+  # each timed alone on the same inputs the pipeline gives it.
+  cfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7)
+  sym = fused.threshold_symmetrize_general(blurred, thr_main, 0.01)
+  m, _ = pipeline._symmetric_eig_operand(aff.clone(), cfg, None, None,
+                                         ref_ops.ROWNORM_TAIL)
+
+  def subspace():
+    return eigen_ops.topk_eigh_subspace(
+        m, 8, torch.Generator().manual_seed(42), num_iters=24,
+        residual_tol=2e-3, max_iters=384, drift_tol=1e-4)
+
+  breakdown = {
+      "gaussian_blur": lambda: ref_ops.gaussian_blur(aff, 1.0),
+      "diffuse": lambda: ref_ops.diffuse(sym),
+      "full_eigh": lambda: torch.linalg.eigh(m),
+      "subspace_topk": subspace,
+  }
+  results["breakdown_ms"] = {}
+  with torch.no_grad():
+    for name, fn in breakdown.items():
+      results["breakdown_ms"][name] = time_ms(torch, fn, reps=3, warmup=1)
+  log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
+  del crop_scratch, blurred, ragged, aff, sym, m
+
+  # 4. Main path.
+  ref = np.load(os.path.join(HERE, "benchmarks", "reference_labels.npz"))
+  main_runs = {}
+  for solver in (EigenSolver.Auto, EigenSolver.SubspaceIteration):
+    clusterer = configs.make_icassp2018_clusterer(
+        eigensolver=solver, staged_stage_timings=True)
+    for n_small in (512, 2048):
+      small = clusterer.predict(make_embeddings(n_small))
+      if not np.array_equal(utils.enforce_ordered_labels(small),
+                            ref[f"labels_{n_small}"]):
+        raise SystemExit(f"{solver.name}: labels differ from the reference "
+                         f"at N={n_small}")
+    emb = make_embeddings(N_MAIN, D_MAIN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clusterer.predict_with_details(emb)
+    cold_s = time.perf_counter() - t0
+    fused.reset_launch_counts()
+    warm_s = []
+    for _ in range(WARM_RUNS):
+      t0 = time.perf_counter()
+      result = clusterer.predict_with_details(emb)
+      warm_s.append(time.perf_counter() - t0)
+    launches = fused.launch_counts()
+    labels = utils.enforce_ordered_labels(result.labels)
+    run = {
+        "solver": solver.name, "n": N_MAIN, "d": D_MAIN,
+        "n_clusters": result.n_clusters,
+        "parity": bool(np.array_equal(labels, ref[f"labels_{N_MAIN}"])),
+        "eigenvalues": [float(v) for v in result.eigenvalues[:8]],
+        "eigenvalues_shape": list(result.eigenvalues.shape),
+        "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
+        "warm_wall_s_runs": warm_s,
+        "stage_timings_s_last_run": result.timings, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    main_runs[solver.name] = run
+    log(json.dumps({"phase": "main_path", **run}))
+    if not run["parity"]:
+      raise SystemExit(f"{solver.name}: labels differ from the reference")
+    if not np.all(np.isfinite(result.eigenvalues)):
+      raise SystemExit(f"{solver.name}: non-finite eigenvalues")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+      raise SystemExit(f"{solver.name}: kernels not launched by predict: "
+                       f"{idle}")
+
+  sources = {
+      "affinity": "fused.py:46-77 affinity_pallas",
+      "row_max": "fused.py:85-140 row_max_pallas",
+      "crop_diagonal": "fused.py:226-254 crop_diagonal_pallas",
+      "threshold_symmetrize_general":
+          "fused.py:148-218 threshold_symmetrize_general_pallas",
+  }
+  kernels = []
+  for name in timed:
+    err = max(c["max_abs_err"] for c in checks if c["kernel"] == name)
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "spectralcluster_tpu_torch/csrc/fused.cu",
+        "replaces": "spectralcluster_tpu/kernels/" + sources[name],
+        "launches": sum(r["launches"][name] for r in main_runs.values()),
+        "launches_per_predict":
+            main_runs["Auto"]["launches"][name] / WARM_RUNS,
+        "max_abs_err": err, "kernel_ms": times[name]["ms"],
+        **times[name],
+    })
+  results["kernels"] = kernels
+  results["main_path"] = main_runs
+  if args.out:
+    with open(args.out, "w") as f:
+      json.dump(results, f, indent=1)
+  log(json.dumps({"kernels": kernels}))
+  log("\n".join(smi))
+  log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                         "count": count}}))
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -1,0 +1,239 @@
+"""The hand-written CUDA kernels of the refinement hot path, with their twins.
+
+Four wrappers, one per Pallas kernel of the JAX package that the icassp2018
+main path runs (``spectralcluster_tpu/kernels/fused.py``):
+
+  * ``affinity`` — cosine affinity ``(xn xnᵀ + 1) / 2`` (affinity_pallas);
+  * ``row_max`` — row max over the first ``n_valid`` columns, optionally
+    with the diagonal counted as 0 (row_max_pallas);
+  * ``crop_diagonal`` — CropDiagonal, fused row max + diagonal write, in
+    place when the caller allows it (crop_diagonal_pallas);
+  * ``threshold_symmetrize_general`` — RowWiseThreshold + Symmetrize in one
+    pass over tile pairs (threshold_symmetrize_general_pallas).
+
+The kernels are in ``csrc/fused.cu``, whose comments give each one's bound on
+the H100 and what its design does about it. Each wrapper has a plain
+PyTorch twin (``*_plain``) in this module that defines its semantics. A
+wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises, and never falls back. Each wrapper carries a
+plain integer ``launches`` that it increments where it launches its kernel
+and nowhere else (``reset_launch_counts`` / ``launch_counts``).
+
+Not ported yet: row_wise_normalize_pallas, which only the GENERAL-structure
+path reaches (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+
+def _lib():
+  from spectralcluster_tpu_torch.kernels import build
+  return build.load()
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+  if t.device.type == "cpu":
+    return True
+  if t.device.type != "cuda":
+    raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")
+  return False
+
+
+def _check_f32(name: str, t: torch.Tensor, shape: typing.Tuple[int, ...]):
+  if t.dtype != torch.float32:
+    raise TypeError(f"{name}: expected float32, got {t.dtype}")
+  if tuple(t.shape) != shape:
+    raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+  if not t.is_contiguous():
+    raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _square(name: str, mat: torch.Tensor) -> int:
+  if mat.dim() != 2 or mat.shape[0] != mat.shape[1]:
+    raise ValueError(f"{name}: expected a square matrix, got "
+                     f"{tuple(mat.shape)}")
+  n = mat.shape[0]
+  _check_f32(name, mat, (n, n))
+  return n
+
+
+def _n_valid(n: int, n_valid) -> int:
+  return n if n_valid is None else max(0, min(n, int(n_valid)))
+
+
+def _vec(mat: torch.Tensor) -> int:
+  """Whether rows can be read as float4: 16-byte aligned row starts."""
+  return int(mat.shape[1] % 4 == 0 and mat.data_ptr() % 16 == 0)
+
+
+def _launch(fn_name: str, *args):
+  lib = _lib()
+  rc = getattr(lib, fn_name)(*args)
+  if rc != 0:
+    msg = lib.sct_error_string(rc).decode()
+    raise RuntimeError(f"{fn_name}: CUDA error {rc}: {msg}")
+
+
+def _stream(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Plain twins (the semantics; the CPU path; the reference on the card).
+# ---------------------------------------------------------------------------
+
+
+def normalize_rows(embeddings: torch.Tensor) -> torch.Tensor:
+  return embeddings / torch.linalg.norm(embeddings, dim=1, keepdim=True)
+
+
+def affinity_plain(embeddings: torch.Tensor) -> torch.Tensor:
+  xn = normalize_rows(embeddings)
+  return (torch.matmul(xn, xn.T) + 1.0) * 0.5
+
+
+def row_max_plain(mat: torch.Tensor, exclude_diagonal: bool = False,
+                  n_valid=None) -> torch.Tensor:
+  """(N, 1) row maxima over columns < n_valid.
+
+  With ``exclude_diagonal`` the diagonal counts as 0 — set after the column
+  mask, so rows >= n_valid get max(0, their valid-column max), exactly as
+  row_max_pallas computes it. Callers re-mask padded rows.
+  """
+  n = mat.shape[0]
+  idx = torch.arange(n, device=mat.device)
+  a = torch.where(idx[None, :] < _n_valid(n, n_valid), mat, -torch.inf)
+  if exclude_diagonal:
+    a = torch.where(idx[:, None] == idx[None, :], 0.0, a)
+  return torch.amax(a, dim=1, keepdim=True)
+
+
+def crop_diagonal_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
+  """diag <- off-diagonal row max (diagonal counted as 0); rest copied."""
+  rmax = row_max_plain(mat, exclude_diagonal=True, n_valid=n_valid)
+  out = mat.clone()
+  out.diagonal().copy_(rmax[:, 0])
+  return out
+
+
+def threshold_symmetrize_general_plain(
+    mat: torch.Tensor, thresholds: torch.Tensor, multiplier: float = 0.01,
+    binarize: bool = False, preserve_diagonal: bool = False,
+    average: bool = False) -> torch.Tensor:
+  """Sym(T(A), T(A)ᵀ) with T the per-row soft threshold."""
+  a, at = mat, mat.T
+  if preserve_diagonal:
+    eye = torch.eye(mat.shape[0], dtype=torch.bool, device=mat.device)
+    a = torch.where(eye, 0.0, a)
+    at = torch.where(eye, 0.0, at)
+
+  def thresh(x, m):
+    return torch.where(x < m, x * multiplier, 1.0 if binarize else x)
+
+  ta = thresh(a, thresholds)
+  tat = thresh(at, thresholds.T)
+  out = 0.5 * (ta + tat) if average else torch.maximum(ta, tat)
+  if preserve_diagonal:
+    out = torch.where(eye, 1.0, out)
+  return out
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+# ---------------------------------------------------------------------------
+
+
+def affinity(embeddings: torch.Tensor) -> torch.Tensor:
+  """Cosine affinity in [0, 1] of (N, d) float32 embeddings -> (N, N).
+
+  The row normalization stays plain torch (jnp outside the TPU kernel too);
+  the product and the affine step are the kernel's.
+  """
+  if _is_cpu(embeddings):
+    return affinity_plain(embeddings)
+  if embeddings.dim() != 2:
+    raise ValueError("affinity: expected (N, d) embeddings")
+  n, d = embeddings.shape
+  _check_f32("affinity", embeddings, (n, d))
+  xn = normalize_rows(embeddings).contiguous()
+  out = torch.empty((n, n), dtype=torch.float32, device=embeddings.device)
+  if n:
+    _launch("sct_affinity", xn.data_ptr(), out.data_ptr(), n, d,
+            _stream(embeddings))
+    affinity.launches += 1
+  return out
+
+
+def row_max(mat: torch.Tensor, exclude_diagonal: bool = False,
+            n_valid=None) -> torch.Tensor:
+  """(N, 1) row maxima over the first ``n_valid`` columns (see the twin)."""
+  if _is_cpu(mat):
+    return row_max_plain(mat, exclude_diagonal, n_valid)
+  n = _square("row_max", mat)
+  out = torch.empty((n, 1), dtype=torch.float32, device=mat.device)
+  if n:
+    _launch("sct_row_max", mat.data_ptr(), out.data_ptr(), n,
+            _n_valid(n, n_valid), int(exclude_diagonal), _vec(mat),
+            _stream(mat))
+    row_max.launches += 1
+  return out
+
+
+def crop_diagonal(mat: torch.Tensor, n_valid=None,
+                  inplace: bool = False) -> torch.Tensor:
+  """CropDiagonal: diag <- max of the row's other valid entries (and 0).
+
+  With ``inplace`` on the card, ``mat`` itself is overwritten (only its
+  diagonal changes) and returned: the caller must not need its old
+  diagonal. On the CPU a new tensor is always returned.
+  """
+  if _is_cpu(mat):
+    return crop_diagonal_plain(mat, n_valid)
+  n = _square("crop_diagonal", mat)
+  out = mat if inplace else torch.empty_like(mat)
+  if n:
+    _launch("sct_crop_diagonal", mat.data_ptr(), out.data_ptr(), n,
+            _n_valid(n, n_valid), _vec(mat) & _vec(out), _stream(mat))
+    crop_diagonal.launches += 1
+  return out
+
+
+def threshold_symmetrize_general(
+    mat: torch.Tensor, thresholds: torch.Tensor, multiplier: float = 0.01,
+    binarize: bool = False, preserve_diagonal: bool = False,
+    average: bool = False) -> torch.Tensor:
+  """RowWiseThreshold + Symmetrize in one pass; ``thresholds`` is (N, 1)."""
+  if _is_cpu(mat):
+    return threshold_symmetrize_general_plain(
+        mat, thresholds, multiplier, binarize, preserve_diagonal, average)
+  n = _square("threshold_symmetrize_general", mat)
+  _check_f32("threshold_symmetrize_general thresholds", thresholds, (n, 1))
+  if thresholds.device != mat.device:
+    raise ValueError("threshold_symmetrize_general: thresholds on "
+                     f"{thresholds.device}, matrix on {mat.device}")
+  out = torch.empty_like(mat)
+  if n:
+    _launch("sct_threshold_symmetrize", mat.data_ptr(), thresholds.data_ptr(),
+            out.data_ptr(), n, float(multiplier), int(binarize),
+            int(preserve_diagonal), int(average), _stream(mat))
+    threshold_symmetrize_general.launches += 1
+  return out
+
+
+WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general)
+
+
+def reset_launch_counts():
+  for fn in WRAPPERS:
+    fn.launches = 0
+
+
+def launch_counts() -> typing.Dict[str, int]:
+  return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+reset_launch_counts()

@@ -1,0 +1,180 @@
+"""Custom-distance K-Means on tensors.
+
+Port of ``spectralcluster_tpu/ops/kmeans.py:38-207``:
+  * k-means++ seeding (sklearn-style greedy local trials) drawn from a
+    ``torch.Generator``. The draws are Gumbel-max samples, as
+    ``jax.random.categorical`` makes them, from uniform noise generated on
+    the CPU and moved to the data's device, so a CPU run and a card run seed
+    alike (the numbers differ from ``jax.random``'s).
+  * Lloyd iterations with the reference's exact convergence rule
+    (custom_distance_kmeans.py:120-133), as a Python loop that reads one
+    scalar per round: stop when the mean assigned distance is within
+    (1 - tol) of the previous round's, or after max_iter + 1 rounds, and
+    return that round's labels.
+  * Fully masked: a number of clusters below the centroid count (surplus
+    centroid columns get +inf distance) and weight-0 (padded) rows.
+"""
+
+from __future__ import annotations
+
+import math
+import typing
+
+import torch
+
+from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+
+
+def _gumbel(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
+  u = torch.rand(shape, generator=generator, dtype=dtype)
+  tiny = torch.finfo(dtype).tiny
+  return (-torch.log(-torch.log(u.clamp(tiny, 1.0)))).to(device)
+
+
+def kmeans_plusplus(
+    x: torch.Tensor,
+    k_max: int,
+    generator: torch.Generator,
+    sample_weight: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
+  """Greedy k-means++ seeding (sklearn-style local trials), seeded generator.
+
+  Selection always uses squared-euclidean potentials, as in the reference,
+  where sklearn's k-means++ initializes even custom-distance K-Means.
+  ``generator`` is a CPU generator. Returns (k_max, d) centers.
+  """
+  n, d = x.shape
+  w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  valid = w > 0
+
+  c0 = torch.argmax(torch.log(w + 1e-30)
+                    + _gumbel(generator, (n,), x.dtype, x.device))
+  centers = torch.zeros((k_max, d), dtype=x.dtype, device=x.device)
+  centers[0] = x[c0]
+  closest = affinity_ops.cdist_sqeuclidean(x, x[c0][None, :])[:, 0]
+  closest = torch.where(valid, closest, 0.0)
+  trials = 2 + int(math.log(max(k_max, 1)))
+
+  for j in range(1, k_max):
+    logits = torch.where(valid, torch.log(closest + 1e-30), -torch.inf)
+    cand = torch.argmax(
+        logits[None, :] + _gumbel(generator, (trials, n), x.dtype, x.device),
+        dim=1)
+    d_cand = affinity_ops.cdist_sqeuclidean(x, x[cand])     # (N, trials)
+    new_closest = torch.minimum(closest[:, None], d_cand)
+    new_closest = torch.where(valid[:, None], new_closest, 0.0)
+    pots = torch.sum(new_closest * w[:, None], dim=0)
+    best = torch.argmin(pots)
+    centers[j] = x[cand[best]]
+    closest = new_closest[:, best]
+  return centers
+
+
+def _update_centroids(x, labels, w, c):
+  """Weighted segment means; empty clusters keep their centroid."""
+  k_max = c.shape[0]
+  onehot = (labels[:, None] == torch.arange(k_max, device=x.device)[None, :])
+  onehot = onehot.to(x.dtype) * w[:, None]
+  counts = torch.sum(onehot, dim=0)
+  sums = torch.matmul(onehot.T, x)
+  return torch.where(counts[:, None] > 0, sums / counts[:, None], c)
+
+
+def lloyd_iterations(
+    x: torch.Tensor,
+    centroids: torch.Tensor,
+    n_clusters,
+    dist_fn: typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    max_iter: int = 10,
+    tol: float = 0.001,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+  """Reference CustomKMeans.predict semantics. Returns (labels, centroids).
+
+  ``n_clusters`` (int or 0-dim tensor, <= centroids.shape[0]) masks the
+  surplus centroid slots out of the assignment. ``torch.argmin`` returns the
+  first minimal index, as ``jnp.argmin`` does, so ties break alike.
+  """
+  n = x.shape[0]
+  k_max = centroids.shape[0]
+  w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  w_total = torch.sum(w)
+  col_ok = torch.arange(k_max, device=x.device) < n_clusters
+
+  it = 0
+  prev = torch.zeros((), dtype=x.dtype, device=x.device)
+  c = centroids
+  while True:
+    dist = torch.where(col_ok[None, :], dist_fn(x, c), torch.inf)
+    labels = torch.argmin(dist, dim=1)
+    mind = torch.amin(dist, dim=1)
+    mean_dist = torch.sum(torch.where(w > 0, mind, 0.0) * w) / w_total
+    stop = bool((mean_dist <= prev) & (mean_dist >= (1.0 - tol) * prev)) or (
+        it >= max_iter)
+    if stop:
+      return labels.to(torch.int32), c
+    c = _update_centroids(x, labels, w, c)
+    prev = mean_dist
+    it += 1
+
+
+def standard_lloyd(
+    x: torch.Tensor,
+    centroids: torch.Tensor,
+    n_clusters,
+    max_iter: int = 300,
+    tol: float = 1e-4,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+  """Plain euclidean Lloyd (the reference's `custom_dist falsy` sklearn branch,
+  custom_distance_kmeans.py:33-36): run until centers move < tol or max_iter."""
+  n = x.shape[0]
+  k_max = centroids.shape[0]
+  w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  col_ok = torch.arange(k_max, device=x.device) < n_clusters
+
+  def assign(c):
+    dist = affinity_ops.cdist_sqeuclidean(x, c)
+    return torch.argmin(torch.where(col_ok[None, :], dist, torch.inf), dim=1)
+
+  c = centroids
+  for it in range(max_iter):
+    new_c = _update_centroids(x, assign(c), w, c)
+    shift = torch.sum((new_c - c) ** 2)
+    c = new_c
+    if bool(shift < tol) or it + 1 >= max_iter:
+      break
+  return assign(c).to(torch.int32), c
+
+
+def kmeans_fit(
+    x: torch.Tensor,
+    n_clusters,
+    generator: torch.Generator,
+    custom_dist: typing.Union[str, typing.Callable, None] = "cosine",
+    max_iter: int = 10,
+    tol: float = 0.001,
+    k_max: typing.Optional[int] = None,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+  """Full K-Means: seeded k-means++ init, then Lloyd with the chosen metric.
+
+  Mirrors reference run_kmeans (custom_distance_kmeans.py:13-52): falsy
+  ``custom_dist`` means plain euclidean K-Means with max_iter=300; otherwise
+  k-means++ provides the initial centroids for the custom-distance loop.
+  ``k_max`` is the centroid count when ``n_clusters`` is a tensor.
+  """
+  if k_max is None:
+    k_max = int(n_clusters)
+  centroids = kmeans_plusplus(x, k_max, generator, sample_weight)
+  if not custom_dist:
+    labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,
+                               sample_weight=sample_weight)
+    return labels
+  dist_fn = affinity_ops.get_distance_fn(custom_dist)
+  labels, _ = lloyd_iterations(x, centroids, n_clusters, dist_fn,
+                               max_iter=max_iter, tol=tol,
+                               sample_weight=sample_weight)
+  return labels

@@ -1,0 +1,413 @@
+"""The spectral-clustering pipeline on tensors (fixed-k fast path).
+
+Port of the main path of ``spectralcluster_tpu/pipeline.py``:
+embeddings -> cosine affinity -> refinement sequence -> symmetric eigen
+operand -> top eigenpairs -> snapped eigengap count -> masked K-Means.
+
+  * ``prepare_affinity`` / ``refine_and_eigendecompose`` /
+    ``spectral_cluster_fixed_k`` — the staged-free entry points;
+  * ``spectral_cluster_fixed_k_staged`` — the same computation split at the
+    eigensolver boundary, with per-stage timings. The JAX package split its
+    program there to get past a TPU compile wall; PyTorch runs eagerly and
+    has no such wall, so here the split only gives the stage timings and the
+    route past ``dc_max_block`` (below).
+
+Eager PyTorch does not recompile per shape, so callers may run unpadded
+(``n_valid=None``); every op still honours ``n_valid``.
+
+Past ``dc_max_block`` the JAX ``Auto`` route is the spectral
+divide-and-conquer top-k solver (ROADMAP queue 1 item 9, not ported). On the
+card a full ``torch.linalg.eigh`` fits at those sizes (one (N,N) float32 is
+0.42 GB at N=10240), so the port runs the full eigh and returns what the
+JAX route returns: the max_clusters+1 extreme eigenvalues in scan order,
+snapped against the full spectrum's max|w|.
+
+Each entry point runs under ``precision.fp32_precision()`` (TF32 off).
+Randomness: the K-Means seeding takes a CPU ``torch.Generator`` where JAX
+took a PRNG key; the subspace start panel comes from a generator seeded 42,
+as JAX used ``PRNGKey(42)``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import typing
+
+import torch
+
+from spectralcluster_tpu_torch.kernels import fused as fused_kernels
+from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
+from spectralcluster_tpu_torch.ops import refinement as refinement_ops
+from spectralcluster_tpu_torch.precision import fp32_precision
+from spectralcluster_tpu_torch.types import (ConstraintOptions, EigenGapType,
+                                             EigenSolver, LaplacianType,
+                                             RefinementOptions)
+
+# Geometric bucket growth factor above 512 (snapped up to multiples of 256).
+_BUCKET_GROWTH = 1.25
+_SUBSPACE_SEED = 42
+
+
+def pad_bucket(n: int) -> int:
+  """Round a problem size up to the JAX package's shape bucket.
+
+  Powers of two up to 512, then a geometric ladder (×1.25, snapped up to
+  multiples of 256). A bucket maps to itself. The port does not pad, but
+  routes by the bucket so that it picks the same solver route (and returns
+  eigenvalues of the same shape) as the JAX package for the same N.
+  """
+  if n <= 8:
+    return 8
+  if n <= 512:
+    return 1 << (n - 1).bit_length()
+  b = 512
+  while b < n:
+    b = -(-int(b * _BUCKET_GROWTH) // 256) * 256
+  return b
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+  """Configuration of the pipeline; the JAX package's fields, by name.
+
+  ``use_kernels`` is the JAX ``use_pallas``: route the refinement hot path
+  through kernels/fused.py. Fields kept for paths not ported yet (and
+  refused where they would change the result): ``constraint_options``,
+  ``constraint_symmetric`` and ``autotune`` (ROADMAP queue 1 item 8), a
+  ``laplacian_type`` other than Affinity (item 8), ``dc_sign_precision``
+  (item 9); ``constraint_symmetric`` and ``dc_sign_precision`` are read
+  by nothing yet.
+  ``matmul_precision`` must stay "highest": the port runs every product in
+  IEEE float32.
+  """
+  refinement_options: RefinementOptions = RefinementOptions()
+  constraint_options: typing.Optional[ConstraintOptions] = None
+  laplacian_type: typing.Optional[LaplacianType] = None
+  min_clusters: typing.Optional[int] = None
+  max_clusters: typing.Optional[int] = None
+  stop_eigenvalue: float = 1e-2
+  eigengap_type: EigenGapType = EigenGapType.Ratio
+  row_wise_renorm: bool = False
+  custom_dist: typing.Union[str, typing.Callable, None] = "cosine"
+  max_iter: int = 300
+  eigensolver: EigenSolver = EigenSolver.Auto
+  affinity_symmetric: bool = True
+  constraint_symmetric: bool = True
+  eigenvalue_snap_tol: float = 1e-5
+  use_kernels: bool = True
+  matmul_precision: str = "highest"
+  subspace_iters: int = 24
+  subspace_residual_tol: typing.Optional[float] = 2e-3
+  subspace_max_iters: int = 384
+  subspace_drift_tol: typing.Optional[float] = 1e-4
+  dc_max_block: int = 8192
+  dc_sign_precision: typing.Optional[str] = None
+  autotune: typing.Optional[typing.Any] = None
+
+  def replace(self, **kw) -> "PipelineConfig":
+    return dataclasses.replace(self, **kw)
+
+
+def _check_supported(cfg: PipelineConfig):
+  if cfg.matmul_precision != "highest":
+    raise ValueError("the port runs every matmul in IEEE float32; "
+                     f"matmul_precision={cfg.matmul_precision!r} is refused")
+  if cfg.autotune is not None:
+    raise NotImplementedError("in-graph autotune is not ported yet (ROADMAP "
+                              "queue 1 item 8, Turn-to-Diarize)")
+  if not _descend(cfg):
+    raise NotImplementedError("Laplacian pipelines are not ported yet "
+                              "(ROADMAP queue 1 item 8, ops/laplacian.py)")
+  if cfg.constraint_options is not None:
+    raise NotImplementedError("constraints are not ported yet (ROADMAP "
+                              "queue 1 item 8, constraint.py)")
+  if cfg.eigensolver == EigenSolver.HostGeneral:
+    raise NotImplementedError("EigenSolver.HostGeneral is not ported yet "
+                              "(ROADMAP queue 1 item 7)")
+
+
+def _descend(cfg: PipelineConfig) -> bool:
+  """Affinity path scans eigenvalues descending; Laplacians ascending
+  (reference spectral_clusterer.py:144-167)."""
+  return cfg.laplacian_type in (None, LaplacianType.Affinity)
+
+
+def _eig_structure(cfg: PipelineConfig) -> str:
+  """Statically classify which eigensolver path applies (no constraint)."""
+  structure = refinement_ops.analyze_symmetry(
+      cfg.refinement_options.refinement_sequence, cfg.affinity_symmetric)
+  if not _descend(cfg):
+    return (refinement_ops.SYMMETRIC
+            if structure == refinement_ops.SYMMETRIC else refinement_ops.GENERAL)
+  return structure
+
+
+def _symmetric_structure(cfg: PipelineConfig) -> str:
+  structure = _eig_structure(cfg)
+  if structure == refinement_ops.GENERAL:
+    raise NotImplementedError(
+        "the refined matrix has no symmetric structure; the general "
+        "eigensolver route is not ported yet (ROADMAP queue 1 item 7, and "
+        "row_wise_normalize_pallas in queue 2)")
+  return structure
+
+
+def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
+                           n_valid, structure, consume_input=False):
+  """Refinement -> the symmetric matrix handed to eigh, plus its scale.
+
+  Returns (m, vec_scale) such that ``eigh(m)`` followed by
+  ``recover_similarity_eigenvectors(u, vec_scale)`` reproduces the
+  eigendecomposition of the (possibly non-symmetric) refined matrix.
+  Padding sentinels are applied. ``consume_input`` lets the refinement
+  overwrite ``affinity``.
+  """
+  ropts = cfg.refinement_options
+  seq = ropts.refinement_sequence or ()
+
+  def apply_seq(mat, names):
+    return refinement_ops.apply_refinement_sequence(
+        mat, ropts, sequence=names, p_percentile=p_percentile, n_valid=n_valid,
+        use_kernels=cfg.use_kernels, consume_input=consume_input)
+
+  if structure == refinement_ops.ROWNORM_TAIL:
+    # A = D_r^{-1} S with S symmetric: eigh on D_r^{-1/2} S D_r^{-1/2}.
+    s = apply_seq(affinity, seq[:-1])
+    d = refinement_ops.row_max_scale(s, n_valid, use_kernels=cfg.use_kernels)
+    inv_sqrt = 1.0 / torch.sqrt(d)
+    m, scale = inv_sqrt[:, None] * s * inv_sqrt[None, :], inv_sqrt
+  else:
+    m, scale = apply_seq(affinity, seq), None
+  if n_valid is not None:
+    m = eigen_ops.apply_padding_sentinels(m, n_valid, True)
+  return m, scale
+
+
+def prepare_affinity(
+    embeddings: torch.Tensor,
+    cfg: PipelineConfig,
+    n_valid=None,
+) -> torch.Tensor:
+  """Cosine affinity of (N, d) embeddings, masked to n_valid."""
+  with fp32_precision():
+    if cfg.use_kernels:
+      affinity = fused_kernels.affinity(embeddings)
+    else:
+      affinity = affinity_ops.compute_affinity_matrix(embeddings)
+    return refinement_ops.mask_padding(affinity, n_valid)
+
+
+def refine_and_eigendecompose(
+    affinity: torch.Tensor,
+    cfg: PipelineConfig,
+    p_percentile=None,
+    n_valid=None,
+    consume_input: bool = False,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Refinement -> eigendecomposition -> snapped eigengap count.
+
+  Returns (eigenvalues, eigenvectors, n_clusters, max_delta_norm) as
+  tensors. ``consume_input`` lets the refinement overwrite ``affinity``.
+  """
+  _check_supported(cfg)
+  descend = _descend(cfg)
+  if (cfg.eigensolver == EigenSolver.SubspaceIteration
+      and cfg.max_clusters is None):
+    raise ValueError("SubspaceIteration requires max_clusters (the top-k).")
+  structure = _symmetric_structure(cfg)
+  with fp32_precision():
+    m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
+                                      structure, consume_input)
+    if cfg.eigensolver == EigenSolver.SubspaceIteration:
+      w, u = eigen_ops.topk_eigh_subspace_masked(
+          m, cfg.max_clusters + 1,
+          torch.Generator().manual_seed(_SUBSPACE_SEED),
+          largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
+          residual_tol=cfg.subspace_residual_tol,
+          max_iters=cfg.subspace_max_iters, drift_tol=cfg.subspace_drift_tol)
+      eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
+                                                               n_valid)
+      # The k extreme eigenpairs are all valid: no sentinels among them.
+      gap_n_valid = None
+    else:
+      w, eigenvectors = eigen_ops.sorted_eigh_similarity(
+          m, scale, descend=descend, n_valid=n_valid)
+      gap_n_valid = n_valid
+    eigenvalues = eigen_ops.snap_small_eigenvalues(
+        w, n_valid=gap_n_valid, tol=cfg.eigenvalue_snap_tol)
+    n_clusters, max_delta = eigen_ops.compute_number_of_clusters(
+        eigenvalues, max_clusters=cfg.max_clusters,
+        stop_eigenvalue=cfg.stop_eigenvalue, eigengap_type=cfg.eigengap_type,
+        descend=descend, n_valid=gap_n_valid)
+  return eigenvalues, eigenvectors, n_clusters, max_delta
+
+
+def spectral_embeddings_from_eigs(
+    eigenvectors: torch.Tensor,
+    n_clusters,
+    k_max: int,
+    row_wise_renorm: bool,
+    n_valid=None) -> torch.Tensor:
+  """First-k eigenvector columns with n_clusters masking + optional renorm.
+
+  Columns >= n_clusters are zeroed: for the metrics used downstream zero
+  coordinates are inert, so this equals the reference's slice
+  eigenvectors[:, :n] (spectral_clusterer.py:299-305).
+  """
+  emb = eigenvectors[:, :k_max]
+  col_ok = torch.arange(emb.shape[1], device=emb.device) < n_clusters
+  emb = torch.where(col_ok[None, :], emb, 0.0)
+  if row_wise_renorm:
+    norms = torch.linalg.norm(emb, dim=1, keepdim=True)
+    emb = emb / torch.where(norms > 0, norms, 1.0)
+  if n_valid is not None:
+    row_ok = torch.arange(emb.shape[0], device=emb.device) < n_valid
+    emb = torch.where(row_ok[:, None], emb, 0.0)
+  return emb
+
+
+def _cluster_from_eigs(eigenvectors, n_gap, cfg: PipelineConfig,
+                       generator: torch.Generator, n_valid, kmeans_tol):
+  """Eigengap count -> spectral embeddings -> masked K-Means -> labels."""
+  n = eigenvectors.shape[0]
+  dev = eigenvectors.device
+  n_clusters = n_gap
+  if cfg.min_clusters is not None:
+    n_clusters = torch.clamp_min(n_clusters, cfg.min_clusters)
+  emb = spectral_embeddings_from_eigs(
+      eigenvectors, n_clusters, cfg.max_clusters, cfg.row_wise_renorm,
+      n_valid)
+  rows = torch.arange(n, device=dev)
+  if n_valid is None:
+    weight = torch.ones((n,), dtype=emb.dtype, device=dev)
+  else:
+    weight = (rows < n_valid).to(emb.dtype)
+  labels = kmeans_ops.kmeans_fit(
+      emb, n_clusters, generator, custom_dist=cfg.custom_dist,
+      max_iter=cfg.max_iter, tol=kmeans_tol, k_max=cfg.max_clusters,
+      sample_weight=weight)
+  labels = torch.where(rows < (n if n_valid is None else n_valid), labels, 0)
+  return labels, n_clusters
+
+
+def _require_max_clusters(cfg: PipelineConfig):
+  if cfg.max_clusters is None:
+    raise ValueError(
+        "spectral_cluster_fixed_k requires max_clusters (the k cap); the "
+        "unbounded-k host path is ROADMAP queue 1 item 7.")
+
+
+def spectral_cluster_fixed_k(
+    embeddings: torch.Tensor,
+    generator: torch.Generator,
+    cfg: PipelineConfig,
+    n_valid=None,
+    kmeans_tol: float = 0.001,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """End-to-end clustering (embeddings -> labels) on the embeddings' device.
+
+  Requires cfg.max_clusters. Padded rows (index >= n_valid) receive label 0.
+  ``generator`` is a CPU generator for the K-Means seeding. Returns tensors
+  (labels, n_clusters, eigenvalues, max_delta_norm).
+  """
+  _require_max_clusters(cfg)
+  with fp32_precision():
+    affinity = prepare_affinity(embeddings, cfg, n_valid)
+    eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
+        affinity, cfg, n_valid=n_valid, consume_input=True)
+    del affinity
+    labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
+                                            generator, n_valid, kmeans_tol)
+  return labels, n_clusters, eigenvalues, max_delta
+
+
+def _valid_gershgorin(m: torch.Tensor, n_valid) -> torch.Tensor:
+  """Max absolute row sum of the valid block (>= every |eigenvalue|)."""
+  if n_valid is None:
+    return torch.amax(torch.sum(torch.abs(m), dim=1))
+  valid = torch.arange(m.shape[0], device=m.device) < n_valid
+  keep = valid[:, None] & valid[None, :]
+  return torch.amax(torch.sum(torch.where(keep, torch.abs(m), 0.0), dim=1))
+
+
+def spectral_cluster_fixed_k_staged(
+    embeddings: torch.Tensor,
+    generator: torch.Generator,
+    cfg: PipelineConfig,
+    n_valid=None,
+    timings=None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """``spectral_cluster_fixed_k`` split at the eigensolver boundary.
+
+  Stages: "staged_prep" (affinity + refinement + eigen operand), then
+  "staged_subspace" (SubspaceIteration) or "staged_eigh" (full eigh), then
+  "staged_finish" (snap, eigengap, K-Means). With ``timings`` (an
+  observability.StageTimings) each stage's duration is recorded.
+
+  Routes, as in the JAX executor:
+    * SubspaceIteration: top-k subspace iteration; the snap and the
+      NormalizedDiff denominator use the operand's valid Gershgorin bound
+      as the full-spectrum scale.
+    * Auto with pad_bucket(N) > dc_max_block (the JAX spectral-D&C route):
+      full eigh, then only the max_clusters+1 extreme eigenpairs in scan
+      order go on, snapped against the full spectrum's max|w|.
+    * otherwise: full eigh, all N eigenvalues.
+  """
+  _require_max_clusters(cfg)
+  _check_supported(cfg)
+  structure = _symmetric_structure(cfg)
+  descend = _descend(cfg)
+  k = cfg.max_clusters + 1
+
+  def stage(name):
+    if timings is None:
+      return contextlib.nullcontext()
+    return timings.stage(name)
+
+  with fp32_precision():
+    with stage("staged_prep"):
+      affinity = prepare_affinity(embeddings, cfg, n_valid)
+      m, scale = _symmetric_eig_operand(affinity, cfg, None, n_valid,
+                                        structure, consume_input=True)
+      del affinity
+    topk = True
+    if cfg.eigensolver == EigenSolver.SubspaceIteration:
+      with stage("staged_subspace"):
+        w, u = eigen_ops.topk_eigh_subspace_masked(
+            m, k, torch.Generator().manual_seed(_SUBSPACE_SEED),
+            largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
+            residual_tol=cfg.subspace_residual_tol,
+            max_iters=cfg.subspace_max_iters,
+            drift_tol=cfg.subspace_drift_tol)
+        wscale = _valid_gershgorin(m, n_valid)
+    else:
+      with stage("staged_eigh"):
+        w, u = eigen_ops.sorted_eigh(m, descend=descend)
+        if (cfg.eigensolver == EigenSolver.Auto
+            and pad_bucket(m.shape[0]) > cfg.dc_max_block):
+          valid = torch.ones_like(w, dtype=torch.bool) if n_valid is None else (
+              torch.arange(w.shape[0], device=w.device) < n_valid)
+          wscale = torch.amax(torch.where(valid, torch.abs(w), 0.0))
+          # Sentinels sort past the scan end, so the first k are valid.
+          w, u = w[:k], u[:, :k]
+        else:
+          topk = False
+    del m
+    with stage("staged_finish"):
+      eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
+                                                               n_valid)
+      gap_n_valid = None if topk else n_valid
+      wmax = wscale if topk else None
+      eigenvalues = eigen_ops.snap_small_eigenvalues(
+          w, n_valid=gap_n_valid, tol=cfg.eigenvalue_snap_tol, wmax=wmax)
+      n_gap, max_delta = eigen_ops.compute_number_of_clusters(
+          eigenvalues, max_clusters=cfg.max_clusters,
+          stop_eigenvalue=cfg.stop_eigenvalue,
+          eigengap_type=cfg.eigengap_type, descend=descend,
+          n_valid=gap_n_valid, wmax=wmax)
+      labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
+                                              generator, n_valid, 0.001)
+  return labels, n_clusters, eigenvalues, max_delta

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+These tests need a CUDA card and nvcc; without a card they skip. They import
+only torch and the port, so they also run where JAX is not installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from spectralcluster_tpu_torch import configs, utils
+from spectralcluster_tpu_torch.fixtures import make_embeddings
+from spectralcluster_tpu_torch.kernels import fused
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card (the kernels have no CPU mode; the CPU "
+                "tests run their plain twins)")
+  return torch.device("cuda")
+
+
+def _mat(n, seed, device, shift=0.0):
+  rng = np.random.RandomState(seed)
+  return torch.as_tensor(rng.randn(n, n).astype(np.float32) + shift).to(device)
+
+
+@pytest.mark.parametrize("n,d", [(1000, 100), (64, 256), (513, 33)])
+def test_affinity(cuda, n, d):
+  x = torch.as_tensor(
+      np.random.RandomState(0).randn(n, d).astype(np.float32)).to(cuda)
+  torch.testing.assert_close(fused.affinity(x), fused.affinity_plain(x),
+                             rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None), (7, 5)])
+@pytest.mark.parametrize("exclude", [False, True])
+def test_row_max(cuda, n, n_valid, exclude):
+  a = _mat(n, 1, cuda, -0.5)
+  assert torch.equal(fused.row_max(a, exclude, n_valid),
+                     fused.row_max_plain(a, exclude, n_valid))
+
+
+@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None)])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_crop_diagonal(cuda, n, n_valid, inplace):
+  a = _mat(n, 2, cuda, -3.0)
+  want = fused.crop_diagonal_plain(a, n_valid)
+  got = fused.crop_diagonal(a.clone(), n_valid, inplace=inplace)
+  assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 33])
+@pytest.mark.parametrize("flags", [
+    {}, dict(binarize=True, preserve_diagonal=True, average=True)])
+def test_threshold_symmetrize(cuda, n, flags):
+  a = _mat(n, 3, cuda)
+  thr = fused.row_max_plain(a) * 0.6
+  assert torch.equal(fused.threshold_symmetrize_general(a, thr, 0.01, **flags),
+                     fused.threshold_symmetrize_general_plain(a, thr, 0.01,
+                                                              **flags))
+
+
+def test_predict_launches_every_kernel(cuda):
+  ref = np.load(os.path.join(os.path.dirname(__file__), os.pardir, "benchmarks",
+                             "reference_labels.npz"))["labels_2048"]
+  fused.reset_launch_counts()
+  labels = configs.make_icassp2018_clusterer().predict(make_embeddings(2048))
+  assert all(v > 0 for v in fused.launch_counts().values())
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels), ref)

@@ -1,0 +1,276 @@
+"""The port's pipeline and clusterer vs the JAX package and the recorded labels.
+
+End to end, ``make_icassp2018_clusterer().predict`` on the bench fixture
+must reproduce ``benchmarks/reference_labels.npz`` with both eigensolvers,
+on the CPU (``device="cpu"``, kernels replaced by their plain twins), and
+agree with the JAX package's labels up to permutation.
+"""
+
+import ast
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from spectralcluster_tpu import configs as j_configs
+from spectralcluster_tpu import pipeline as j_pipeline
+from spectralcluster_tpu import types as j_types
+from spectralcluster_tpu_torch import configs
+from spectralcluster_tpu_torch import convert
+from spectralcluster_tpu_torch import pipeline
+from spectralcluster_tpu_torch import utils
+from spectralcluster_tpu_torch.clusterer import SpectralClusterer
+from spectralcluster_tpu_torch.fixtures import make_embeddings
+from spectralcluster_tpu_torch.kernels import fused
+from spectralcluster_tpu_torch.observability import StageTimings
+from spectralcluster_tpu_torch.types import EigenSolver
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REFERENCE = os.path.join(REPO, "benchmarks", "reference_labels.npz")
+SOLVERS = ("Auto", "SubspaceIteration")
+
+
+def _cfg(solver="Auto", **kw):
+  return pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, eigensolver=EigenSolver[solver], **kw)
+
+
+def _jcfg(solver="Auto"):
+  return j_pipeline.PipelineConfig(
+      refinement_options=j_configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7,
+      eigensolver=j_types.EigenSolver[solver])
+
+
+@pytest.mark.parametrize("n", [512, 1024, 2048])
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_predict_matches_reference_and_jax(n, solver):
+  x = make_embeddings(n)
+  with np.load(REFERENCE) as z:
+    ref = z[f"labels_{n}"]
+  ours = configs.make_icassp2018_clusterer(
+      device="cpu", eigensolver=EigenSolver[solver]).predict(x)
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(ours), ref)
+  jax_clusterer = j_configs.make_icassp2018_clusterer()
+  jax_clusterer.eigensolver = j_types.EigenSolver[solver]
+  theirs = jax_clusterer.predict(x)
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(ours),
+                                utils.enforce_ordered_labels(theirs))
+
+
+def test_make_embeddings_is_the_bench_fixture():
+  for args in ((512,), (300, 64, 3, 5)):
+    np.testing.assert_array_equal(make_embeddings(*args),
+                                  bench.make_embeddings(*args))
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("n_valid", [None, 300])
+def test_refine_and_eigendecompose_matches_jax(solver, n_valid):
+  x = np.zeros((384, 64), np.float32)
+  x[:300] = make_embeddings(300, d=64, k=3, seed=3)
+  if n_valid is None:
+    x = x[:300]
+  cfg, jcfg = _cfg(solver), _jcfg(solver)
+  aff = pipeline.prepare_affinity(torch.as_tensor(x), cfg, n_valid)
+  w, v, n_c, delta = pipeline.refine_and_eigendecompose(aff, cfg,
+                                                        n_valid=n_valid)
+  jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg, n_valid=n_valid)
+  jw, jv, jn_c, jdelta = j_pipeline.refine_and_eigendecompose(
+      jaff, jcfg, n_valid=n_valid)
+  np.testing.assert_allclose(aff.numpy(), np.asarray(jaff), rtol=1e-5,
+                             atol=1e-6)
+  assert int(n_c) == int(jn_c) == 3
+  k = 8
+  wmax = float(np.max(np.abs(np.asarray(jw)[:k])))
+  np.testing.assert_allclose(w.numpy()[:k], np.asarray(jw)[:k],
+                             atol=1e-4 * wmax)
+  np.testing.assert_allclose(float(delta), float(jdelta), rtol=1e-3)
+  assert w.shape == jw.shape and v.shape == jv.shape
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_padded_run_matches_unpadded(solver):
+  x = make_embeddings(300, d=32, k=3, seed=4)
+  xp = np.zeros((384, 32), np.float32)
+  xp[:300] = x
+  cfg = _cfg(solver)
+  gen = lambda: torch.Generator().manual_seed(0)
+  lab, n_c, w, _ = pipeline.spectral_cluster_fixed_k(torch.as_tensor(x), gen(),
+                                                     cfg)
+  plab, pn_c, pw, _ = pipeline.spectral_cluster_fixed_k(
+      torch.as_tensor(xp), gen(), cfg, n_valid=300)
+  assert int(n_c) == int(pn_c) == 3
+  np.testing.assert_array_equal(
+      utils.enforce_ordered_labels(lab.numpy()),
+      utils.enforce_ordered_labels(plab.numpy()[:300]))
+  assert (plab.numpy()[300:] == 0).all()
+  wmax = float(w.abs().max())
+  np.testing.assert_allclose(pw.numpy()[:8], w.numpy()[:8], atol=1e-4 * wmax)
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_staged_matches_monolithic(solver):
+  x = torch.as_tensor(make_embeddings(512))
+  cfg = _cfg(solver)
+  timings = StageTimings("cpu")
+  out = pipeline.spectral_cluster_fixed_k_staged(
+      x, torch.Generator().manual_seed(0), cfg, timings=timings)
+  ref = pipeline.spectral_cluster_fixed_k(x, torch.Generator().manual_seed(0),
+                                          cfg)
+  np.testing.assert_array_equal(out[0].numpy(), ref[0].numpy())
+  assert int(out[1]) == int(ref[1]) == 2
+  middle = "staged_subspace" if solver == "SubspaceIteration" else "staged_eigh"
+  assert set(timings.as_dict()) == {"staged_prep", middle, "staged_finish"}
+
+
+def test_staged_auto_past_dc_max_block_returns_topk():
+  # The JAX route there is the spectral D&C top-k solver: max_clusters+1
+  # extreme eigenvalues in scan order, snapped against the full spectrum.
+  x = torch.as_tensor(make_embeddings(512))
+  topk = pipeline.spectral_cluster_fixed_k_staged(
+      x, torch.Generator().manual_seed(0), _cfg(dc_max_block=256))
+  full = pipeline.spectral_cluster_fixed_k(
+      x, torch.Generator().manual_seed(0), _cfg())
+  assert topk[2].shape == (8,) and full[2].shape == (512,)
+  np.testing.assert_array_equal(topk[2].numpy(), full[2].numpy()[:8])
+  np.testing.assert_array_equal(topk[0].numpy(), full[0].numpy())
+  # An explicit Eigh keeps the full spectrum there, as in the JAX executor.
+  eigh = pipeline.spectral_cluster_fixed_k_staged(
+      x, torch.Generator().manual_seed(0),
+      _cfg("Eigh", dc_max_block=256))
+  assert eigh[2].shape == (512,)
+
+
+@pytest.mark.parametrize("kwargs,call", [
+    (dict(autotune=object()), {}),
+    (dict(max_clusters=None), {}),
+    (dict(affinity_function=lambda e: e @ e.T), {}),
+    (dict(post_eigen_cluster_function=lambda **kw: None), {}),
+    (dict(min_clusters=1), {}),
+    (dict(custom_dist="mahalanobis"), {}),
+    (dict(max_spectral_size=16), {}),
+    ({}, dict(constraint_matrix=np.eye(32))),
+])
+def test_unported_branches_raise(kwargs, call):
+  base = dict(min_clusters=2, max_clusters=7, device="cpu")
+  clusterer = SpectralClusterer(**{**base, **kwargs})
+  with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    clusterer.predict(make_embeddings(32, d=8), **call)
+
+
+def test_clusterer_defaults_to_the_card():
+  clusterer = configs.make_icassp2018_clusterer()
+  assert clusterer.device == "cuda"
+  if torch.cuda.is_available():
+    pytest.skip("a card is present: the no-card refusal cannot be shown")
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    clusterer.predict(make_embeddings(64, d=8))
+
+
+def test_predict_details_on_cpu_launch_no_kernel():
+  fused.reset_launch_counts()
+  result = configs.make_icassp2018_clusterer(
+      device="cpu", staged_execution_min_n=512,
+      staged_stage_timings=True).predict_with_details(make_embeddings(512))
+  assert result.n_clusters == 2
+  assert {"pipeline", "staged_prep", "staged_eigh", "staged_finish"} <= set(
+      result.timings)
+  assert all(v == 0 for v in fused.launch_counts().values())
+
+
+def test_convert_pipeline_config_every_field():
+  jcfg = j_pipeline.PipelineConfig(
+      refinement_options=j_configs.turntodiarize_refinement_options(),
+      constraint_options=j_configs.turntodiarize_constraint_options(),
+      laplacian_type=j_types.LaplacianType.GraphCut, min_clusters=3,
+      max_clusters=9, stop_eigenvalue=0.05,
+      eigengap_type=j_types.EigenGapType.NormalizedDiff, row_wise_renorm=True,
+      custom_dist="sqeuclidean", max_iter=17,
+      eigensolver=j_types.EigenSolver.SubspaceIteration,
+      affinity_symmetric=False, constraint_symmetric=False,
+      eigenvalue_snap_tol=1e-6, use_pallas=False, matmul_precision="high",
+      subspace_iters=12, subspace_residual_tol=1e-4, subspace_max_iters=99,
+      subspace_drift_tol=None, dc_max_block=4096, dc_sign_precision="highest")
+  cfg = convert.pipeline_config_from(jcfg)
+
+  def plain(v):
+    if hasattr(v, "name") and not isinstance(v, str):
+      return v.name
+    if isinstance(v, tuple):
+      return tuple(plain(e) for e in v)
+    if dataclasses.is_dataclass(v):
+      return {f.name: plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    return v
+
+  for f in dataclasses.fields(jcfg):
+    name = "use_kernels" if f.name == "use_pallas" else f.name
+    assert plain(getattr(cfg, name)) == plain(getattr(jcfg, f.name)), f.name
+  assert len(dataclasses.fields(cfg)) == len(dataclasses.fields(jcfg))
+  with pytest.raises(NotImplementedError, match="item 8"):
+    convert.pipeline_config_from(
+        jcfg.replace(autotune=j_pipeline.AutoTuneStatic()))
+
+
+def test_subspace_survives_a_collapsed_basis():
+  # Two speakers at d=32: block power iteration collapses the 16-column
+  # basis onto the rank-2 top, and the Ritz matrix carries float32
+  # denormals. torch's float32 eigh raised there; JAX's returned.
+  x = make_embeddings(256, d=32)
+  out = pipeline.spectral_cluster_fixed_k(
+      torch.as_tensor(x), torch.Generator().manual_seed(0),
+      _cfg("SubspaceIteration"))
+  ref = j_pipeline.spectral_cluster_fixed_k(
+      jnp.asarray(x), jax.random.PRNGKey(0), _jcfg("SubspaceIteration"))
+  assert int(out[1]) == int(ref[1]) == 2
+  np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]),
+                             atol=1e-4 * float(np.max(np.abs(ref[2]))))
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(out[0].numpy()),
+                                utils.enforce_ordered_labels(ref[0]))
+
+
+def test_converted_config_runs_like_the_port_config():
+  x = torch.as_tensor(make_embeddings(256, d=32))
+  cfg = convert.pipeline_config_from(_jcfg("SubspaceIteration"))
+  a = pipeline.spectral_cluster_fixed_k(x, torch.Generator().manual_seed(0),
+                                        cfg)
+  b = pipeline.spectral_cluster_fixed_k(x, torch.Generator().manual_seed(0),
+                                        _cfg("SubspaceIteration"))
+  np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+
+
+def _imports(path):
+  tree = ast.parse(open(path).read(), path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+      yield node.module
+
+
+def _port_files():
+  root = os.path.join(REPO, "spectralcluster_tpu_torch")
+  files = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tools", "profile_predict_torch.py")]
+  for dirpath, _, names in os.walk(root):
+    files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+  return files
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+  files = _port_files()
+  assert len(files) > 10
+  for path in files:
+    for mod in _imports(path):
+      top = mod.split(".")[0]
+      assert top not in ("jax", "jaxlib"), (path, mod)
+      assert mod != "spectralcluster_tpu" and not mod.startswith(
+          "spectralcluster_tpu."), (path, mod)
