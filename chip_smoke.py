@@ -11,19 +11,31 @@ result line):
   1. device — the card's name and power limit (nvidia-smi);
   2. build — compiles csrc/fused.cu with nvcc at first use;
   3. kernels — each hand-written kernel against its plain PyTorch twin on the
-     card, at the main path's shapes (N=10240, d=256) and at a ragged
-     N=1000 with n_valid=937; kernels 2-4 must agree bit for bit, the
-     affinity within rtol=1e-5, atol=1e-6 (its float32 sums run in another
-     order). Then times (CUDA events, median of 20 after warm-up) of each
-     kernel, its twin and a one-call library yardstick where one exists,
-     beside the card's bound for the same work, and of the main path's
-     other device stages (blur, Diffuse, full eigh, top-k subspace);
-  4. main path — make_icassp2018_clusterer().predict on make_embeddings(N)
-     with both eigensolvers (one cold run, then the median of WARM_RUNS
-     warm runs); labels must equal
-     benchmarks/reference_labels.npz, and every kernel must have launched
-     during predict (launch counts are zeroed just before and read just
-     after; the comparison launches of phase 3 do not count).
+     card, at the main path's shapes (N=10240, d=256; kernel 5 on the
+     Diffuse output, its input on the HostGeneral path) and at a ragged
+     N=1000 with n_valid=937 on a matrix with negative entries; kernels 2-5
+     must agree bit for bit, the affinity within rtol=1e-5, atol=1e-6 (its
+     float32 sums run in another order). Then times (CUDA events, median of
+     20 after warm-up) of each kernel, its twin and a one-call library
+     yardstick where one exists, beside the card's bound for the same work,
+     and of the main path's other device stages (blur, Diffuse, full eigh,
+     top-k subspace);
+  4. paths — make_icassp2018_clusterer(...).predict on make_embeddings(N),
+     labels held against benchmarks/reference_labels.npz at N=512, 2048 and
+     the leg's N, with launch counts zeroed after the cold run and read
+     after the warm runs (the comparison launches of phase 3 do not count);
+     each leg fails if a kernel of its path did not launch:
+       * Auto and SubspaceIteration at N=10240 (one cold run, WARM_RUNS
+         warm): kernels 1-4 (RowWiseNormalize is absorbed into the eigh
+         similarity transform there);
+       * HostGeneral at N=4096 (one cold run, two warm): all five kernels;
+         its host LAPACK eig is reported apart from the device stages. N is
+         cut from 10240 because the float64 general eig is O(N^3) on the
+         host;
+       * the host API at N=10240, post_eigen_cluster_function=run_kmeans
+         (one cold run, two warm): the host flow with eig_topk_staged,
+         kernels 1-4.
+  Together about 2-4 minutes on one H100, most of it the host eig.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -47,6 +59,9 @@ NV_RAGGED = 937
 P_ROWMAX = 0.95
 REPS = 20
 WARM_RUNS = 5
+N_GENERAL = 4096
+GENERAL_WARM_RUNS = 2
+API_WARM_RUNS = 2
 
 # (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
 _PEAKS = (
@@ -107,6 +122,7 @@ def main() -> int:
   from spectralcluster_tpu_torch.kernels import build
   from spectralcluster_tpu_torch.kernels import fused
   from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+  from spectralcluster_tpu_torch.ops.kmeans import run_kmeans
   from spectralcluster_tpu_torch.ops import quantile as quantile_ops
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
   from spectralcluster_tpu_torch.types import EigenSolver
@@ -203,6 +219,15 @@ def main() -> int:
           fused.threshold_symmetrize_general(mat, thr, 0.01, **flags),
           fused.threshold_symmetrize_general_plain(mat, thr, 0.01, **flags),
           True)
+  # Kernel 5's input on the HostGeneral path: the Diffuse output.
+  sym = fused.threshold_symmetrize_general(blurred, thr_main, 0.01)
+  diffused = ref_ops.diffuse(sym)
+  check("row_wise_normalize", f"N={N_MAIN},Diffuse output",
+        fused.row_wise_normalize(diffused),
+        fused.row_wise_normalize_plain(diffused), True)
+  check("row_wise_normalize", f"N={N_RAGGED},n_valid={NV_RAGGED}",
+        fused.row_wise_normalize(ragged, NV_RAGGED),
+        fused.row_wise_normalize_plain(ragged, NV_RAGGED), True)
   failed = [c for c in checks if not c["ok"]]
   if failed:
     raise SystemExit(f"kernel disagrees with its twin: {failed}")
@@ -230,6 +255,18 @@ def main() -> int:
           lambda: fused.threshold_symmetrize_general_plain(blurred, thr_main,
                                                            0.01),
           None, (2 * n * n + n) * 4, 4 * n * n),
+      "row_wise_normalize": (
+          lambda: fused.row_wise_normalize(diffused),
+          lambda: fused.row_wise_normalize_plain(diffused), None,
+          2 * n * n * 4, 2 * n * n),
+  }
+  # Why a kernel has no one-call library yardstick.
+  no_library = {
+      "crop_diagonal": "no single PyTorch call: a row max, then a diagonal "
+                       "write",
+      "threshold_symmetrize_general": "no single PyTorch call: thresholding "
+                                      "and the symmetrize are several calls",
+      "row_wise_normalize": "no single PyTorch call: amax, then a division",
   }
   times = {}
   with torch.no_grad():
@@ -250,7 +287,7 @@ def main() -> int:
   cfg = pipeline.PipelineConfig(
       refinement_options=configs.icassp2018_refinement_options(),
       min_clusters=2, max_clusters=7)
-  sym = fused.threshold_symmetrize_general(blurred, thr_main, 0.01)
+  del diffused
   m, _ = pipeline._symmetric_eig_operand(aff.clone(), cfg, None, None,
                                          ref_ops.ROWNORM_TAIL)
 
@@ -272,52 +309,78 @@ def main() -> int:
   log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
   del crop_scratch, blurred, ragged, aff, sym, m
 
-  # 4. Main path.
+  # 4. Paths: each leg's launch counts are zeroed after its cold run and
+  # read after its warm runs.
   ref = np.load(os.path.join(HERE, "benchmarks", "reference_labels.npz"))
-  main_runs = {}
-  for solver in (EigenSolver.Auto, EigenSolver.SubspaceIteration):
-    clusterer = configs.make_icassp2018_clusterer(
-        eigensolver=solver, staged_stage_timings=True)
+  main_kernels = ("affinity", "row_max", "crop_diagonal",
+                  "threshold_symmetrize_general")
+
+  def drive(leg, clusterer, n, warm_runs, expected, **extra):
     for n_small in (512, 2048):
       small = clusterer.predict(make_embeddings(n_small))
       if not np.array_equal(utils.enforce_ordered_labels(small),
                             ref[f"labels_{n_small}"]):
-        raise SystemExit(f"{solver.name}: labels differ from the reference "
-                         f"at N={n_small}")
-    emb = make_embeddings(N_MAIN, D_MAIN)
+        raise SystemExit(f"{leg}: labels differ from the reference at "
+                         f"N={n_small}")
+    emb = make_embeddings(n, D_MAIN)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    clusterer.predict_with_details(emb)
+    cold = clusterer.predict_with_details(emb)
     cold_s = time.perf_counter() - t0
     fused.reset_launch_counts()
     warm_s = []
-    for _ in range(WARM_RUNS):
+    for _ in range(warm_runs):
       t0 = time.perf_counter()
       result = clusterer.predict_with_details(emb)
       warm_s.append(time.perf_counter() - t0)
     launches = fused.launch_counts()
     labels = utils.enforce_ordered_labels(result.labels)
     run = {
-        "solver": solver.name, "n": N_MAIN, "d": D_MAIN,
+        "leg": leg, "n": n, "d": D_MAIN, **extra,
         "n_clusters": result.n_clusters,
-        "parity": bool(np.array_equal(labels, ref[f"labels_{N_MAIN}"])),
+        "parity": bool(np.array_equal(labels, ref[f"labels_{n}"])),
         "eigenvalues": [float(v) for v in result.eigenvalues[:8]],
         "eigenvalues_shape": list(result.eigenvalues.shape),
         "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
-        "warm_wall_s_runs": warm_s,
+        "warm_wall_s_runs": warm_s, "warm_runs": warm_runs,
+        "stage_timings_s_cold_run": cold.timings,
         "stage_timings_s_last_run": result.timings, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    main_runs[solver.name] = run
-    log(json.dumps({"phase": "main_path", **run}))
+    if "host_eig" in result.timings:
+      # The host LAPACK eig apart from everything else in the predict.
+      run["host_eig_s"] = result.timings["host_eig"]
+      run["device_and_rest_s"] = (result.timings["pipeline"]
+                                  - result.timings["host_eig"])
+    log(json.dumps({"phase": "path", **run}))
     if not run["parity"]:
-      raise SystemExit(f"{solver.name}: labels differ from the reference")
+      raise SystemExit(f"{leg}: labels differ from the reference")
     if not np.all(np.isfinite(result.eigenvalues)):
-      raise SystemExit(f"{solver.name}: non-finite eigenvalues")
-    idle = [k for k, v in launches.items() if v == 0]
+      raise SystemExit(f"{leg}: non-finite eigenvalues")
+    idle = [k for k in expected if launches[k] == 0]
     if idle:
-      raise SystemExit(f"{solver.name}: kernels not launched by predict: "
-                       f"{idle}")
+      raise SystemExit(f"{leg}: kernels not launched by predict: {idle}")
+    return run
+
+  runs = {}
+  for solver in (EigenSolver.Auto, EigenSolver.SubspaceIteration):
+    runs[solver.name] = drive(
+        solver.name, configs.make_icassp2018_clusterer(
+            eigensolver=solver, staged_stage_timings=True),
+        N_MAIN, WARM_RUNS, main_kernels, solver=solver.name)
+  runs["HostGeneral"] = drive(
+      "HostGeneral", configs.make_icassp2018_clusterer(
+          eigensolver=EigenSolver.HostGeneral),
+      N_GENERAL, GENERAL_WARM_RUNS, main_kernels + ("row_wise_normalize",),
+      solver="HostGeneral",
+      reduced=f"N cut from {N_MAIN} to {N_GENERAL}: the float64 general eig "
+              "runs on the host and is O(N^3) (31.5 s at 4096, 500 s at "
+              "10240 in benchmarks/baseline_numpy.json, on another host)")
+  runs["host_api"] = drive(
+      "host_api", configs.make_icassp2018_clusterer(
+          post_eigen_cluster_function=run_kmeans),
+      N_MAIN, API_WARM_RUNS, main_kernels, solver="Auto",
+      post_eigen_cluster_function="run_kmeans")
 
   sources = {
       "affinity": "fused.py:46-77 affinity_pallas",
@@ -325,22 +388,28 @@ def main() -> int:
       "crop_diagonal": "fused.py:226-254 crop_diagonal_pallas",
       "threshold_symmetrize_general":
           "fused.py:148-218 threshold_symmetrize_general_pallas",
+      "row_wise_normalize": "fused.py:262-283 row_wise_normalize_pallas",
   }
   kernels = []
   for name in timed:
     err = max(c["max_abs_err"] for c in checks if c["kernel"] == name)
-    kernels.append({
+    per_predict = runs["HostGeneral" if name == "row_wise_normalize"
+                       else "Auto"]
+    kernel = {
         "name": name, "route": "cuda",
         "source": "spectralcluster_tpu_torch/csrc/fused.cu",
         "replaces": "spectralcluster_tpu/kernels/" + sources[name],
-        "launches": sum(r["launches"][name] for r in main_runs.values()),
+        "launches": sum(r["launches"][name] for r in runs.values()),
         "launches_per_predict":
-            main_runs["Auto"]["launches"][name] / WARM_RUNS,
+            per_predict["launches"][name] / per_predict["warm_runs"],
         "max_abs_err": err, "kernel_ms": times[name]["ms"],
         **times[name],
-    })
+    }
+    if name in no_library:
+      kernel["library_note"] = no_library[name]
+    kernels.append(kernel)
   results["kernels"] = kernels
-  results["main_path"] = main_runs
+  results["paths"] = runs
   if args.out:
     with open(args.out, "w") as f:
       json.dump(results, f, indent=1)

@@ -1,4 +1,4 @@
-"""SpectralClusterer — the batch entry point of the port (fast path only).
+"""SpectralClusterer — the batch entry point of the port.
 
 Port of ``spectralcluster_tpu/clusterer.py``: the same constructor knobs and
 ``predict(embeddings)`` / ``predict_with_details(embeddings)``, plus a
@@ -6,12 +6,18 @@ Port of ``spectralcluster_tpu/clusterer.py``: the same constructor knobs and
 CPU). With no card and no explicit device, ``predict`` raises: it never
 moves to the CPU on its own.
 
-Only the fast path is ported: max_clusters set, no autotune, no
-constraint, no injected callables, no AHC size reduction, min_clusters != 1
-and a row-local metric. Every other branch raises NotImplementedError
-naming its ROADMAP queue-1 item. The port runs unpadded: eager PyTorch does
-not recompile per shape, so the JAX package's shape buckets are only used
-to pick the same solver route.
+Branches, as in the JAX clusterer: the fallback clusterer for tiny inputs,
+the AHC size reduction past ``max_spectral_size``, the fast path (the whole
+pipeline on the device), and the host flow for everything else — a user
+``affinity_function``, the single-cluster check of ``min_clusters=1``,
+``max_clusters=None``, a ``post_eigen_cluster_function``, mahalanobis.
+``EigenSolver.HostGeneral`` and the GENERAL structure run LAPACK's general
+eig on the host by contract; its seconds are ``timings["host_eig"]``.
+Still refused (NotImplementedError naming ROADMAP queue 1 item 8):
+``constraint_matrix`` and ``autotune``, and Laplacian pipelines.
+
+The port runs unpadded: eager PyTorch does not recompile per shape, so the
+JAX package's shape buckets are only used to pick the same solver route.
 """
 
 from __future__ import annotations
@@ -21,24 +27,18 @@ import typing
 import numpy as np
 import torch
 
+from spectralcluster_tpu_torch import ahc as ahc_lib
+from spectralcluster_tpu_torch import fallback as fallback_lib
 from spectralcluster_tpu_torch import pipeline as pipeline_lib
+from spectralcluster_tpu_torch import utils
 from spectralcluster_tpu_torch.observability import StageTimings
+from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
 from spectralcluster_tpu_torch.types import (ClusterResult, ConstraintOptions,
                                              EigenGapType, EigenSolver,
                                              FallbackOptions, LaplacianType,
                                              RefinementOptions)
 
-_ITEM_7 = "ROADMAP queue 1 item 7 (host API)"
 _ITEM_8 = "ROADMAP queue 1 item 8 (Turn-to-Diarize)"
-
-
-def resolve_device(device) -> torch.device:
-  """The torch device to run on; a CUDA device must exist."""
-  dev = torch.device(device)
-  if dev.type == "cuda" and not torch.cuda.is_available():
-    raise RuntimeError("no CUDA device is available; pass device='cpu' to "
-                       "run on the CPU")
-  return dev
 
 
 class SpectralClusterer:
@@ -84,8 +84,9 @@ class SpectralClusterer:
     self.seed = seed
     self.eigensolver = eigensolver
     # At a shape bucket this large or larger the fast path runs as the
-    # staged executor (pipeline.spectral_cluster_fixed_k_staged), as the
-    # JAX clusterer does; None disables staging.
+    # staged executor (pipeline.spectral_cluster_fixed_k_staged) and the
+    # host flow's eig stage as pipeline.eig_topk_staged, as the JAX
+    # clusterer does; None disables staging.
     self.staged_execution_min_n = staged_execution_min_n
     # When True, ClusterResult.timings also carries the staged executor's
     # per-stage durations (staged_prep / staged_eigh / staged_subspace /
@@ -108,35 +109,78 @@ class SpectralClusterer:
         eigensolver=self.eigensolver,
         affinity_symmetric=self.affinity_function is None)
 
-  def _refuse_unported(self, num_embeddings: int, constraint_matrix):
-    """Raise for every branch of the JAX clusterer that is not the fast path."""
-    unported = [
-        (constraint_matrix is not None, "constraint_matrix", _ITEM_8),
-        (self.autotune is not None, "autotune", _ITEM_8),
-        (num_embeddings < self.fallback_options.spectral_min_embeddings,
-         "the fallback clusterer for tiny inputs", _ITEM_7),
-        (self.max_spectral_size is not None
-         and num_embeddings > self.max_spectral_size,
-         "max_spectral_size (AHC size reduction)", _ITEM_7),
-        (self.max_clusters is None, "max_clusters=None (unbounded k)",
-         _ITEM_7),
-        (self.affinity_function is not None, "affinity_function", _ITEM_7),
-        (self.post_eigen_cluster_function is not None,
-         "post_eigen_cluster_function", _ITEM_7),
-        (self.min_clusters == 1, "min_clusters=1 (single-cluster check)",
-         _ITEM_7),
-        (self.custom_dist == "mahalanobis", "custom_dist='mahalanobis'",
-         _ITEM_7),
-    ]
-    for hit, what, item in unported:
-      if hit:
-        raise NotImplementedError(f"{what} is not ported yet ({item})")
+  def _fast_path_applicable(self) -> bool:
+    # Mahalanobis is the one metric that is not row-local (scipy's default
+    # VI is the inverse covariance of all rows and centroids), so it takes
+    # the host flow, as in the JAX clusterer.
+    return (self.max_clusters is not None
+            and self.affinity_function is None
+            and self.post_eigen_cluster_function is None
+            and self.custom_dist != "mahalanobis"
+            and self.min_clusters != 1)
+
+  def _staged_eig_applicable(self, cfg, num: int) -> bool:
+    return (self.staged_execution_min_n is not None
+            and pipeline_lib.pad_bucket(num) >= self.staged_execution_min_n
+            and pipeline_lib._staged_eig_applicable(cfg))
+
+  def _compute_eigenvectors_ncluster(self,
+                                     affinity,
+                                     constraint_matrix=None,
+                                     p_percentile=None):
+    """Refine + eigendecompose + eigengap.
+
+    White-box API parity with reference spectral_clusterer.py:108-168
+    (returns (eigenvectors, n_clusters, max_delta_norm)), with p_percentile
+    as an explicit argument instead of options mutation.
+    """
+    v, n, delta, _ = self._eig_stage(affinity, constraint_matrix, p_percentile)
+    return v, n, delta
+
+  def _eig_stage(self, affinity, constraint_matrix=None, p_percentile=None,
+                 cfg=None, timings=None):
+    """Like _compute_eigenvectors_ncluster but also returns eigenvalues.
+
+    ``affinity`` (numpy or tensor) is not modified. Returns numpy
+    (eigenvectors, n_clusters, max_delta, eigenvalues); past
+    ``staged_execution_min_n`` the eigenvectors are the k_cap columns that
+    K-Means can read and the eigenvalues the max_clusters+1 extreme ones.
+    """
+    if constraint_matrix is not None:
+      raise NotImplementedError(f"constraint_matrix is not ported yet "
+                                f"({_ITEM_8})")
+    if cfg is None:
+      cfg = self._config()
+    aff = torch.as_tensor(affinity).to(utils.resolve_device(self.device),
+                                       torch.float32)
+    if self._staged_eig_applicable(cfg, aff.shape[0]):
+      out = pipeline_lib.eig_topk_staged(aff, cfg, p_percentile=p_percentile)
+    else:
+      out = pipeline_lib.refine_and_eigendecompose(
+          aff, cfg, p_percentile=p_percentile, timings=timings)
+    w, v, n, delta = (t.cpu() for t in out)
+    return v.numpy(), int(n), float(delta), w.numpy()
+
+  def _reduce_size_and_predict(self, embeddings: np.ndarray) -> ClusterResult:
+    """AHC size reduction then recursive spectral clustering
+    (reference spectral_clusterer.py:170-199). Returns the inner spectral
+    run's ClusterResult with labels chained through the AHC pre-labels."""
+    ahc_labels = ahc_lib.agglomerative_cluster(
+        embeddings, metric="cosine", linkage="complete",
+        n_clusters=self.max_spectral_size)
+    ahc_centroids = utils.get_cluster_centroids(embeddings, ahc_labels)
+    inner = self.predict_with_details(ahc_centroids)
+    inner.labels = utils.chain_labels(ahc_labels, np.asarray(inner.labels))
+    return inner
 
   def predict(
       self,
       embeddings: np.ndarray,
       constraint_matrix: typing.Optional[np.ndarray] = None) -> np.ndarray:
-    """Cluster embeddings; returns (N,) labels."""
+    """Cluster embeddings; returns (N,) labels.
+
+    Control flow mirrors reference spectral_clusterer.py:201-314.
+    """
     return self.predict_with_details(embeddings, constraint_matrix).labels
 
   def predict_with_details(
@@ -147,27 +191,134 @@ class SpectralClusterer:
       raise TypeError("embeddings must be a numpy array")
     if len(embeddings.shape) != 2:
       raise ValueError("embeddings must be 2-dimensional")
+    if isinstance(embeddings, torch.Tensor):
+      embeddings = embeddings.detach().cpu().numpy()
     num_embeddings = embeddings.shape[0]
-    self._refuse_unported(num_embeddings, constraint_matrix)
-    device = resolve_device(self.device)
+    if constraint_matrix is not None:
+      constraint_matrix = np.asarray(constraint_matrix)
+      if (constraint_matrix.ndim != 2 or constraint_matrix.shape !=
+          (num_embeddings, num_embeddings)):
+        raise ValueError(
+            "constraint matrix must be a square matrix matching embeddings: "
+            f"expected ({num_embeddings}, {num_embeddings}), got "
+            f"{constraint_matrix.shape}")
+      if (not np.array_equal(constraint_matrix, constraint_matrix.T)
+          and self.eigensolver in (EigenSolver.Eigh,
+                                   EigenSolver.SubspaceIteration)):
+        raise ValueError(
+            f"EigenSolver.{self.eigensolver.name} requires a symmetric "
+            "constraint matrix; use EigenSolver.Auto or HostGeneral.")
+    device = utils.resolve_device(self.device)
     timings = StageTimings(device)
+
+    # Tiny inputs: fallback clusterer (spectral_clusterer.py:230-234).
+    if num_embeddings < self.fallback_options.spectral_min_embeddings:
+      clusterer = fallback_lib.FallbackClusterer(self.fallback_options,
+                                                 device=device)
+      with timings.stage("fallback"):
+        labels = clusterer.predict(embeddings)
+      return ClusterResult(labels=labels,
+                           n_clusters=int(np.unique(labels).size),
+                           timings=timings.as_dict())
+
+    # Oversized inputs: AHC reduction (spectral_clusterer.py:236-247).
+    if (self.max_spectral_size is not None
+        and num_embeddings > self.max_spectral_size):
+      if constraint_matrix is not None:
+        raise RuntimeError(
+            "Cannot handle constraint_matrix when max_spectral_size is set")
+      if (self.max_spectral_size < 2 or
+          (self.max_clusters and self.max_spectral_size <= self.max_clusters)
+          or
+          (self.min_clusters and self.max_spectral_size <= self.min_clusters)):
+        raise ValueError("max_spectral_size should be a relatively big number")
+      with timings.stage("ahc_reduce"):
+        result = self._reduce_size_and_predict(embeddings)
+      inner_timings = result.timings or {}
+      result.timings = {**{f"inner_{k}": v for k, v in inner_timings.items()},
+                        **timings.as_dict()}
+      result.n_clusters = int(np.unique(result.labels).size)
+      return result
+
+    for given, what in ((constraint_matrix, "constraint_matrix"),
+                        (self.autotune, "autotune")):
+      if given is not None:
+        raise NotImplementedError(f"{what} is not ported yet ({_ITEM_8})")
     cfg = self._config()
-    use_staged = (self.staged_execution_min_n is not None
-                  and pipeline_lib.pad_bucket(num_embeddings)
-                  >= self.staged_execution_min_n)
-    with timings.stage("pipeline"):
-      x = torch.as_tensor(embeddings, dtype=torch.float32).to(device)
-      generator = torch.Generator().manual_seed(self.seed)
-      if use_staged:
-        out = pipeline_lib.spectral_cluster_fixed_k_staged(
-            x, generator, cfg,
-            timings=(timings if self.staged_stage_timings else None))
+
+    # Fast path: the whole pipeline on the device.
+    if self._fast_path_applicable():
+      use_staged = (self.staged_execution_min_n is not None
+                    and pipeline_lib.pad_bucket(num_embeddings)
+                    >= self.staged_execution_min_n
+                    and pipeline_lib._staged_applicable(cfg))
+      with timings.stage("pipeline"):
+        x = torch.as_tensor(embeddings, dtype=torch.float32).to(device)
+        generator = torch.Generator().manual_seed(self.seed)
+        if use_staged:
+          out = pipeline_lib.spectral_cluster_fixed_k_staged(
+              x, generator, cfg,
+              timings=(timings if self.staged_stage_timings else None))
+        else:
+          out = pipeline_lib.spectral_cluster_fixed_k(x, generator, cfg,
+                                                      timings=timings)
+        labels, n_clusters, eigenvalues, max_delta = (t.cpu() for t in out)
+      return ClusterResult(
+          labels=labels.numpy(),
+          n_clusters=int(n_clusters),
+          eigenvalues=eigenvalues.numpy(),
+          max_delta_norm=float(max_delta),
+          timings=timings.as_dict())
+
+    # Host flow. The affinity stays on the device unless a user function
+    # makes it on the host.
+    with timings.stage("affinity"):
+      if self.affinity_function is None:
+        affinity = pipeline_lib.prepare_affinity(
+            torch.as_tensor(embeddings, dtype=torch.float32).to(device), cfg)
       else:
-        out = pipeline_lib.spectral_cluster_fixed_k(x, generator, cfg)
-      labels, n_clusters, eigenvalues, max_delta = (t.cpu() for t in out)
+        affinity = np.asarray(self.affinity_function(embeddings))
+
+    # Single-vs-multi cluster decision (spectral_clusterer.py:253-256).
+    if self.min_clusters == 1:
+      with timings.stage("single_cluster_check"):
+        single = fallback_lib.check_single_cluster(self.fallback_options,
+                                                   embeddings, affinity)
+      if single:
+        return ClusterResult(labels=np.zeros(num_embeddings, dtype=np.int64),
+                             n_clusters=1, timings=timings.as_dict())
+
+    with timings.stage("eig"):
+      eigenvectors, n_clusters, max_delta, eigenvalues = self._eig_stage(
+          affinity, cfg=cfg, timings=timings)
+
+    if self.min_clusters is not None:
+      n_clusters = max(n_clusters, self.min_clusters)
+
+    spectral_embeddings = eigenvectors[:, :n_clusters]
+    if self.row_wise_renorm:
+      rows_norm = np.linalg.norm(spectral_embeddings, axis=1, ord=2)
+      spectral_embeddings = spectral_embeddings / rows_norm.reshape(
+          num_embeddings, 1)
+
+    with timings.stage("kmeans"):
+      if self.post_eigen_cluster_function is not None:
+        labels = self.post_eigen_cluster_function(
+            spectral_embeddings=spectral_embeddings,
+            n_clusters=n_clusters,
+            custom_dist=self.custom_dist,
+            max_iter=self.max_iter)
+      else:
+        labels = kmeans_ops.run_kmeans(
+            spectral_embeddings=spectral_embeddings,
+            n_clusters=n_clusters,
+            custom_dist=self.custom_dist,
+            max_iter=self.max_iter,
+            generator=torch.Generator().manual_seed(self.seed),
+            device=device)
     return ClusterResult(
-        labels=labels.numpy(),
+        labels=np.asarray(labels),
         n_clusters=int(n_clusters),
-        eigenvalues=eigenvalues.numpy(),
+        eigenvalues=eigenvalues,
         max_delta_norm=float(max_delta),
         timings=timings.as_dict())

@@ -2,7 +2,8 @@
 
 The system has no learned weights: what carries across is configuration —
 enum values, ``RefinementOptions``, ``ConstraintOptions``,
-``FallbackOptions`` and ``PipelineConfig``. Objects are read by attribute
+``FallbackOptions``, ``PipelineConfig`` and a whole ``SpectralClusterer``
+(``clusterer_from``). Objects are read by attribute
 and enums by ``.name``, and matched to the port's classes by class name, so
 nothing here imports the JAX package.
 """
@@ -11,8 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import inspect
 import typing
 
+from spectralcluster_tpu_torch import clusterer as clusterer_lib
 from spectralcluster_tpu_torch import pipeline as pipeline_lib
 from spectralcluster_tpu_torch import types
 
@@ -56,3 +59,16 @@ def pipeline_config_from(cfg: typing.Any) -> pipeline_lib.PipelineConfig:
                        "in the port")
     kwargs[name] = convert_value(getattr(cfg, f.name))
   return pipeline_lib.PipelineConfig(**kwargs)
+
+
+def clusterer_from(clusterer: typing.Any,
+                   device="cuda") -> clusterer_lib.SpectralClusterer:
+  """The port's SpectralClusterer with every constructor knob of a JAX
+  ``SpectralClusterer`` (options converted, callables as they are), on
+  ``device``. A set ``autotune`` carries across as it is and is refused at
+  predict (ROADMAP queue 1 item 8)."""
+  knobs = [name for name in inspect.signature(
+      clusterer_lib.SpectralClusterer).parameters if name != "device"]
+  return clusterer_lib.SpectralClusterer(
+      device=device,
+      **{name: convert_value(getattr(clusterer, name)) for name in knobs})

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
     "sct_crop_diagonal": (_P, _P, _I, _I, _I, _P),
     "sct_threshold_symmetrize": (_P, _P, _P, _I, _F, _I, _I, _I, _P),
+    "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
 }
 
 

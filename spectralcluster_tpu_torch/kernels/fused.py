@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the refinement hot path, with their twins.
 
-Four wrappers, one per Pallas kernel of the JAX package that the icassp2018
-main path runs (``spectralcluster_tpu/kernels/fused.py``):
+Five wrappers, one per Pallas kernel of the JAX package
+(``spectralcluster_tpu/kernels/fused.py``):
 
   * ``affinity`` — cosine affinity ``(xn xnᵀ + 1) / 2`` (affinity_pallas);
   * ``row_max`` — row max over the first ``n_valid`` columns, optionally
@@ -9,7 +9,11 @@ main path runs (``spectralcluster_tpu/kernels/fused.py``):
   * ``crop_diagonal`` — CropDiagonal, fused row max + diagonal write, in
     place when the caller allows it (crop_diagonal_pallas);
   * ``threshold_symmetrize_general`` — RowWiseThreshold + Symmetrize in one
-    pass over tile pairs (threshold_symmetrize_general_pallas).
+    pass over tile pairs (threshold_symmetrize_general_pallas);
+  * ``row_wise_normalize`` — RowWiseNormalize ``A / rowmax(A)``, row max
+    and division fused (row_wise_normalize_pallas). Only the GENERAL
+    symmetry structure reaches it (EigenSolver.HostGeneral, or a sequence
+    that the symmetric eigensolvers cannot absorb).
 
 The kernels are in ``csrc/fused.cu``, whose comments give each one's bound on
 the H100 and what its design does about it. Each wrapper has a plain
@@ -18,9 +22,6 @@ wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises, and never falls back. Each wrapper carries a
 plain integer ``launches`` that it increments where it launches its kernel
 and nowhere else (``reset_launch_counts`` / ``launch_counts``).
-
-Not ported yet: row_wise_normalize_pallas, which only the GENERAL-structure
-path reaches (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -142,6 +143,16 @@ def threshold_symmetrize_general_plain(
   return out
 
 
+def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
+  """Every entry divided by its row's max over columns < n_valid.
+
+  Rows >= n_valid are divided by their valid-column max too, as
+  row_wise_normalize_pallas does; callers re-mask padding. A row whose
+  valid max is 0 gives NaN, as the division does there.
+  """
+  return mat / row_max_plain(mat, n_valid=n_valid)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -224,7 +235,21 @@ def threshold_symmetrize_general(
   return out
 
 
-WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general)
+def row_wise_normalize(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
+  """RowWiseNormalize ``A / rowmax(A)`` (see the twin); callers re-mask."""
+  if _is_cpu(mat):
+    return row_wise_normalize_plain(mat, n_valid)
+  n = _square("row_wise_normalize", mat)
+  out = torch.empty_like(mat)
+  if n:
+    _launch("sct_row_wise_normalize", mat.data_ptr(), out.data_ptr(), n,
+            _n_valid(n, n_valid), _vec(mat) & _vec(out), _stream(mat))
+    row_wise_normalize.launches += 1
+  return out
+
+
+WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
+            row_wise_normalize)
 
 
 def reset_launch_counts():

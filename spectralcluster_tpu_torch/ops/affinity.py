@@ -1,9 +1,9 @@
-"""Affinity matrix construction and the pairwise distances the main path uses.
+"""Affinity matrix construction and pairwise distance kernels.
 
-Port of ``spectralcluster_tpu/ops/affinity.py:20-52`` and ``:129-149``:
-cosine affinity, and the cosine and squared-euclidean cdist kernels that
-K-Means reads (k-means++ seeds with sqeuclidean, the icassp2018 Lloyd runs
-cosine). The other metrics of the JAX registry are ROADMAP queue 1 item 7.
+Port of ``spectralcluster_tpu/ops/affinity.py``: cosine affinity, and the
+scipy ``cdist`` metrics that K-Means reads (reference
+custom_distance_kmeans.py:123-125). Each distance maps (N, d), (K, d) ->
+(N, K) on the inputs' device.
 """
 
 from __future__ import annotations
@@ -11,8 +11,6 @@ from __future__ import annotations
 import typing
 
 import torch
-
-_ITEM_7 = "ROADMAP queue 1 item 7 (host API: the other cdist metrics)"
 
 
 def compute_affinity_matrix(embeddings: torch.Tensor) -> torch.Tensor:
@@ -39,24 +37,99 @@ def cdist_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   return torch.clamp_min(d2, 0.0)
 
 
+def cdist_euclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return torch.sqrt(cdist_sqeuclidean(x, y))
+
+
+def _abs_diff(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return torch.abs(x[:, None, :] - y[None, :, :])
+
+
+def cdist_cityblock(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return torch.sum(_abs_diff(x, y), dim=-1)
+
+
+def cdist_chebyshev(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return torch.amax(_abs_diff(x, y), dim=-1)
+
+
+def cdist_correlation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  return cdist_cosine(x - torch.mean(x, dim=1, keepdim=True),
+                      y - torch.mean(y, dim=1, keepdim=True))
+
+
+def cdist_braycurtis(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  diff = torch.sum(_abs_diff(x, y), dim=-1)
+  summ = torch.sum(torch.abs(x[:, None, :] + y[None, :, :]), dim=-1)
+  return diff / summ
+
+
+def cdist_canberra(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  num = _abs_diff(x, y)
+  den = torch.abs(x)[:, None, :] + torch.abs(y)[None, :, :]
+  # scipy convention: terms with 0/0 contribute 0.
+  terms = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+  return torch.sum(terms, dim=-1)
+
+
+def cdist_mahalanobis(x: torch.Tensor, y: torch.Tensor,
+                      vi: typing.Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+  """Mahalanobis distance.
+
+  With ``vi`` (inverse covariance) None this follows scipy's cdist default:
+  VI = inv(cov(vstack([XA, XB]).T)) (custom_distance_kmeans.py:123-125
+  relies on it), so every row of both inputs moves VI.
+  """
+  if vi is None:
+    cov = torch.atleast_2d(torch.cov(torch.cat([x, y], dim=0).T))
+    vi = torch.linalg.inv(cov)
+  diff = x[:, None, :] - y[None, :, :]           # (N, K, d)
+  m = torch.einsum("nkd,de,nke->nk", diff, vi, diff)
+  return torch.sqrt(torch.clamp_min(m, 0.0))
+
+
+def cdist_minkowski(x: torch.Tensor, y: torch.Tensor,
+                    p: float = 2.0) -> torch.Tensor:
+  return torch.sum(_abs_diff(x, y) ** p, dim=-1) ** (1.0 / p)
+
+
 _DISTANCE_REGISTRY = {
     "cosine": cdist_cosine,
+    "euclidean": cdist_euclidean,
     "sqeuclidean": cdist_sqeuclidean,
+    "cityblock": cdist_cityblock,
+    "manhattan": cdist_cityblock,
+    "chebyshev": cdist_chebyshev,
+    "correlation": cdist_correlation,
+    "braycurtis": cdist_braycurtis,
+    "canberra": cdist_canberra,
+    "mahalanobis": cdist_mahalanobis,
+    "minkowski": cdist_minkowski,
 }
+
+
+def supported_distances() -> typing.Tuple[str, ...]:
+  return tuple(sorted(_DISTANCE_REGISTRY))
 
 
 def get_distance_fn(
     custom_dist: typing.Union[str, typing.Callable],
 ) -> typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-  """Resolve a metric name to a batched (N,d),(K,d)->(N,K) function."""
+  """Resolve a distance spec to a batched (N,d),(K,d)->(N,K) function.
+
+  Accepts the metric names of scipy.spatial.distance used by the reference
+  (custom_distance_kmeans.py:13-16) or a callable ``f(u, v) -> tensor``
+  over single vectors, which ``torch.vmap`` maps over all pairs.
+  """
+  if callable(custom_dist):
+    return torch.vmap(torch.vmap(custom_dist, in_dims=(None, 0)),
+                      in_dims=(0, None))
   if isinstance(custom_dist, str):
     key = custom_dist.lower()
     if key in _DISTANCE_REGISTRY:
       return _DISTANCE_REGISTRY[key]
-    raise NotImplementedError(
-        f"distance {custom_dist!r} is not ported yet ({_ITEM_7}); the port "
-        f"has {tuple(sorted(_DISTANCE_REGISTRY))}")
-  if callable(custom_dist):
-    raise NotImplementedError(f"callable custom_dist is not ported yet "
-                              f"({_ITEM_7})")
+    raise ValueError(
+        f"Unsupported distance {custom_dist!r}; supported: "
+        f"{supported_distances()} or a callable f(u, v) -> float.")
   raise TypeError("custom_dist must be a string or callable")

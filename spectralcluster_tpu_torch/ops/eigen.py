@@ -1,9 +1,11 @@
-"""Symmetric eigensolvers and eigengap cluster-count selection.
+"""Eigensolvers and eigengap cluster-count selection.
 
-Port of ``spectralcluster_tpu/ops/eigen.py:33-80`` and ``:106-466``:
+Port of ``spectralcluster_tpu/ops/eigen.py``:
 
   * ``sorted_eigh`` / ``sorted_eigh_similarity`` — full ``torch.linalg.eigh``
     with the diagonal-similarity eigenvector recovery;
+  * ``sorted_eig_general_host`` — LAPACK's general eig on the host, for the
+    GENERAL symmetry structure;
   * ``snap_small_eigenvalues`` and the masked eigengap scan
     ``compute_number_of_clusters`` (reference utils.py:74-130 semantics);
   * ``apply_padding_sentinels`` for padded eigenproblems;
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import typing
 
+import numpy as np
 import torch
 
 from spectralcluster_tpu_torch.types import EPS, EigenGapType
@@ -77,6 +80,24 @@ def recover_similarity_eigenvectors(
     valid = (torch.arange(v.shape[0], device=v.device) < n_valid)[:, None]
     norms = torch.linalg.norm(torch.where(valid, v, 0.0), dim=0)
   return v / torch.where(norms > 0, norms, 1.0)
+
+
+def sorted_eig_general_host(
+    mat: torch.Tensor,
+    descend: bool = True) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+  """General (non-symmetric) eigendecomposition on the host.
+
+  What the JAX host callback does (reference utils.py:44-71 with ``.real``):
+  LAPACK's ``np.linalg.eig`` on a float64 host copy, real parts cast to the
+  matrix's dtype, then a stable sort. The results go back to the matrix's
+  device. This route is host LAPACK by contract, in both packages; its
+  callers report its time on its own.
+  """
+  w, v = np.linalg.eig(mat.detach().cpu().numpy().astype(np.float64))
+  w = torch.from_numpy(w.real.astype(np.float32)).to(mat.dtype)
+  v = torch.from_numpy(v.real.astype(np.float32)).to(mat.dtype)
+  w, v = _sort_eigs(w, v, descend)
+  return w.to(mat.device), v.to(mat.device)
 
 
 def snap_small_eigenvalues(w: torch.Tensor, n_valid=None,

@@ -1,6 +1,7 @@
 """Custom-distance K-Means on tensors.
 
-Port of ``spectralcluster_tpu/ops/kmeans.py:38-207``:
+Port of ``spectralcluster_tpu/ops/kmeans.py``, with the host-facing
+``CustomKMeans`` and ``run_kmeans`` (numpy in, numpy out):
   * k-means++ seeding (sklearn-style greedy local trials) drawn from a
     ``torch.Generator``. The draws are Gumbel-max samples, as
     ``jax.random.categorical`` makes them, from uniform noise generated on
@@ -20,8 +21,10 @@ from __future__ import annotations
 import math
 import typing
 
+import numpy as np
 import torch
 
+from spectralcluster_tpu_torch import utils
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
 
 
@@ -178,3 +181,84 @@ def kmeans_fit(
                                max_iter=max_iter, tol=tol,
                                sample_weight=sample_weight)
   return labels
+
+
+class CustomKMeans:
+  """API-parity shell for the reference's CustomKMeans dataclass
+  (custom_distance_kmeans.py:55-141): hold config + optional initial
+  centroids, cluster with .predict() on ``device`` (numpy in, numpy out).
+  """
+
+  def __init__(self,
+               n_clusters: typing.Optional[int] = None,
+               centroids=None,
+               max_iter: int = 10,
+               tol: float = 0.001,
+               custom_dist: typing.Union[str, typing.Callable] = "cosine",
+               seed: int = 0,
+               device: typing.Union[str, torch.device] = "cuda"):
+    self.n_clusters = n_clusters
+    self.centroids = centroids
+    self.max_iter = max_iter
+    self.tol = tol
+    self.custom_dist = custom_dist
+    self.seed = seed
+    self.device = device
+
+  def predict(self, embeddings) -> np.ndarray:
+    x = torch.as_tensor(np.asarray(embeddings, np.float32)).to(
+        utils.resolve_device(self.device))
+    n_samples = x.shape[0]
+    if self.max_iter <= 0:
+      raise ValueError("Number of iterations should be a positive number,"
+                       " got %d instead" % self.max_iter)
+    if n_samples < self.n_clusters:
+      raise ValueError("n_samples=%d should be >= n_clusters=%d" %
+                       (n_samples, self.n_clusters))
+    if self.centroids is None:
+      # The reference draws unseeded; this draw is seeded.
+      idx = torch.randperm(n_samples, generator=torch.Generator().manual_seed(
+          self.seed))[:self.n_clusters]
+      centroids = x[idx.to(x.device)]
+    else:
+      centroids = torch.as_tensor(np.asarray(self.centroids, np.float32)).to(
+          x.device)
+      if centroids.shape[0] != self.n_clusters:
+        raise ValueError("The shape of the initial centroids (%s)"
+                         "does not match the number of clusters %d" %
+                         (str(tuple(centroids.shape)), self.n_clusters))
+      if centroids.shape[1] != x.shape[1]:
+        raise ValueError(
+            "The number of features of the initial centroids %d"
+            "does not match the number of features of the data %d." %
+            (centroids.shape[1], x.shape[1]))
+    labels, final = lloyd_iterations(
+        x, centroids, self.n_clusters,
+        affinity_ops.get_distance_fn(self.custom_dist),
+        max_iter=self.max_iter, tol=self.tol)
+    self.centroids = final.cpu().numpy()
+    return labels.cpu().numpy()
+
+
+def run_kmeans(spectral_embeddings,
+               n_clusters: int,
+               custom_dist: typing.Union[str, typing.Callable],
+               max_iter: int,
+               generator: typing.Optional[torch.Generator] = None,
+               device: typing.Union[str, torch.device] = "cuda") -> np.ndarray:
+  """Drop-in replacement for reference run_kmeans — the injectable
+  ``post_eigen_cluster_function`` contract (spectral_clusterer.py:82-84).
+
+  Runs on ``device`` at the input's exact shape: eager PyTorch does not
+  recompile per shape, so the JAX package's row padding has no purpose
+  here (and mahalanobis and callables must not see padded rows). The
+  optional ``generator`` is a CPU generator for the k-means++ draws;
+  it defaults to seed 0, the analog of the reference's random_state=0.
+  """
+  x = torch.as_tensor(np.asarray(spectral_embeddings, np.float32)).to(
+      utils.resolve_device(device))
+  if generator is None:
+    generator = torch.Generator().manual_seed(0)
+  labels = kmeans_fit(x, int(n_clusters), generator, custom_dist=custom_dist,
+                      max_iter=int(max_iter), tol=0.001)
+  return labels.cpu().numpy()

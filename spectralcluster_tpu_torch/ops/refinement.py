@@ -6,13 +6,15 @@ unpadded semantics on its valid block (invariant: padded rows/cols are zero
 on entry and re-zeroed on exit of every op). ``n_valid`` may be a Python int
 or a 0-dim tensor.
 
-``apply_refinement_sequence(..., use_kernels=True)`` routes CropDiagonal and
-the RowWiseThreshold+Symmetrize pair to the wrappers of kernels/fused.py:
-the CUDA kernels for a tensor on the card, their plain twins for a tensor on
-the CPU. Diffuse stays ``torch.matmul`` (the JAX package left it to XLA).
+``apply_refinement_sequence(..., use_kernels=True)`` routes CropDiagonal,
+the RowWiseThreshold+Symmetrize pair and RowWiseNormalize to the wrappers of
+kernels/fused.py: the CUDA kernels for a tensor on the card, their plain
+twins for a tensor on the CPU. Diffuse stays ``torch.matmul`` (the JAX
+package left it to XLA).
 
-``analyze_symmetry`` statically classifies the refined matrix so that only a
-symmetric eigensolver is ever needed (see the JAX module's docstring).
+``analyze_symmetry`` statically classifies the refined matrix so that a
+symmetric eigensolver serves wherever the structure allows (see the JAX
+module's docstring); GENERAL goes to the host general eig.
 """
 
 from __future__ import annotations
@@ -191,14 +193,21 @@ def apply_refinement_sequence(
     consume_input: bool = False) -> torch.Tensor:
   """Apply a full refinement sequence.
 
-  With ``use_kernels``, CropDiagonal and a RowWiseThreshold directly
-  followed by Symmetrize (both threshold types, both symmetrize types,
-  binarization, preserve_diagonal) go through kernels/fused.py, as the JAX
-  package's Pallas dispatch does. ``consume_input`` lets a leading
+  With ``use_kernels``, CropDiagonal, a RowWiseThreshold directly followed
+  by Symmetrize (both threshold types, both symmetrize types, binarization,
+  preserve_diagonal) and RowWiseNormalize go through kernels/fused.py, as
+  the JAX package's Pallas dispatch does. ``consume_input`` lets a leading
   CropDiagonal overwrite ``mat`` in place on the card; pass it only when the
-  caller never reads ``mat`` again. RowWiseNormalize stays plain torch here:
-  its kernel is not ported yet, and the symmetric pipelines absorb it into
-  the eigh similarity transform anyway.
+  caller never reads ``mat`` again.
+
+  Only the GENERAL-structure path applies RowWiseNormalize here: the
+  symmetric pipelines absorb a trailing one into the eigh similarity
+  transform (pipeline._symmetric_eig_operand). GENERAL is what
+  EigenSolver.HostGeneral forces, and what ``analyze_symmetry`` gives for a
+  sequence that leaves the matrix asymmetric before its last step (e.g. a
+  RowWiseThreshold not followed by Symmetrize). An asymmetric user affinity
+  with the icassp2018 sequence is ROWNORM_TAIL, not GENERAL: its Symmetrize
+  and Diffuse restore symmetry before the RowWiseNormalize.
   """
   seq = tuple(options.refinement_sequence if sequence is None else sequence)
   if not seq:
@@ -228,6 +237,11 @@ def apply_refinement_sequence(
     if use_kernels and name == RefinementName.CropDiagonal:
       mat = mask_padding(fused_kernels.crop_diagonal(
           mat, n_valid=n_valid, inplace=(consume_input and i == 0)), n_valid)
+      i += 1
+      continue
+    if use_kernels and name == RefinementName.RowWiseNormalize:
+      mat = mask_padding(fused_kernels.row_wise_normalize(mat, n_valid),
+                         n_valid)
       i += 1
       continue
     mat = apply_refinement_op(mat, name, options, p_percentile, n_valid)

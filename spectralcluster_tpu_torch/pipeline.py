@@ -1,8 +1,8 @@
-"""The spectral-clustering pipeline on tensors (fixed-k fast path).
+"""The spectral-clustering pipeline on tensors.
 
-Port of the main path of ``spectralcluster_tpu/pipeline.py``:
-embeddings -> cosine affinity -> refinement sequence -> symmetric eigen
-operand -> top eigenpairs -> snapped eigengap count -> masked K-Means.
+Port of ``spectralcluster_tpu/pipeline.py``:
+embeddings -> cosine affinity -> refinement sequence -> eigen operand ->
+eigenpairs -> snapped eigengap count -> masked K-Means.
 
   * ``prepare_affinity`` / ``refine_and_eigendecompose`` /
     ``spectral_cluster_fixed_k`` — the staged-free entry points;
@@ -10,17 +10,30 @@ operand -> top eigenpairs -> snapped eigengap count -> masked K-Means.
     eigensolver boundary, with per-stage timings. The JAX package split its
     program there to get past a TPU compile wall; PyTorch runs eagerly and
     has no such wall, so here the split only gives the stage timings and the
-    route past ``dc_max_block`` (below).
+    route past ``dc_max_block`` (below). Configurations it cannot split (the
+    GENERAL structure) run as ``spectral_cluster_fixed_k``, as in JAX;
+  * ``eig_topk_staged`` — the per-candidate refine -> top-k eig -> gap
+    evaluator that the clusterer's host flow uses at large N.
+
+Symmetry structures (``refinement_ops.analyze_symmetry``): SYMMETRIC and
+ROWNORM_TAIL take ``torch.linalg.eigh`` (or the top-k subspace iteration)
+on the card. GENERAL — forced by ``EigenSolver.HostGeneral``, or a sequence
+with no symmetric form under ``Auto`` — applies the whole refinement
+sequence, RowWiseNormalize included (kernel 5), and hands the asymmetric
+result to LAPACK's general eig on the host (``sorted_eig_general_host``),
+as the JAX package does. That host eig is recorded as the ``host_eig``
+stage when the caller passes ``timings``.
 
 Eager PyTorch does not recompile per shape, so callers may run unpadded
 (``n_valid=None``); every op still honours ``n_valid``.
 
-Past ``dc_max_block`` the JAX ``Auto`` route is the spectral
-divide-and-conquer top-k solver (ROADMAP queue 1 item 9, not ported). On the
-card a full ``torch.linalg.eigh`` fits at those sizes (one (N,N) float32 is
-0.42 GB at N=10240), so the port runs the full eigh and returns what the
-JAX route returns: the max_clusters+1 extreme eigenvalues in scan order,
-snapped against the full spectrum's max|w|.
+Past ``dc_max_block`` the JAX route for ``Auto`` in the staged executor, and
+for ``Eigh`` in ``eig_topk_staged``, is the spectral divide-and-conquer top-k
+solver (ROADMAP queue 1 item 9, not ported). On the card a full
+``torch.linalg.eigh`` fits at those sizes (one (N,N) float32 is 0.42 GB at
+N=10240), so the port runs the full eigh and returns what the JAX route
+returns: the max_clusters+1 extreme eigenvalues in scan order, snapped
+against the full spectrum's max|w|.
 
 Each entry point runs under ``precision.fp32_precision()`` (TF32 off).
 Randomness: the K-Means seeding takes a CPU ``torch.Generator`` where JAX
@@ -49,6 +62,7 @@ from spectralcluster_tpu_torch.types import (ConstraintOptions, EigenGapType,
 # Geometric bucket growth factor above 512 (snapped up to multiples of 256).
 _BUCKET_GROWTH = 1.25
 _SUBSPACE_SEED = 42
+_ITEM_8 = "ROADMAP queue 1 item 8, Turn-to-Diarize"
 
 
 def pad_bucket(n: int) -> int:
@@ -74,12 +88,12 @@ class PipelineConfig:
   """Configuration of the pipeline; the JAX package's fields, by name.
 
   ``use_kernels`` is the JAX ``use_pallas``: route the refinement hot path
-  through kernels/fused.py. Fields kept for paths not ported yet (and
-  refused where they would change the result): ``constraint_options``,
-  ``constraint_symmetric`` and ``autotune`` (ROADMAP queue 1 item 8), a
-  ``laplacian_type`` other than Affinity (item 8), ``dc_sign_precision``
-  (item 9); ``constraint_symmetric`` and ``dc_sign_precision`` are read
-  by nothing yet.
+  (all five kernels of kernels/fused.py) through the wrappers. Fields kept
+  for paths not ported yet, and refused where they would change the result:
+  ``constraint_options``, ``constraint_symmetric`` and ``autotune`` (ROADMAP
+  queue 1 item 8), a ``laplacian_type`` other than Affinity (item 8),
+  ``dc_sign_precision`` (item 9); ``constraint_symmetric`` and
+  ``dc_sign_precision`` are read by nothing yet.
   ``matmul_precision`` must stay "highest": the port runs every product in
   IEEE float32.
   """
@@ -116,17 +130,13 @@ def _check_supported(cfg: PipelineConfig):
     raise ValueError("the port runs every matmul in IEEE float32; "
                      f"matmul_precision={cfg.matmul_precision!r} is refused")
   if cfg.autotune is not None:
-    raise NotImplementedError("in-graph autotune is not ported yet (ROADMAP "
-                              "queue 1 item 8, Turn-to-Diarize)")
+    raise NotImplementedError(f"in-graph autotune is not ported yet ({_ITEM_8})")
   if not _descend(cfg):
     raise NotImplementedError("Laplacian pipelines are not ported yet "
-                              "(ROADMAP queue 1 item 8, ops/laplacian.py)")
+                              f"({_ITEM_8}, ops/laplacian.py)")
   if cfg.constraint_options is not None:
-    raise NotImplementedError("constraints are not ported yet (ROADMAP "
-                              "queue 1 item 8, constraint.py)")
-  if cfg.eigensolver == EigenSolver.HostGeneral:
-    raise NotImplementedError("EigenSolver.HostGeneral is not ported yet "
-                              "(ROADMAP queue 1 item 7)")
+    raise NotImplementedError(f"constraints are not ported yet ({_ITEM_8}, "
+                              "constraint.py)")
 
 
 def _descend(cfg: PipelineConfig) -> bool:
@@ -145,14 +155,25 @@ def _eig_structure(cfg: PipelineConfig) -> str:
   return structure
 
 
-def _symmetric_structure(cfg: PipelineConfig) -> str:
+def _solver_structure(cfg: PipelineConfig) -> str:
+  """The structure the eigensolver sees, with the JAX package's refusals."""
   structure = _eig_structure(cfg)
-  if structure == refinement_ops.GENERAL:
-    raise NotImplementedError(
-        "the refined matrix has no symmetric structure; the general "
-        "eigensolver route is not ported yet (ROADMAP queue 1 item 7, and "
-        "row_wise_normalize_pallas in queue 2)")
+  if cfg.eigensolver == EigenSolver.HostGeneral:
+    structure = refinement_ops.GENERAL
+  elif (cfg.eigensolver in (EigenSolver.Eigh, EigenSolver.SubspaceIteration)
+        and structure == refinement_ops.GENERAL):
+    raise ValueError(
+        f"EigenSolver.{cfg.eigensolver.name} requested but the pipeline "
+        "structure is not symmetric / diagonal-similar; use Auto or "
+        "HostGeneral.")
+  if (cfg.eigensolver == EigenSolver.SubspaceIteration
+      and cfg.max_clusters is None):
+    raise ValueError("SubspaceIteration requires max_clusters (the top-k).")
   return structure
+
+
+def _stage(timings, name: str):
+  return contextlib.nullcontext() if timings is None else timings.stage(name)
 
 
 def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
@@ -186,6 +207,52 @@ def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
   return m, scale
 
 
+def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
+  """The max_clusters+1 extreme eigenpairs by subspace iteration."""
+  return eigen_ops.topk_eigh_subspace_masked(
+      m, cfg.max_clusters + 1, torch.Generator().manual_seed(_SUBSPACE_SEED),
+      largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
+      residual_tol=cfg.subspace_residual_tol, max_iters=cfg.subspace_max_iters,
+      drift_tol=cfg.subspace_drift_tol)
+
+
+def _full_eigh_topk(m: torch.Tensor, k: int, n_valid, descend: bool):
+  """Full eigh, keeping the k extreme eigenpairs in scan order.
+
+  The port's stand-in for the JAX spectral-D&C top-k route past
+  ``dc_max_block``. Returns (w, u, wscale), wscale being the valid
+  spectrum's max|w|.
+  """
+  w, u = eigen_ops.sorted_eigh(m, descend=descend)
+  valid = torch.ones_like(w, dtype=torch.bool) if n_valid is None else (
+      torch.arange(w.shape[0], device=w.device) < n_valid)
+  wscale = torch.amax(torch.where(valid, torch.abs(w), 0.0))
+  # Sentinels sort past the scan end, so the first k are valid.
+  return w[:k], u[:, :k], wscale
+
+
+def _valid_gershgorin(m: torch.Tensor, n_valid) -> torch.Tensor:
+  """Max absolute row sum of the valid block (>= every |eigenvalue|)."""
+  if n_valid is None:
+    return torch.amax(torch.sum(torch.abs(m), dim=1))
+  valid = torch.arange(m.shape[0], device=m.device) < n_valid
+  keep = valid[:, None] & valid[None, :]
+  return torch.amax(torch.sum(torch.where(keep, torch.abs(m), 0.0), dim=1))
+
+
+def _gap(w: torch.Tensor, cfg: PipelineConfig, descend: bool, n_valid,
+         wmax=None):
+  """Snap, then the eigengap scan. ``wmax`` is the full spectrum's scale
+  on the top-k routes (whose eigenvalues are all valid: pass n_valid=None)."""
+  eigenvalues = eigen_ops.snap_small_eigenvalues(
+      w, n_valid=n_valid, tol=cfg.eigenvalue_snap_tol, wmax=wmax)
+  n_gap, max_delta = eigen_ops.compute_number_of_clusters(
+      eigenvalues, max_clusters=cfg.max_clusters,
+      stop_eigenvalue=cfg.stop_eigenvalue, eigengap_type=cfg.eigengap_type,
+      descend=descend, n_valid=n_valid, wmax=wmax)
+  return eigenvalues, n_gap, max_delta
+
+
 def prepare_affinity(
     embeddings: torch.Tensor,
     cfg: PipelineConfig,
@@ -206,42 +273,44 @@ def refine_and_eigendecompose(
     p_percentile=None,
     n_valid=None,
     consume_input: bool = False,
+    timings=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """Refinement -> eigendecomposition -> snapped eigengap count.
 
   Returns (eigenvalues, eigenvectors, n_clusters, max_delta_norm) as
   tensors. ``consume_input`` lets the refinement overwrite ``affinity``.
+  With ``timings`` (an observability.StageTimings), the GENERAL route's
+  host eig is recorded as the stage "host_eig".
   """
   _check_supported(cfg)
   descend = _descend(cfg)
-  if (cfg.eigensolver == EigenSolver.SubspaceIteration
-      and cfg.max_clusters is None):
-    raise ValueError("SubspaceIteration requires max_clusters (the top-k).")
-  structure = _symmetric_structure(cfg)
+  structure = _solver_structure(cfg)
   with fp32_precision():
-    m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
-                                      structure, consume_input)
-    if cfg.eigensolver == EigenSolver.SubspaceIteration:
-      w, u = eigen_ops.topk_eigh_subspace_masked(
-          m, cfg.max_clusters + 1,
-          torch.Generator().manual_seed(_SUBSPACE_SEED),
-          largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
-          residual_tol=cfg.subspace_residual_tol,
-          max_iters=cfg.subspace_max_iters, drift_tol=cfg.subspace_drift_tol)
-      eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
-                                                               n_valid)
-      # The k extreme eigenpairs are all valid: no sentinels among them.
-      gap_n_valid = None
-    else:
-      w, eigenvectors = eigen_ops.sorted_eigh_similarity(
-          m, scale, descend=descend, n_valid=n_valid)
+    if structure == refinement_ops.GENERAL:
+      ropts = cfg.refinement_options
+      mat = refinement_ops.apply_refinement_sequence(
+          affinity, ropts, sequence=ropts.refinement_sequence or (),
+          p_percentile=p_percentile, n_valid=n_valid,
+          use_kernels=cfg.use_kernels, consume_input=consume_input)
+      if n_valid is not None:
+        mat = eigen_ops.apply_padding_sentinels(mat, n_valid, descend)
+      with _stage(timings, "host_eig"):
+        w, eigenvectors = eigen_ops.sorted_eig_general_host(mat, descend)
       gap_n_valid = n_valid
-    eigenvalues = eigen_ops.snap_small_eigenvalues(
-        w, n_valid=gap_n_valid, tol=cfg.eigenvalue_snap_tol)
-    n_clusters, max_delta = eigen_ops.compute_number_of_clusters(
-        eigenvalues, max_clusters=cfg.max_clusters,
-        stop_eigenvalue=cfg.stop_eigenvalue, eigengap_type=cfg.eigengap_type,
-        descend=descend, n_valid=gap_n_valid)
+    else:
+      m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
+                                        structure, consume_input)
+      if cfg.eigensolver == EigenSolver.SubspaceIteration:
+        w, u = _subspace(m, cfg, n_valid, descend)
+        eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
+                                                                 n_valid)
+        # The k extreme eigenpairs are all valid: no sentinels among them.
+        gap_n_valid = None
+      else:
+        w, eigenvectors = eigen_ops.sorted_eigh_similarity(
+            m, scale, descend=descend, n_valid=n_valid)
+        gap_n_valid = n_valid
+    eigenvalues, n_clusters, max_delta = _gap(w, cfg, descend, gap_n_valid)
   return eigenvalues, eigenvectors, n_clusters, max_delta
 
 
@@ -296,8 +365,8 @@ def _cluster_from_eigs(eigenvectors, n_gap, cfg: PipelineConfig,
 def _require_max_clusters(cfg: PipelineConfig):
   if cfg.max_clusters is None:
     raise ValueError(
-        "spectral_cluster_fixed_k requires max_clusters (the k cap); the "
-        "unbounded-k host path is ROADMAP queue 1 item 7.")
+        "spectral_cluster_fixed_k requires max_clusters (the k cap); use "
+        "SpectralClusterer for unbounded k.")
 
 
 def spectral_cluster_fixed_k(
@@ -306,31 +375,92 @@ def spectral_cluster_fixed_k(
     cfg: PipelineConfig,
     n_valid=None,
     kmeans_tol: float = 0.001,
+    timings=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """End-to-end clustering (embeddings -> labels) on the embeddings' device.
 
   Requires cfg.max_clusters. Padded rows (index >= n_valid) receive label 0.
   ``generator`` is a CPU generator for the K-Means seeding. Returns tensors
-  (labels, n_clusters, eigenvalues, max_delta_norm).
+  (labels, n_clusters, eigenvalues, max_delta_norm). ``timings`` records
+  the GENERAL route's host eig (see refine_and_eigendecompose).
   """
   _require_max_clusters(cfg)
   with fp32_precision():
     affinity = prepare_affinity(embeddings, cfg, n_valid)
     eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
-        affinity, cfg, n_valid=n_valid, consume_input=True)
+        affinity, cfg, n_valid=n_valid, consume_input=True, timings=timings)
     del affinity
     labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
                                             generator, n_valid, kmeans_tol)
   return labels, n_clusters, eigenvalues, max_delta
 
 
-def _valid_gershgorin(m: torch.Tensor, n_valid) -> torch.Tensor:
-  """Max absolute row sum of the valid block (>= every |eigenvalue|)."""
-  if n_valid is None:
-    return torch.amax(torch.sum(torch.abs(m), dim=1))
-  valid = torch.arange(m.shape[0], device=m.device) < n_valid
-  keep = valid[:, None] & valid[None, :]
-  return torch.amax(torch.sum(torch.where(keep, torch.abs(m), 0.0), dim=1))
+def _staged_applicable(cfg: PipelineConfig) -> bool:
+  """Whether the staged executor can split this configuration (JAX
+  pipeline.py:522-532): a symmetric or diagonal-similar structure, a
+  symmetric solver, no in-graph autotune."""
+  if cfg.autotune is not None:
+    return False
+  if cfg.eigensolver == EigenSolver.SubspaceIteration:
+    if cfg.max_clusters is None:
+      return False
+  elif cfg.eigensolver not in (EigenSolver.Auto, EigenSolver.Eigh):
+    return False
+  return _eig_structure(cfg) != refinement_ops.GENERAL
+
+
+def _staged_eig_applicable(cfg: PipelineConfig) -> bool:
+  """Whether eig_topk_staged can run this configuration (JAX
+  pipeline.py:651-660): a symmetric or diagonal-similar structure, a
+  symmetric solver and max_clusters."""
+  if _eig_structure(cfg) == refinement_ops.GENERAL:
+    return False
+  if cfg.eigensolver not in (EigenSolver.Auto, EigenSolver.Eigh,
+                             EigenSolver.SubspaceIteration):
+    return False
+  return cfg.max_clusters is not None
+
+
+def eig_topk_staged(
+    affinity: torch.Tensor,
+    cfg: PipelineConfig,
+    constraint_matrix: typing.Optional[torch.Tensor] = None,
+    n_valid=None,
+    p_percentile=None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Refine -> top-k eig -> gap for one p_percentile, at large N.
+
+  Port of the JAX evaluator (pipeline.py:766-837) without constraints. The
+  middle stage is the subspace iteration for Auto and SubspaceIteration;
+  the full eigh for Eigh, with the port's full-eigh top-k stand-in past
+  ``dc_max_block``. Returns tensors (eigenvalues, eigenvectors[:, :k_cap],
+  n_gap, max_delta), k_cap = max(max_clusters, min_clusters): the columns
+  downstream K-Means can read. ``affinity`` is not modified.
+  """
+  if constraint_matrix is not None:
+    raise NotImplementedError(f"constraints are not ported yet ({_ITEM_8})")
+  _check_supported(cfg)
+  if not _staged_eig_applicable(cfg):
+    raise ValueError("eig_topk_staged: config requires the general-eig or "
+                     "unbounded-k path; use refine_and_eigendecompose.")
+  descend = _descend(cfg)
+  k_cap = max(cfg.max_clusters, cfg.min_clusters or 0)
+  with fp32_precision():
+    m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
+                                      _eig_structure(cfg))
+    wmax = None
+    if cfg.eigensolver != EigenSolver.Eigh:
+      w, u = _subspace(m, cfg, n_valid, descend)
+      wmax = _valid_gershgorin(m, n_valid)
+    elif pad_bucket(m.shape[0]) > cfg.dc_max_block:
+      w, u, wmax = _full_eigh_topk(m, cfg.max_clusters + 1, n_valid, descend)
+    else:
+      w, u = eigen_ops.sorted_eigh(m, descend=descend)
+    del m
+    eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale, n_valid)
+    eigenvalues, n_gap, max_delta = _gap(
+        w, cfg, descend, n_valid if wmax is None else None, wmax)
+  return eigenvalues, eigenvectors[:, :k_cap], n_gap, max_delta
 
 
 def spectral_cluster_fixed_k_staged(
@@ -345,7 +475,9 @@ def spectral_cluster_fixed_k_staged(
   Stages: "staged_prep" (affinity + refinement + eigen operand), then
   "staged_subspace" (SubspaceIteration) or "staged_eigh" (full eigh), then
   "staged_finish" (snap, eigengap, K-Means). With ``timings`` (an
-  observability.StageTimings) each stage's duration is recorded.
+  observability.StageTimings) each stage's duration is recorded. A
+  configuration the executor cannot split (``_staged_applicable``: the
+  GENERAL structure, HostGeneral) runs as ``spectral_cluster_fixed_k``.
 
   Routes, as in the JAX executor:
     * SubspaceIteration: top-k subspace iteration; the snap and the
@@ -357,57 +489,38 @@ def spectral_cluster_fixed_k_staged(
     * otherwise: full eigh, all N eigenvalues.
   """
   _require_max_clusters(cfg)
+  if not _staged_applicable(cfg):
+    return spectral_cluster_fixed_k(embeddings, generator, cfg, n_valid,
+                                    timings=timings)
   _check_supported(cfg)
-  structure = _symmetric_structure(cfg)
+  structure = _eig_structure(cfg)
   descend = _descend(cfg)
-  k = cfg.max_clusters + 1
-
-  def stage(name):
-    if timings is None:
-      return contextlib.nullcontext()
-    return timings.stage(name)
 
   with fp32_precision():
-    with stage("staged_prep"):
+    with _stage(timings, "staged_prep"):
       affinity = prepare_affinity(embeddings, cfg, n_valid)
       m, scale = _symmetric_eig_operand(affinity, cfg, None, n_valid,
                                         structure, consume_input=True)
       del affinity
-    topk = True
+    wmax = None
     if cfg.eigensolver == EigenSolver.SubspaceIteration:
-      with stage("staged_subspace"):
-        w, u = eigen_ops.topk_eigh_subspace_masked(
-            m, k, torch.Generator().manual_seed(_SUBSPACE_SEED),
-            largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
-            residual_tol=cfg.subspace_residual_tol,
-            max_iters=cfg.subspace_max_iters,
-            drift_tol=cfg.subspace_drift_tol)
-        wscale = _valid_gershgorin(m, n_valid)
+      with _stage(timings, "staged_subspace"):
+        w, u = _subspace(m, cfg, n_valid, descend)
+        wmax = _valid_gershgorin(m, n_valid)
     else:
-      with stage("staged_eigh"):
-        w, u = eigen_ops.sorted_eigh(m, descend=descend)
+      with _stage(timings, "staged_eigh"):
         if (cfg.eigensolver == EigenSolver.Auto
             and pad_bucket(m.shape[0]) > cfg.dc_max_block):
-          valid = torch.ones_like(w, dtype=torch.bool) if n_valid is None else (
-              torch.arange(w.shape[0], device=w.device) < n_valid)
-          wscale = torch.amax(torch.where(valid, torch.abs(w), 0.0))
-          # Sentinels sort past the scan end, so the first k are valid.
-          w, u = w[:k], u[:, :k]
+          w, u, wmax = _full_eigh_topk(m, cfg.max_clusters + 1, n_valid,
+                                       descend)
         else:
-          topk = False
+          w, u = eigen_ops.sorted_eigh(m, descend=descend)
     del m
-    with stage("staged_finish"):
+    with _stage(timings, "staged_finish"):
       eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
                                                                n_valid)
-      gap_n_valid = None if topk else n_valid
-      wmax = wscale if topk else None
-      eigenvalues = eigen_ops.snap_small_eigenvalues(
-          w, n_valid=gap_n_valid, tol=cfg.eigenvalue_snap_tol, wmax=wmax)
-      n_gap, max_delta = eigen_ops.compute_number_of_clusters(
-          eigenvalues, max_clusters=cfg.max_clusters,
-          stop_eigenvalue=cfg.stop_eigenvalue,
-          eigengap_type=cfg.eigengap_type, descend=descend,
-          n_valid=gap_n_valid, wmax=wmax)
+      eigenvalues, n_gap, max_delta = _gap(
+          w, cfg, descend, n_valid if wmax is None else None, wmax)
       labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
                                               generator, n_valid, 0.001)
   return labels, n_clusters, eigenvalues, max_delta

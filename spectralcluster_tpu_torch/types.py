@@ -117,8 +117,8 @@ class EigenSolver(enum.Enum):
 
   The reference uses LAPACK's general ``np.linalg.eig`` (utils.py:59). Every
   supported pipeline is restructured so a *symmetric* eigendecomposition
-  suffices (see ops/eigen.py); a general eig is the escape hatch for
-  asymmetric user-supplied matrices (not ported yet).
+  suffices (see ops/eigen.py); LAPACK's general eig on the host is the
+  escape hatch for the GENERAL structure (``sorted_eig_general_host``).
   """
   # Pick the symmetric path when the pipeline structure allows it (always
   # true for the reference's built-in configs), general eig otherwise.

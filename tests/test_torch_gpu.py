@@ -15,6 +15,7 @@ import torch
 from spectralcluster_tpu_torch import configs, utils
 from spectralcluster_tpu_torch.fixtures import make_embeddings
 from spectralcluster_tpu_torch.kernels import fused
+from spectralcluster_tpu_torch.types import EigenSolver
 
 pytestmark = pytest.mark.gpu
 
@@ -68,10 +69,41 @@ def test_threshold_symmetrize(cuda, n, flags):
                                                               **flags))
 
 
+@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None), (7, 5)])
+def test_row_wise_normalize(cuda, n, n_valid):
+  a = _mat(n, 4, cuda, -0.5)
+  assert torch.equal(fused.row_wise_normalize(a, n_valid),
+                     fused.row_wise_normalize_plain(a, n_valid))
+
+
+def _reference(n):
+  return np.load(os.path.join(os.path.dirname(__file__), os.pardir,
+                              "benchmarks", "reference_labels.npz"))[
+                                  f"labels_{n}"]
+
+
+_MAIN_KERNELS = {"affinity", "row_max", "crop_diagonal",
+                 "threshold_symmetrize_general"}
+
+
 def test_predict_launches_every_kernel(cuda):
-  ref = np.load(os.path.join(os.path.dirname(__file__), os.pardir, "benchmarks",
-                             "reference_labels.npz"))["labels_2048"]
+  # Auto's path: kernels 1-4; RowWiseNormalize is absorbed into the eigh
+  # similarity transform (ROWNORM_TAIL), so kernel 5 does not run.
   fused.reset_launch_counts()
   labels = configs.make_icassp2018_clusterer().predict(make_embeddings(2048))
+  counts = fused.launch_counts()
+  assert all(counts[k] > 0 for k in _MAIN_KERNELS)
+  assert counts["row_wise_normalize"] == 0
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels),
+                                _reference(2048))
+
+
+def test_host_general_predict_launches_all_five(cuda):
+  fused.reset_launch_counts()
+  result = configs.make_icassp2018_clusterer(
+      eigensolver=EigenSolver.HostGeneral).predict_with_details(
+          make_embeddings(512))
   assert all(v > 0 for v in fused.launch_counts().values())
-  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels), ref)
+  assert "host_eig" in result.timings
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(result.labels),
+                                _reference(512))

@@ -13,8 +13,10 @@ import torch
 
 from spectralcluster_tpu.kernels import fused as jax_fused
 from spectralcluster_tpu.ops import quantile as jax_quantile
+from spectralcluster_tpu.ops import refinement as jax_ref
 from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import quantile as quantile_ops
+from spectralcluster_tpu_torch.ops import refinement as t_ref
 
 torch.set_num_threads(1)
 
@@ -105,6 +107,18 @@ def test_threshold_symmetrize_matches_pallas(percentile, average, binarize,
   np.testing.assert_array_equal(ours.numpy(), ours.numpy().T)
 
 
+@pytest.mark.parametrize("shift", [0.0, -0.3])
+@pytest.mark.parametrize("n_valid", [None, 200])
+def test_row_wise_normalize_matches_pallas(shift, n_valid):
+  # The contract is mask_padding(row_wise_normalize_pallas(...)): callers
+  # re-mask padding. Both divide in IEEE float32, so the match is exact.
+  a = _mat(256, 7, shift)
+  ours = t_ref.mask_padding(fused.row_wise_normalize(_t(a), n_valid), n_valid)
+  ref = jax_ref.mask_padding(jax_fused.row_wise_normalize_pallas(
+      jnp.asarray(a), n_valid=n_valid, interpret=True), n_valid)
+  np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
 def test_wrappers_refuse_other_devices():
   # Neither CPU nor CUDA: the wrapper raises instead of taking the twin.
   meta = torch.empty((8, 8), device="meta")
@@ -118,4 +132,5 @@ def test_launch_counters_are_plain_integers():
   for fn in fused.WRAPPERS:
     assert isinstance(fn.launches, int)
   assert set(fused.launch_counts()) == {
-      "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general"}
+      "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general",
+      "row_wise_normalize"}

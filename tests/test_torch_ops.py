@@ -15,6 +15,7 @@ import torch
 from spectralcluster_tpu.ops import affinity as j_aff
 from spectralcluster_tpu.ops import blur as j_blur
 from spectralcluster_tpu.ops import eigen as j_eigen
+from spectralcluster_tpu.ops import gmm as j_gmm
 from spectralcluster_tpu.ops import kmeans as j_kmeans
 from spectralcluster_tpu.ops import quantile as j_quant
 from spectralcluster_tpu.ops import refinement as j_ref
@@ -26,6 +27,7 @@ from spectralcluster_tpu_torch import types
 from spectralcluster_tpu_torch.ops import affinity as t_aff
 from spectralcluster_tpu_torch.ops import blur as t_blur
 from spectralcluster_tpu_torch.ops import eigen as t_eigen
+from spectralcluster_tpu_torch.ops import gmm as t_gmm
 from spectralcluster_tpu_torch.ops import kmeans as t_kmeans
 from spectralcluster_tpu_torch.ops import quantile as t_quant
 from spectralcluster_tpu_torch.ops import refinement as t_ref
@@ -71,10 +73,32 @@ def test_affinity_and_cdist():
 
 
 def test_unported_metrics_raise():
-  with pytest.raises(NotImplementedError, match="item 7"):
-    t_aff.get_distance_fn("cityblock")
-  with pytest.raises(NotImplementedError, match="item 7"):
-    t_aff.get_distance_fn(lambda u, v: 0.0)
+  # Every metric of the JAX registry is ported; an unknown one raises as
+  # it does there.
+  assert t_aff.supported_distances() == j_aff.supported_distances()
+  with pytest.raises(ValueError, match="Unsupported distance"):
+    t_aff.get_distance_fn("nope")
+  with pytest.raises(TypeError):
+    t_aff.get_distance_fn(123)
+
+
+def _pair_distance(u, v):
+  """A user metric over single vectors, written for jnp and torch alike."""
+  return abs(u - v).sum() + ((u - v) ** 2).sum() ** 0.5
+
+
+@pytest.mark.parametrize("metric",
+                         list(j_aff.supported_distances()) + [_pair_distance])
+def test_distance_fn_matches_jax(metric):
+  # Same numpy inputs; rtol 1e-5 (float32 sums in another order), atol 1e-5
+  # for the distances near 0 of the cancelling forms.
+  rng = np.random.RandomState(20)
+  x = rng.randn(40, 6).astype(np.float32)
+  y = rng.randn(5, 6).astype(np.float32)
+  ours = t_aff.get_distance_fn(metric)(_t(x), _t(y))
+  ref = j_aff.get_distance_fn(metric)(jnp.asarray(x), jnp.asarray(y))
+  assert tuple(ours.shape) == (40, 5)
+  _close(ours, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("sigma", [1.0, 2.5])
@@ -245,6 +269,23 @@ def test_sorted_eigh_similarity(with_scale):
   assert _max_angle(v[:, :6], np.asarray(jv)[:, :6]) < 1e-3
 
 
+@pytest.mark.parametrize("descend", [True, False])
+def test_sorted_eig_general_host(descend):
+  # An asymmetric matrix D^-1 S with a real spectrum: both packages run
+  # LAPACK's eig on the same float64 copy, so they agree to float32
+  # rounding (atol 1e-5·max|w|); eigenvectors up to sign.
+  s = _planted(60, _TOP, 21)
+  d = (np.random.RandomState(22).rand(60) + 0.5).astype(np.float32)
+  m = (s / d[:, None]).astype(np.float32)
+  w, v = t_eigen.sorted_eig_general_host(_t(m), descend)
+  jw, jv = j_eigen.sorted_eig_general_host(jnp.asarray(m), descend)
+  wmax = float(np.max(np.abs(jw)))
+  _close(w, jw, atol=1e-5 * wmax)
+  signs = np.sign(np.sum(_np(v)[:, :6] * np.asarray(jv)[:, :6], axis=0))
+  _close(_np(v)[:, :6] * signs, np.asarray(jv)[:, :6], atol=1e-5)
+  assert w.dtype == torch.float32 and v.shape == (60, 60)
+
+
 @pytest.mark.parametrize("largest", [True, False])
 @pytest.mark.parametrize("n_valid", [None, 64])
 def test_topk_eigh_subspace_masked(largest, n_valid):
@@ -386,6 +427,57 @@ def test_kmeans_fit_matches_up_to_permutation(metric):
                             custom_dist=metric, max_iter=300)
   np.testing.assert_array_equal(utils.enforce_ordered_labels(_np(ours)),
                                 utils.enforce_ordered_labels(np.asarray(ref)))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "mahalanobis",
+                                    None, _pair_distance])
+def test_run_kmeans_matches_up_to_permutation(metric):
+  from spectralcluster_tpu_torch import utils
+  x = _blobs(n=120, d=4, seed=23, sep=6.0)
+  ours = t_kmeans.run_kmeans(x, 3, metric, 300, device="cpu")
+  ref = j_kmeans.run_kmeans(x, 3, metric, 300)
+  assert ours.shape == (120,)
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(ours),
+                                utils.enforce_ordered_labels(np.asarray(ref)))
+
+
+@pytest.mark.parametrize("given_centroids", [False, True])
+def test_custom_kmeans_matches(given_centroids):
+  from spectralcluster_tpu_torch import utils
+  x = _blobs(n=90, d=4, seed=24, sep=6.0)
+  init = x[[0, 1, 2]] if given_centroids else None
+  # Without centroids each package draws its own seeded start (torch's and
+  # jax.random's draws differ); seed 5 puts one start in each blob in both.
+  ours = t_kmeans.CustomKMeans(n_clusters=3, centroids=init, max_iter=50,
+                               seed=5, device="cpu")
+  ref = j_kmeans.CustomKMeans(n_clusters=3, centroids=init, max_iter=50,
+                              seed=5)
+  labels, jlabels = ours.predict(x), ref.predict(x)
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels),
+                                utils.enforce_ordered_labels(jlabels))
+  if given_centroids:
+    # The same start: the same rounds, so the same centroids (float32 sums
+    # in another order: rtol 1e-5).
+    _close(ours.centroids, ref.centroids, rtol=1e-5, atol=1e-5)
+  with pytest.raises(ValueError, match="should be >= n_clusters"):
+    t_kmeans.CustomKMeans(n_clusters=200, device="cpu").predict(x)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("bimodal", [False, True])
+def test_gmm_1d_matches_jax(k, bimodal):
+  rng = np.random.RandomState(25)
+  x = rng.randn(2000) * 0.05 + 0.6
+  if bimodal:
+    x = np.concatenate([x, rng.randn(1500) * 0.05 + 0.95])
+  x = x.astype(np.float32)
+  w, mu, var, ll = t_gmm.fit_gmm_1d(_t(x), n_components=k)
+  jw, jmu, jvar, jll = j_gmm.fit_gmm_1d(jnp.asarray(x), n_components=k)
+  # Float32 EM with sums in another order: rtol 1e-4.
+  for ours, ref in ((w, jw), (mu, jmu), (var, jvar), (ll, jll)):
+    _close(ours, ref, rtol=1e-4, atol=1e-6)
+  np.testing.assert_allclose(t_gmm.gmm_bic_1d(x, k), j_gmm.gmm_bic_1d(x, k),
+                             rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

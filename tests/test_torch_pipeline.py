@@ -152,19 +152,130 @@ def test_staged_auto_past_dc_max_block_returns_topk():
 
 @pytest.mark.parametrize("kwargs,call", [
     (dict(autotune=object()), {}),
-    (dict(max_clusters=None), {}),
-    (dict(affinity_function=lambda e: e @ e.T), {}),
-    (dict(post_eigen_cluster_function=lambda **kw: None), {}),
-    (dict(min_clusters=1), {}),
-    (dict(custom_dist="mahalanobis"), {}),
-    (dict(max_spectral_size=16), {}),
     ({}, dict(constraint_matrix=np.eye(32))),
 ])
 def test_unported_branches_raise(kwargs, call):
+  # The rest of the JAX clusterer's branches are held against it in
+  # tests/test_torch_clusterer.py.
   base = dict(min_clusters=2, max_clusters=7, device="cpu")
   clusterer = SpectralClusterer(**{**base, **kwargs})
-  with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+  with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
     clusterer.predict(make_embeddings(32, d=8), **call)
+
+
+# No symmetric form: the threshold leaves the matrix asymmetric before the
+# final RowWiseNormalize, so analyze_symmetry gives GENERAL.
+_GENERAL_SEQ = ("CropDiagonal", "GaussianBlur", "RowWiseThreshold",
+                "RowWiseNormalize")
+
+
+def _general_cfgs(route):
+  if route == "HostGeneral":
+    return _cfg("HostGeneral"), _jcfg("HostGeneral")
+  cfg, jcfg = _cfg(), _jcfg()
+  seq = tuple(j_types.RefinementName[s] for s in _GENERAL_SEQ)
+  jcfg = jcfg.replace(refinement_options=jcfg.refinement_options.replace(
+      refinement_sequence=seq))
+  return convert.pipeline_config_from(jcfg), jcfg
+
+
+@pytest.mark.parametrize("route", ["HostGeneral", "Auto"])
+@pytest.mark.parametrize("n_valid", [None, 300])
+def test_general_route_matches_jax(route, n_valid):
+  x = np.zeros((384, 32), np.float32)
+  x[:300] = make_embeddings(300, d=32, k=3, seed=3)
+  if n_valid is None:
+    x = x[:300]
+  cfg, jcfg = _general_cfgs(route)
+  assert pipeline._solver_structure(cfg) == "general"
+  timings = StageTimings("cpu")
+  aff = pipeline.prepare_affinity(torch.as_tensor(x), cfg, n_valid)
+  w, v, n_c, _ = pipeline.refine_and_eigendecompose(
+      aff, cfg, n_valid=n_valid, timings=timings)
+  assert set(timings.as_dict()) == {"host_eig"}
+  jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg, n_valid=n_valid)
+  jw, jv, jn_c, _ = j_pipeline.refine_and_eigendecompose(jaff, jcfg,
+                                                         n_valid=n_valid)
+  assert int(n_c) == int(jn_c) == 3
+  assert w.shape == jw.shape and v.shape == jv.shape
+  # Both run LAPACK's eig on float32 matrices that differ in rounding.
+  wmax = float(np.max(np.abs(np.asarray(jw)[:8])))
+  np.testing.assert_allclose(w.numpy()[:8], np.asarray(jw)[:8],
+                             atol=1e-4 * wmax)
+  labels = pipeline.spectral_cluster_fixed_k(
+      torch.as_tensor(x), torch.Generator().manual_seed(0), cfg,
+      n_valid=n_valid)[0].numpy()
+  jlabels = np.asarray(j_pipeline.spectral_cluster_fixed_k(
+      jnp.asarray(x), jax.random.PRNGKey(0), jcfg, n_valid=n_valid)[0])
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels[:300]),
+                                utils.enforce_ordered_labels(jlabels[:300]))
+
+
+@pytest.mark.parametrize("solver", ["Eigh", "SubspaceIteration"])
+def test_symmetric_solvers_refuse_general(solver):
+  cfg, jcfg = _general_cfgs("Auto")
+  cfg = cfg.replace(eigensolver=EigenSolver[solver])
+  jcfg = jcfg.replace(eigensolver=j_types.EigenSolver[solver])
+  aff = np.random.RandomState(7).rand(64, 64).astype(np.float32)
+  with pytest.raises(ValueError, match="not symmetric"):
+    pipeline.refine_and_eigendecompose(torch.as_tensor(aff), cfg)
+  with pytest.raises(ValueError, match="not symmetric"):
+    j_pipeline.refine_and_eigendecompose(jnp.asarray(aff), jcfg)
+
+
+def test_staged_executor_runs_host_general_unsplit():
+  # As in JAX, a configuration the executor cannot split runs monolithic.
+  cfg = _cfg("HostGeneral")
+  assert not pipeline._staged_applicable(cfg)
+  assert pipeline._staged_applicable(_cfg("SubspaceIteration"))
+  x = torch.as_tensor(make_embeddings(256, d=32))
+  timings = StageTimings("cpu")
+  staged = pipeline.spectral_cluster_fixed_k_staged(
+      x, torch.Generator().manual_seed(0), cfg, timings=timings)
+  mono = pipeline.spectral_cluster_fixed_k(
+      x, torch.Generator().manual_seed(0), cfg)
+  assert set(timings.as_dict()) == {"host_eig"}
+  for a, b in zip(staged, mono):
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("n_valid", [None, 300])
+def test_eig_topk_staged_matches_jax(solver, n_valid):
+  x = np.zeros((384, 64), np.float32)
+  x[:300] = make_embeddings(300, d=64, k=3, seed=3)
+  if n_valid is None:
+    x = x[:300]
+  cfg, jcfg = _cfg(solver), _jcfg(solver)
+  aff = pipeline.prepare_affinity(torch.as_tensor(x), cfg, n_valid)
+  before = aff.clone()
+  w, v, n_c, delta = pipeline.eig_topk_staged(aff, cfg, n_valid=n_valid)
+  assert torch.equal(aff, before)
+  jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg, n_valid=n_valid)
+  jw, jv, jn_c, jdelta = j_pipeline.eig_topk_staged(
+      jaff, jcfg, n_valid=None if n_valid is None else jnp.int32(n_valid))
+  assert int(n_c) == int(jn_c) == 3
+  assert w.shape == jw.shape == (8,) and v.shape == jv.shape == (x.shape[0], 7)
+  wmax = float(np.max(np.abs(np.asarray(jw))))
+  np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-4 * wmax)
+  np.testing.assert_allclose(float(delta), float(jdelta), rtol=1e-3)
+
+
+def test_eig_topk_staged_eigh_routes():
+  # Eigh takes the full eigh: all N eigenvalues within dc_max_block, the
+  # max_clusters+1 extreme ones (the full-eigh stand-in) past it.
+  x = torch.as_tensor(make_embeddings(300, d=64, k=3, seed=3))
+  cfg = _cfg("Eigh")
+  aff = pipeline.prepare_affinity(x, cfg)
+  full = pipeline.eig_topk_staged(aff, cfg)
+  topk = pipeline.eig_topk_staged(aff, cfg.replace(dc_max_block=256))
+  assert full[0].shape == (300,) and topk[0].shape == (8,)
+  np.testing.assert_array_equal(topk[0].numpy(), full[0].numpy()[:8])
+  assert int(full[2]) == int(topk[2]) == 3
+  with pytest.raises(ValueError, match="general-eig or unbounded-k"):
+    pipeline.eig_topk_staged(aff, _cfg("HostGeneral"))
+  with pytest.raises(NotImplementedError, match="item 8"):
+    pipeline.eig_topk_staged(aff, cfg, constraint_matrix=aff)
 
 
 def test_clusterer_defaults_to_the_card():
