@@ -9,17 +9,23 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
   1. device — the card's name and power limit (nvidia-smi);
-  2. build — compiles csrc/fused.cu with nvcc at first use;
+  2. build — compiles csrc/fused.cu with nvcc at first use; prints ptxas's
+     registers, static shared memory and spill bytes per kernel, and the
+     blocks resident per SM of the affinity, row_max and crop_diagonal;
   3. kernels — each hand-written kernel against its plain PyTorch twin on the
      card, at the main path's shapes (N=10240, d=256; kernel 5 on the
      Diffuse output, its input on the HostGeneral path) and at a ragged
      N=1000 with n_valid=937 on a matrix with negative entries; kernels 2-5
      must agree bit for bit, the affinity within rtol=1e-5, atol=1e-6 (its
-     float32 sums run in another order). Then times (CUDA events, median of
-     20 after warm-up) of each kernel, its twin and a one-call library
-     yardstick where one exists, beside the card's bound for the same work,
-     and of the main path's other device stages (blur, Diffuse, full eigh,
-     top-k subspace);
+     float32 sums run in another order) and equal to its transpose bit for
+     bit. Then times (CUDA events around 10 calls back to back behind one
+     untimed call, median of 20 such means after warm-up) of each kernel,
+     its twin and a one-call library yardstick where one exists (the
+     affinity's `addmm` timed with the row normalization, as the kernel's
+     wrapper is), beside the card's bound for the same work (the
+     affinity's as the symmetric least work, N(N+1)/2 dot products), and of
+     the main path's other device stages (blur, Diffuse, full eigh, top-k
+     subspace);
   4. paths — make_icassp2018_clusterer(...).predict on make_embeddings(N),
      labels held against benchmarks/reference_labels.npz at N=512, 2048 and
      the leg's N, with launch counts zeroed after the cold run and read
@@ -45,6 +51,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -58,6 +65,7 @@ N_RAGGED = 1000
 NV_RAGGED = 937
 P_ROWMAX = 0.95
 REPS = 20
+BATCH = 10
 WARM_RUNS = 5
 N_GENERAL = 4096
 GENERAL_WARM_RUNS = 2
@@ -85,7 +93,15 @@ def card_peaks(name: str):
   raise RuntimeError(f"no data-sheet peaks for card {name!r}")
 
 
-def time_ms(torch, fn, reps=REPS, warmup=3) -> float:
+def time_ms(torch, fn, reps=REPS, batch=BATCH, warmup=3) -> float:
+  """Median over `reps` of the mean card time of one call.
+
+  Each rep is `batch` calls back to back between two CUDA events, after one
+  untimed call that keeps the card busy meanwhile, so the host enqueues
+  ahead of the card as it does on the main path, and the time is the
+  card's, not the host's launch overhead (one call per event pair counts
+  that overhead whenever it exceeds the kernel's own time).
+  """
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
@@ -93,11 +109,13 @@ def time_ms(torch, fn, reps=REPS, warmup=3) -> float:
   for _ in range(reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn()  # keeps the card busy while the host enqueues the timed calls
     start.record()
-    fn()
+    for _ in range(batch):
+      fn()
     end.record()
     end.synchronize()
-    times.append(start.elapsed_time(end))
+    times.append(start.elapsed_time(end) / batch)
   return statistics.median(times)
 
 
@@ -147,10 +165,22 @@ def main() -> int:
   lib_path = build.build()
   build.load()
   build_s = time.perf_counter() - t0
-  with open(lib_path + ".log") as f:
-    ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-  results["build"] = {"seconds": build_s, "library": os.path.basename(lib_path),
-                      "ptxas": ptxas}
+  resident = {}
+  for i, name in enumerate(("affinity", "row_max", "crop_diagonal")):
+    blocks = ctypes.c_int(0)
+    rc = build.load().sct_resident_blocks(i, ctypes.byref(blocks))
+    if rc != 0:
+      raise SystemExit(f"sct_resident_blocks({name}): CUDA error {rc}")
+    resident[name] = blocks.value
+  ptxas = build.ptxas_report(lib_path)
+  results["build"] = {
+      "seconds": build_s, "library": os.path.basename(lib_path),
+      "ptxas": ptxas, "resident_blocks_per_sm": resident,
+      # The two kernels redesigned for this card should not spill.
+      "spill_bytes_affinity_row_max": sum(
+          r.get("spill_stores", 0) + r.get("spill_loads", 0)
+          for k, r in ptxas.items()
+          if k.startswith(("affinity_kernel", "row_max_kernel")))}
   log(json.dumps({"phase": "build", **results["build"]}))
 
   # 3. Kernels against their twins.
@@ -190,8 +220,14 @@ def main() -> int:
 
   check("affinity", f"N={N_MAIN},d={D_MAIN}", aff, fused.affinity_plain(x),
         False)
-  check("affinity", f"N={N_RAGGED},d=100", fused.affinity(x_ragged),
+  check("affinity", f"N={N_MAIN},d={D_MAIN},against its transpose", aff,
+        aff.T, True)
+  aff_ragged = fused.affinity(x_ragged)
+  check("affinity", f"N={N_RAGGED},d=100", aff_ragged,
         fused.affinity_plain(x_ragged), False)
+  check("affinity", f"N={N_RAGGED},d=100,against its transpose", aff_ragged,
+        aff_ragged.T, True)
+  del aff_ragged
   check("row_max", f"N={N_MAIN}", fused.row_max(blurred),
         fused.row_max_plain(blurred), True)
   for excl in (False, True):
@@ -235,13 +271,18 @@ def main() -> int:
 
   # Times at the main path's shapes, and each kernel's bound on this card.
   n, d = N_MAIN, D_MAIN
-  xn = fused.normalize_rows(x)
   half = torch.full((), 0.5, device=dev)
   crop_scratch = aff.clone()
+
+  def addmm_affinity():
+    # The same footing as fused.affinity: the row normalization included.
+    xn = fused.normalize_rows(x)
+    return torch.addmm(half, xn, xn.T, beta=1.0, alpha=0.5)
+
   timed = {
+      # The output is symmetric: the least work is N(N+1)/2 dot products.
       "affinity": (lambda: fused.affinity(x), lambda: fused.affinity_plain(x),
-                   lambda: torch.addmm(half, xn, xn.T, beta=1.0, alpha=0.5),
-                   (n * d + n * n) * 4, 2 * n * n * d),
+                   addmm_affinity, (n * d + n * n) * 4, n * (n + 1) * d),
       "row_max": (lambda: fused.row_max(blurred),
                   lambda: fused.row_max_plain(blurred),
                   lambda: torch.amax(blurred, dim=1, keepdim=True),
@@ -305,7 +346,8 @@ def main() -> int:
   results["breakdown_ms"] = {}
   with torch.no_grad():
     for name, fn in breakdown.items():
-      results["breakdown_ms"][name] = time_ms(torch, fn, reps=3, warmup=1)
+      results["breakdown_ms"][name] = time_ms(torch, fn, reps=3, batch=1,
+                                              warmup=1)
   log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
   del crop_scratch, blurred, ragged, aff, sym, m
 

@@ -11,9 +11,10 @@
 // division and square root stays IEEE, and the products are float32 FMAs
 // on the CUDA cores, never TF32 tensor cores.
 //
-// Interface: plain C. Every function launches one kernel on the given
-// stream, does not synchronize, allocates nothing, and returns
-// cudaGetLastError() so the caller sees a refused launch.
+// Interface: plain C. Every sct_* function but sct_resident_blocks (a
+// report of occupancy) launches one kernel on the given stream, does not
+// synchronize, allocates nothing, and returns cudaGetLastError() so the
+// caller sees a refused launch.
 //
 // Card figures used below (H100 SXM data sheet): 3.35 TB/s HBM3,
 // 67 TFLOP/s float32 on the CUDA cores. N = 10240, d = 256 on the main path.
@@ -32,177 +33,384 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 // ---------------------------------------------------------------------------
-// 1. Cosine affinity: out = (xn xnᵀ + 1) / 2.
+// 1. Cosine affinity: out = (xn xnᵀ + 1) / 2, one triangle of tile pairs.
 //
 // Replaces affinity_pallas / _affinity_kernel (kernels/fused.py:46-77), an
 // fp32 HIGHEST-precision MXU dot with the affine step in the epilogue.
-// Bound: 2·N²·d = 53.7 GFLOP at N=10240, d=256 -> 0.80 ms at 67 TFLOP/s;
-// its bytes (N·d in, N² out = 0.42 GB -> 0.125 ms) are six times cheaper, so
-// it is bound by float32 operations. Design: a shared-memory-tiled SGEMM,
-// 64x64 output tile per 256-thread block, 16-deep k slices, a 4x4 register
-// tile per thread (each shared load feeds four FMAs), and the affine step
-// fused into the store. Both operands are row blocks of the same xn, so no
-// transposed copy exists. Every product sums its d terms in k order, so the
-// output is exactly symmetric. Speed (double buffering, wider register
-// tiles, computing one triangle) is later work.
+// Bound: both operands are row blocks of one xn, so the output is exactly
+// symmetric and the least work is N(N+1)/2 dot products of length d:
+// N(N+1)·d = 26.9 GFLOP at N=10240, d=256 -> 0.40 ms at 67 TFLOP/s on the
+// CUDA cores. Its bytes (N·d read, N² written: 0.42 GB -> 0.125 ms) cost
+// less, so it is bound by float32 operations. IEEE float32 FMAs only: no
+// TF32 tensor cores, no --use_fast_math.
+// Design, against that bound:
+//  * operand: the wrapper hands over xnᵀ, (d_pad, ld) k-major and zero-padded
+//    to whole tiles, so the two operand tiles of a k slice are rows of one
+//    array, copied into shared memory with 16-byte cp.async, no transpose,
+//    no masks;
+//  * a 128x128 output tile per 256-thread block, an 8x8 register tile per
+//    thread laid out as 2x2 sub-tiles of 4x4: each k step reads its 16
+//    operands with four conflict-free 128-bit shared loads for 64 FMAs;
+//  * a ring of kAffStages shared-memory stages of kAffDepth-deep k slices:
+//    the copies of slice s+kAffStages-1 fly while slice s is computed, with
+//    one __syncthreads per slice;
+//  * one triangle: the 1-D grid walks the tile pairs bi <= bj only,
+//    T(T+1)/2 blocks for T = ceil(N/128) (3,240, not 6,400, at N=10240).
+//    An off-diagonal block writes tile (bi,bj) and its transpose (bj,bi)
+//    straight from registers: a thread's 4 consecutive rows are 4
+//    consecutive columns of the transpose, so both stores are 16 bytes wide
+//    and neighbouring lanes fill whole 32-byte sectors. A diagonal block
+//    writes once;
+//  * every output element is one fmaf chain over k = 0..d-1 in order (the
+//    zero padding adds exact zeros), so out equals outᵀ bit for bit, and the
+//    bits are those of any tiled SGEMM that sums in k order.
 // ---------------------------------------------------------------------------
 
-constexpr int kAffTile = 64;
-constexpr int kAffDepth = 16;
+constexpr int kAffTile = 128;    // output tile edge; the operand's ld unit
+constexpr int kAffDepth = 16;    // k slice; the operand's d_pad unit
+constexpr int kAffStages = 3;
 constexpr int kAffThreads = 256;
+constexpr int kAffStageFloats = 2 * kAffDepth * kAffTile;
+constexpr int kAffSmemBytes = kAffStages * kAffStageFloats * 4;
 
-__global__ void __launch_bounds__(kAffThreads)
-affinity_kernel(const float* __restrict__ xn, float* __restrict__ out, int n,
-                int d) {
-  // Stored k-major so the inner loop reads rows of the tile.
-  __shared__ float as[kAffDepth][kAffTile + 4];
-  __shared__ float bs[kAffDepth][kAffTile + 4];
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Tile pair p of the upper triangle, column by column:
+// p = bj(bj+1)/2 + bi with 0 <= bi <= bj.
+__device__ __forceinline__ void triangle_pair(int p, int& bi, int& bj) {
+  int j = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+  while (j * (j + 1) / 2 > p) --j;
+  while ((j + 1) * (j + 2) / 2 <= p) ++j;
+  bj = j;
+  bi = p - j * (j + 1) / 2;
+}
+
+// Copies k slice `slice` of the operand columns [row0, row0+128) and
+// [col0, col0+128) into one stage: two (kAffDepth, 128) k-major tiles.
+__device__ __forceinline__ void load_slice(float* stage, const float* xt,
+                                           int ld, int slice, int row0,
+                                           int col0, int tid) {
+  float* as = stage;
+  float* bs = stage + kAffDepth * kAffTile;
+  const float* src = xt + (size_t)slice * kAffDepth * ld;
+#pragma unroll
+  for (int u = 0; u < kAffDepth * kAffTile / 4 / kAffThreads; ++u) {
+    const int q = tid + u * kAffThreads;
+    const int k = q / (kAffTile / 4);
+    const int c = (q % (kAffTile / 4)) * 4;
+    cp_async16(as + k * kAffTile + c, src + (size_t)k * ld + row0 + c);
+    cp_async16(bs + k * kAffTile + c, src + (size_t)k * ld + col0 + c);
+  }
+}
+
+// Stores 4 consecutive values at row[c..c+3], those < n.
+__device__ __forceinline__ void store4(float* row, int c, int n, bool vec,
+                                       float v0, float v1, float v2,
+                                       float v3) {
+  if (vec) {
+    // n % 4 == 0 and c % 4 == 0, so c < n covers all four.
+    if (c < n) {
+      *reinterpret_cast<float4*>(row + c) = make_float4(v0, v1, v2, v3);
+    }
+    return;
+  }
+  if (c < n) row[c] = v0;
+  if (c + 1 < n) row[c + 1] = v1;
+  if (c + 2 < n) row[c + 2] = v2;
+  if (c + 3 < n) row[c + 3] = v3;
+}
+
+__global__ void __launch_bounds__(kAffThreads, 2)
+affinity_kernel(const float* __restrict__ xt, float* __restrict__ out, int n,
+                int ld, int k_slices) {
+  extern __shared__ __align__(16) float smem[];
+  int bi, bj;
+  triangle_pair(blockIdx.x, bi, bj);
+  const int row0 = bi * kAffTile;
+  const int col0 = bj * kAffTile;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row0 = blockIdx.y * kAffTile;
-  const int col0 = blockIdx.x * kAffTile;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // The thread grid is 16x16; a warp owns 4 of its rows by 8 of its columns.
+  // Thread (ty, tx) holds rows {0, 64} + 4ty + 0..3 and columns
+  // {0, 64} + 4tx + 0..3 of the tile.
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < d; k0 += kAffDepth) {
-    for (int l = tid; l < kAffTile * kAffDepth; l += kAffThreads) {
-      const int r = l / kAffDepth;
-      const int c = l % kAffDepth;
-      const int k = k0 + c;
-      const int ga = row0 + r;
-      const int gb = col0 + r;
-      as[c][r] = (ga < n && k < d) ? xn[(size_t)ga * d + k] : 0.0f;
-      bs[c][r] = (gb < n && k < d) ? xn[(size_t)gb * d + k] : 0.0f;
+#pragma unroll
+  for (int s = 0; s < kAffStages - 1; ++s) {
+    if (s < k_slices) {
+      load_slice(smem + s * kAffStageFloats, xt, ld, s, row0, col0, tid);
     }
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < k_slices; ++ks) {
+    // Slice ks has landed; every thread is done with slice ks-1, whose stage
+    // the next copy refills.
+    cp_async_wait<kAffStages - 2>();
     __syncthreads();
+    const int next = ks + kAffStages - 1;
+    if (next < k_slices) {
+      load_slice(smem + (next % kAffStages) * kAffStageFloats, xt, ld, next,
+                 row0, col0, tid);
+    }
+    cp_async_commit();
+    const float* as = smem + (ks % kAffStages) * kAffStageFloats;
+    const float* bs = as + kAffDepth * kAffTile;
 #pragma unroll
     for (int k = 0; k < kAffDepth; ++k) {
-      float a[4], b[4];
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kAffTile +
+                                                         4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + k * kAffTile +
+                                                         64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kAffTile +
+                                                         4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + k * kAffTile +
+                                                         64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = as[k][ty + 16 * i];
-        b[i] = bs[k][tx + 16 * i];
-      }
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
     }
-    __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= n) continue;
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < n) out[(size_t)r * n + c] = (acc[i][j] + 1.0f) * 0.5f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = (acc[i][j] + 1.0f) * 0.5f;
+  }
+  const bool vec =
+      (n & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  // Tile (bi, bj): row r, columns c..c+3.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (i >> 2) * 64 + 4 * ty + (i & 3);
+    if (r >= n) continue;
+    float* orow = out + (size_t)r * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      store4(orow, col0 + h * 64 + 4 * tx, n, vec, acc[i][4 * h],
+             acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+  }
+  if (bi == bj) return;
+  // Tile (bj, bi): row c of the transpose is column c of the register tile.
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = col0 + (j >> 2) * 64 + 4 * tx + (j & 3);
+    if (c >= n) continue;
+    float* orow = out + (size_t)c * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      store4(orow, row0 + h * 64 + 4 * ty, n, vec, acc[4 * h][j],
+             acc[4 * h + 1][j], acc[4 * h + 2][j], acc[4 * h + 3][j]);
     }
   }
 }
 
+// Lets the affinity kernel take kAffSmemBytes of dynamic shared memory; set
+// once per process.
+cudaError_t affinity_smem_opt_in() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      affinity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAffSmemBytes);
+  return err;
+}
+
 // ---------------------------------------------------------------------------
-// 2./3. Row max and CropDiagonal: one warp per row.
+// 2./3. Row max and CropDiagonal: one warp per row, one resident wave.
 //
 // row_max replaces row_max_pallas / _row_max_kernel (kernels/fused.py:
 // 85-140): the max of row i over columns < n_valid; with exclude_diagonal
 // the diagonal entry counts as 0 (also in rows >= n_valid, where it is set
 // after the column mask, exactly as the TPU kernel does). The TPU kernel
 // carries a running max across a sequential grid axis of column tiles; here
-// the loop over columns inside the warp takes that axis's place and a warp
-// shuffle finishes the reduction, so nothing carries between blocks.
-// Bound: reading N·n_valid floats, 0.42 GB -> 0.125 ms at N=10240; the
-// design streams each row once with 16-byte coalesced loads.
+// a warp's loop over the columns takes that axis's place and a warp shuffle
+// finishes the reduction, so nothing carries between blocks.
+// Bound: reading N·n_valid floats once, 0.42 GB -> 0.125 ms at N=10240.
+// Design, against that bound:
+//  * one resident wave: the grid is as many blocks as the card holds at
+//    once (cudaOccupancyMaxActiveBlocksPerMultiprocessor × the SMs), cut so
+//    that every warp strides over the same number of rows, ceil(N / the
+//    resident warps). No second, mostly empty wave is left;
+//  * each lane issues kRowUnroll 16-byte loads before it reduces them, so
+//    enough bytes are in flight to cover the HBM latency;
+//  * no mask tests in the hot loop: the columns a row reduces, [0, n_valid)
+//    less the diagonal under exclude_diagonal, are one or two column
+//    ranges, each streamed by one fmaxf-only loop. Only the at most three
+//    columns at either end of a range that do not fill a float4 are read
+//    one by one. exclude_diagonal is a template argument, so the main
+//    path's form (no exclusion) compiles to the one range; with it the max
+//    starts at 0, the diagonal's value, and the diagonal is never read.
+// A max is order-free, so every traversal gives the twin's bits.
 //
 // crop_diagonal replaces crop_diagonal_pallas / _crop_diag_kernel
 // (kernels/fused.py:226-254), which runs the row max and then a second
 // N² pass that copies the matrix with the diagonal replaced. Here the row
-// max and the diagonal write are fused. Only N values change, so with
-// out == a the kernel writes the diagonal IN PLACE: it reads N·n_valid
-// floats and writes N, 0.42 GB -> 0.125 ms at N=10240, where the copy
-// would read and write N² (0.84 GB). The main path hands it the fresh
-// affinity, which nothing reads afterwards. With out != a it copies each
-// row as it streams it (N² read + N² written) for callers that keep a.
+// max and the diagonal write are fused, on the same traversal. Only N values
+// change, so with out == a the kernel writes the diagonal IN PLACE: it reads
+// N·n_valid floats and writes N, 0.42 GB -> 0.125 ms at N=10240, where the
+// copy would read and write N² (0.84 GB). The main path hands it the fresh
+// affinity, which nothing reads afterwards. With out != a it first copies
+// the row (N² read + N² written) for callers that keep a; the row max then
+// reads the row again, from L2.
 // ---------------------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowUnroll = 4;
 
-__device__ __forceinline__ float masked(float v, int c, int i, bool exclude) {
-  return (exclude && c == i) ? 0.0f : v;
+// The lane's max over row[lo, hi), folded into m. `vec`: the row starts
+// 16-byte aligned.
+__device__ __forceinline__ float range_max(const float* __restrict__ row,
+                                           int lo, int hi, bool vec, int lane,
+                                           float m) {
+  if (vec) {
+    const int lo4 = (lo + 3) >> 2;
+    const int hi4 = hi >> 2;
+    if (lo4 < hi4) {
+      if (lo + lane < 4 * lo4) m = fmaxf(m, row[lo + lane]);
+      if (4 * hi4 + lane < hi) m = fmaxf(m, row[4 * hi4 + lane]);
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      int c = lo4 + lane;
+      for (; c + 32 * (kRowUnroll - 1) < hi4; c += 32 * kRowUnroll) {
+        float4 v[kRowUnroll];
+#pragma unroll
+        for (int u = 0; u < kRowUnroll; ++u) v[u] = row4[c + 32 * u];
+#pragma unroll
+        for (int u = 0; u < kRowUnroll; ++u) {
+          m = fmaxf(m, fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w)));
+        }
+      }
+      for (; c < hi4; c += 32) {
+        const float4 v = row4[c];
+        m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      }
+      return m;
+    }
+  }
+  for (int c = lo + lane; c < hi; c += 32) m = fmaxf(m, row[c]);
+  return m;
 }
 
-// Max of row i over columns < n_valid (diagonal as 0 when `exclude`);
-// with kCopy, also copies columns < n into orow.
-template <bool kCopy>
-__device__ float stream_row(const float* __restrict__ row,
-                            float* __restrict__ orow, int i, int n,
-                            int n_valid, bool exclude, bool vec, int lane) {
-  const int limit = kCopy ? n : n_valid;
-  float m = -INFINITY;
-  int start = lane;
-  if (vec) {
-    // Row starts are 16-byte aligned (n % 4 == 0, checked by the caller).
-    const float4* row4 = reinterpret_cast<const float4*>(row);
-    float4* orow4 = reinterpret_cast<float4*>(orow);
-    const int lim4 = limit >> 2;
-    for (int c4 = lane; c4 < lim4; c4 += 32) {
-      const float4 v = row4[c4];
-      if (kCopy) orow4[c4] = v;
-      const int c = c4 << 2;
-      if (c < n_valid) m = fmaxf(m, masked(v.x, c, i, exclude));
-      if (c + 1 < n_valid) m = fmaxf(m, masked(v.y, c + 1, i, exclude));
-      if (c + 2 < n_valid) m = fmaxf(m, masked(v.z, c + 2, i, exclude));
-      if (c + 3 < n_valid) m = fmaxf(m, masked(v.w, c + 3, i, exclude));
-    }
-    start = (lim4 << 2) + lane;
+// Row i's max over columns < n_valid; with kExclude, column i counts as 0.
+template <bool kExclude>
+__device__ __forceinline__ float row_max_value(const float* __restrict__ row,
+                                               int i, int n_valid, bool vec,
+                                               int lane) {
+  float m = kExclude ? 0.0f : -INFINITY;
+  // With kExclude the columns are [0, min(i, n_valid)) and [i+1, n_valid).
+  // One copy of the range loop serves both, so the exclusion adds no
+  // registers to it.
+#pragma unroll 1
+  for (int part = 0; part < (kExclude ? 2 : 1); ++part) {
+    const int lo = part == 0 ? 0 : i + 1;
+    const int hi = kExclude && part == 0 ? min(i, n_valid) : n_valid;
+    m = range_max(row, lo, hi, vec, lane, m);
   }
-  for (int c = start; c < limit; c += 32) {
-    const float v = row[c];
-    if (kCopy) orow[c] = v;
-    if (c < n_valid) m = fmaxf(m, masked(v, c, i, exclude));
-  }
-  if (exclude && i >= n_valid) m = fmaxf(m, 0.0f);
   return warp_max(m);
 }
 
+template <bool kExclude>
 __global__ void __launch_bounds__(kRowThreads)
 row_max_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
-               int n_valid, int exclude_diagonal, int vec) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+               int n_valid, int vec) {
   const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const float m = stream_row<false>(a + (size_t)i * n, nullptr, i, n, n_valid,
-                                    exclude_diagonal != 0, vec != 0, lane);
-  if (lane == 0) out[i] = m;
+  const int warps = gridDim.x * kRowWarps;
+  for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < n;
+       i += warps) {
+    const float m = row_max_value<kExclude>(a + (size_t)i * n, i, n_valid,
+                                            vec != 0, lane);
+    if (lane == 0) out[i] = m;
+  }
 }
 
 __global__ void __launch_bounds__(kRowThreads)
 crop_diagonal_kernel(const float* a, float* out, int n, int n_valid,
                      int vec) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (i >= n) return;
-  const float* row = a + (size_t)i * n;
-  float* orow = out + (size_t)i * n;
-  // Row i's diagonal is read and written only by the warp of row i, so the
-  // in-place form has no race across warps; within the warp the shuffles
-  // of the reduction and __syncwarp order every lane's read (and copy) of
-  // the row before lane 0's diagonal write.
-  const float m = (out != a)
-      ? stream_row<true>(row, orow, i, n, n_valid, true, vec != 0, lane)
-      : stream_row<false>(row, nullptr, i, n, n_valid, true, vec != 0, lane);
-  __syncwarp();
-  if (lane == 0) orow[i] = m;
+  const int warps = gridDim.x * kRowWarps;
+  for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < n;
+       i += warps) {
+    const float* row = a + (size_t)i * n;
+    float* orow = out + (size_t)i * n;
+    if (out != a) {
+      int start = lane;
+      if (vec) {
+        const float4* row4 = reinterpret_cast<const float4*>(row);
+        float4* orow4 = reinterpret_cast<float4*>(orow);
+        for (int c4 = lane; c4 < (n >> 2); c4 += 32) orow4[c4] = row4[c4];
+        start = 4 * (n >> 2) + lane;
+      }
+      for (int c = start; c < n; c += 32) orow[c] = row[c];
+    }
+    // The row max never reads column i, and row i is only this warp's, so
+    // the in-place write races with nothing; __syncwarp orders the copy of
+    // column i before lane 0 overwrites it.
+    const float m = row_max_value<true>(row, i, n_valid, vec != 0, lane);
+    __syncwarp();
+    if (lane == 0) orow[i] = m;
+  }
+}
+
+// The card's SMs, and the blocks of a warp-per-row kernel resident on one
+// SM: asked once per process, which drives one card.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
+}
+
+template <auto kKernel>
+int row_resident_blocks() {
+  static const int blocks = [] {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
+                                                  kRowThreads, 0);
+    return per_sm;
+  }();
+  return blocks;
+}
+
+// Blocks of a warp-per-row kernel: the card's resident warps, cut so that
+// every warp takes the same number of rows (one warp per row if the
+// occupancy query failed; the launch then reports its error).
+template <auto kKernel>
+int row_blocks(int n) {
+  const int resident = sm_count() * row_resident_blocks<kKernel>() * kRowWarps;
+  if (n <= 0 || resident <= 0) return cdiv(n > 0 ? n : 1, kRowWarps);
+  const int rows_per_warp = cdiv(n, resident);
+  return cdiv(cdiv(n, rows_per_warp), kRowWarps);
 }
 
 // ---------------------------------------------------------------------------
@@ -342,8 +550,6 @@ row_wise_normalize_kernel(const float* __restrict__ a, float* __restrict__ out,
   for (int c = start; c < n; c += kRowThreads) orow[c] = row[c] / m;
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 }  // namespace
 
 extern "C" {
@@ -352,28 +558,60 @@ const char* sct_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int sct_affinity(const float* xn, float* out, int n, int d, void* stream) {
-  const dim3 grid(cdiv(n, kAffTile), cdiv(n, kAffTile));
-  affinity_kernel<<<grid, kAffThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xn, out, n, d);
+int sct_affinity(const float* xt, float* out, int n, int ld, int d_pad,
+                 void* stream) {
+  // xt is xnᵀ zero-padded to (d_pad, ld): whole k slices, whole tiles.
+  if (ld % kAffTile != 0 || ld < n || d_pad % kAffDepth != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t attr = affinity_smem_opt_in();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles = cdiv(n, kAffTile);
+  affinity_kernel<<<tiles * (tiles + 1) / 2, kAffThreads, kAffSmemBytes,
+                    static_cast<cudaStream_t>(stream)>>>(xt, out, n, ld,
+                                                         d_pad / kAffDepth);
   return static_cast<int>(cudaGetLastError());
 }
 
 int sct_row_max(const float* a, float* out, int n, int n_valid,
                 int exclude_diagonal, int vec, void* stream) {
-  const int blocks = cdiv(n, kRowThreads / 32);
-  row_max_kernel<<<blocks, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, out, n, n_valid, exclude_diagonal, vec);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exclude_diagonal) {
+    row_max_kernel<true><<<row_blocks<row_max_kernel<true>>(n), kRowThreads,
+                           0, s>>>(a, out, n, n_valid, vec);
+  } else {
+    row_max_kernel<false><<<row_blocks<row_max_kernel<false>>(n),
+                            kRowThreads, 0, s>>>(a, out, n, n_valid, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int sct_crop_diagonal(const float* a, float* out, int n, int n_valid, int vec,
                       void* stream) {
-  const int blocks = cdiv(n, kRowThreads / 32);
-  crop_diagonal_kernel<<<blocks, kRowThreads, 0,
+  crop_diagonal_kernel<<<row_blocks<crop_diagonal_kernel>(n), kRowThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(a, out, n,
                                                               n_valid, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks resident on one SM, for reports: kernel 0 is the affinity, 1
+// row_max (the main path's form, no exclude_diagonal), 2 crop_diagonal.
+int sct_resident_blocks(int kernel, int* blocks) {
+  cudaError_t err = cudaSuccess;
+  if (kernel == 0) {
+    err = affinity_smem_opt_in();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, affinity_kernel, kAffThreads, kAffSmemBytes);
+    }
+  } else if (kernel == 1) {
+    *blocks = row_resident_blocks<row_max_kernel<false>>();
+  } else if (kernel == 2) {
+    *blocks = row_resident_blocks<crop_diagonal_kernel>();
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 int sct_threshold_symmetrize(const float* a, const float* thr, float* out,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,11 +33,12 @@ _F = ctypes.c_float
 # Every pointer and the stream are c_void_p: an undeclared argument would be
 # passed as a 32-bit int and cut the pointer.
 _SIGNATURES = {
-    "sct_affinity": (_P, _P, _I, _I, _P),
+    "sct_affinity": (_P, _P, _I, _I, _I, _P),
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
     "sct_crop_diagonal": (_P, _P, _I, _I, _I, _P),
     "sct_threshold_symmetrize": (_P, _P, _P, _I, _F, _I, _I, _I, _P),
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
+    "sct_resident_blocks": (_I, _P),
 }
 
 
@@ -59,27 +61,29 @@ def _nvcc() -> str:
   raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> str:
+def library_path(sources: typing.Sequence[str] = SOURCES) -> str:
   h = hashlib.sha256()
-  for src in SOURCES:
+  for src in sources:
     with open(src, "rb") as f:
       h.update(f.read())
   h.update(" ".join(NVCC_FLAGS).encode())
   return os.path.join(build_dir(), f"libsct_fused_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
+def build(sources: typing.Sequence[str] = SOURCES) -> str:
   """Compile the kernels if this source hash has no library yet.
 
   Returns the library's path. nvcc's resource report (-Xptxas -v) is kept
-  beside it as ``<library>.log``.
+  beside it as ``<library>.log``. Other ``sources`` (another version of
+  ``fused.cu``, for a comparison) build with the same flags into their own
+  library.
   """
-  path = library_path()
+  path = library_path(sources)
   if os.path.exists(path):
     return path
   os.makedirs(build_dir(), exist_ok=True)
   tmp = f"{path}.{os.getpid()}.tmp"
-  cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+  cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
   proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
   with open(path + ".log", "w") as f:
     f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -87,6 +91,44 @@ def build() -> str:
     raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
   os.replace(tmp, path)
   return path
+
+
+def ptxas_report(lib_path: str) -> typing.Dict[str, typing.Dict[str, int]]:
+  """Registers, static shared memory and spill bytes per kernel.
+
+  Read from the ``-Xptxas -v`` lines that ``build`` keeps in
+  ``<library>.log``; kernels are keyed by their unmangled names, a bool
+  template argument included (``row_max_kernel<true>``).
+  """
+  report: typing.Dict[str, typing.Dict[str, int]] = {}
+  current = None
+  with open(lib_path + ".log") as f:
+    for line in f:
+      entry = re.search(r"(?:entry function '|properties for )(\S+?)'?$",
+                        line.strip())
+      if entry:
+        # e.g. ..._14row_max_kernelILb1EEEv... -> row_max_kernel<true>
+        name = re.search(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?E",
+                         entry.group(1))
+        key = entry.group(1)
+        if name:
+          key = name.group(1) + ({"0": "<false>", "1": "<true>"}.get(
+              name.group(2), ""))
+        current = report.setdefault(key, {})
+        continue
+      if current is None:
+        continue
+      spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+      if spill:
+        current["spill_stores"] = int(spill.group(1))
+        current["spill_loads"] = int(spill.group(2))
+      used = re.search(r"Used (\d+) registers", line)
+      if used:
+        current["registers"] = int(used.group(1))
+        smem = re.search(r"(\d+) bytes smem", line)
+        current["static_smem"] = int(smem.group(1)) if smem else 0
+  return report
 
 
 def load() -> ctypes.CDLL:

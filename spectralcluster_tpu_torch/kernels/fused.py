@@ -158,11 +158,35 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The affinity kernel's operand units (kAffTile, kAffDepth in csrc/fused.cu):
+# it takes xnᵀ zero-padded to whole 128-column tiles and 16-deep k slices,
+# and refuses any other padding.
+AFFINITY_TILE = 128
+AFFINITY_DEPTH = 16
+
+
+def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
+  """xnᵀ, (d_pad, n_pad), zero-padded to the kernel's tile and k-slice units.
+
+  The padding adds exact zeros to each dot product, and rows past N are
+  never stored, so the kernel needs no masks on its loads.
+  """
+  n, d = xn.shape
+  n_pad = -(-n // AFFINITY_TILE) * AFFINITY_TILE
+  d_pad = -(-d // AFFINITY_DEPTH) * AFFINITY_DEPTH
+  if (n_pad, d_pad) == (n, d):
+    return xn.T.contiguous()
+  xt = xn.new_zeros((d_pad, n_pad))
+  xt[:d, :n] = xn.T
+  return xt
+
+
 def affinity(embeddings: torch.Tensor) -> torch.Tensor:
   """Cosine affinity in [0, 1] of (N, d) float32 embeddings -> (N, N).
 
-  The row normalization stays plain torch (jnp outside the TPU kernel too);
-  the product and the affine step are the kernel's.
+  The row normalization and the transposed, padded operand stay plain torch
+  (jnp outside the TPU kernel too); the product and the affine step are the
+  kernel's, which computes one triangle of tiles and mirrors it.
   """
   if _is_cpu(embeddings):
     return affinity_plain(embeddings)
@@ -170,11 +194,11 @@ def affinity(embeddings: torch.Tensor) -> torch.Tensor:
     raise ValueError("affinity: expected (N, d) embeddings")
   n, d = embeddings.shape
   _check_f32("affinity", embeddings, (n, d))
-  xn = normalize_rows(embeddings).contiguous()
+  xt = affinity_operand(normalize_rows(embeddings))
   out = torch.empty((n, n), dtype=torch.float32, device=embeddings.device)
   if n:
-    _launch("sct_affinity", xn.data_ptr(), out.data_ptr(), n, d,
-            _stream(embeddings))
+    _launch("sct_affinity", xt.data_ptr(), out.data_ptr(), n, xt.shape[1],
+            xt.shape[0], _stream(embeddings))
     affinity.launches += 1
   return out
 

@@ -6,6 +6,7 @@ only torch and the port, so they also run where JAX is not installed:
     python -m pytest tests/test_torch_gpu.py -m gpu
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -29,19 +30,37 @@ def cuda():
 
 
 def _mat(n, seed, device, shift=0.0):
-  rng = np.random.RandomState(seed)
-  return torch.as_tensor(rng.randn(n, n).astype(np.float32) + shift).to(device)
+  # Drawn on the card: N=20000 is 1.6 GB.
+  gen = torch.Generator(device).manual_seed(seed)
+  return torch.randn((n, n), generator=gen, device=device) + shift
 
 
-@pytest.mark.parametrize("n,d", [(1000, 100), (64, 256), (513, 33)])
+# The affinity's tiling edges: N around its 128-row tiles, d around its
+# 16-deep k slices (zero-padded by the wrapper).
+_AFFINITY_EDGES = list(itertools.product((1, 127, 128, 129, 1001),
+                                         (1, 33, 256, 257)))
+
+
+@pytest.mark.parametrize("n,d", [(1000, 100), (64, 256), (513, 33)]
+                         + _AFFINITY_EDGES)
 def test_affinity(cuda, n, d):
   x = torch.as_tensor(
       np.random.RandomState(0).randn(n, d).astype(np.float32)).to(cuda)
-  torch.testing.assert_close(fused.affinity(x), fused.affinity_plain(x),
-                             rtol=1e-5, atol=1e-6)
+  got = fused.affinity(x)
+  # float32 sums in another order than cuBLAS's.
+  torch.testing.assert_close(got, fused.affinity_plain(x), rtol=1e-5,
+                             atol=1e-6)
+  assert torch.equal(got, got.T)
 
 
-@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None), (7, 5)])
+# Row max edges: a row shorter than a float4, a ragged N, and N=20000, more
+# rows than one resident wave of warps holds.
+_ROW_MAX_EDGES = [(n, nv) for n in (7, 1001, 20000)
+                  for nv in (None, n - 1, 1)]
+
+
+@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None), (7, 5)]
+                         + _ROW_MAX_EDGES)
 @pytest.mark.parametrize("exclude", [False, True])
 def test_row_max(cuda, n, n_valid, exclude):
   a = _mat(n, 1, cuda, -0.5)
@@ -49,7 +68,8 @@ def test_row_max(cuda, n, n_valid, exclude):
                      fused.row_max_plain(a, exclude, n_valid))
 
 
-@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None)])
+@pytest.mark.parametrize("n,n_valid", [(1000, 937), (1024, None), (1001, None),
+                                     (1001, 1000)])
 @pytest.mark.parametrize("inplace", [False, True])
 def test_crop_diagonal(cuda, n, n_valid, inplace):
   a = _mat(n, 2, cuda, -3.0)

@@ -14,6 +14,7 @@ import torch
 from spectralcluster_tpu.kernels import fused as jax_fused
 from spectralcluster_tpu.ops import quantile as jax_quantile
 from spectralcluster_tpu.ops import refinement as jax_ref
+from spectralcluster_tpu_torch.kernels import build
 from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import quantile as quantile_ops
 from spectralcluster_tpu_torch.ops import refinement as t_ref
@@ -46,6 +47,58 @@ def test_affinity_matches_pallas(n, d):
   # The float32 sums of the product run in another order.
   np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                              atol=1e-6)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (127, 33), (129, 257), (100, 20)])
+def test_affinity_operand_feeds_the_pallas_product(n, d):
+  # The CUDA kernel's operand: xnᵀ zero-padded to whole tiles and k slices.
+  # Its padded product, cut to (N, N), is the Pallas kernel's affinity.
+  x = np.random.RandomState(1).randn(n, d).astype(np.float32)
+  xn = fused.normalize_rows(_t(x))
+  xt = fused.affinity_operand(xn)
+  d_pad, n_pad = xt.shape
+  assert n_pad % fused.AFFINITY_TILE == 0 and n <= n_pad < n + 128
+  assert d_pad % fused.AFFINITY_DEPTH == 0 and d <= d_pad < d + 16
+  assert xt.is_contiguous()
+  assert torch.equal(xt[:d, :n], xn.T)
+  assert not xt[d:].any() and not xt[:, n:].any()
+  ours = (torch.matmul(xt.T, xt)[:n, :n] + 1.0) * 0.5
+  ref = jax_fused.affinity_pallas(jnp.asarray(x), interpret=True)
+  np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                             atol=1e-6)
+
+
+def test_ptxas_report_reads_each_kernel(tmp_path):
+  log = tmp_path / "libsct_fused_x.so.log"
+  log.write_text(
+      "nvcc -Xptxas -v ...\n"
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_115affinity_kernelEPKfPfiii' for 'sm_90a'\n"
+      "ptxas info    : Function properties for "
+      "_ZN12_GLOBAL__N_115affinity_kernelEPKfPfiii\n"
+      "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]\n"
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_114row_max_kernelEPKfPfiiii' for 'sm_90a'\n"
+      "ptxas info    : Function properties for "
+      "_ZN12_GLOBAL__N_114row_max_kernelEPKfPfiiii\n"
+      "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+      "ptxas info    : Used 32 registers, 8448 bytes smem, 384 bytes cmem[0]\n"
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_114row_max_kernelILb1EEEvPKfPfiii' for 'sm_90a'\n"
+      "ptxas info    : Function properties for "
+      "_ZN12_GLOBAL__N_114row_max_kernelILb1EEEvPKfPfiii\n"
+      "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 40 registers, used 0 barriers\n")
+  report = build.ptxas_report(str(log)[:-len(".log")])
+  assert report == {
+      "affinity_kernel": {"registers": 128, "static_smem": 0,
+                          "spill_stores": 0, "spill_loads": 0},
+      "row_max_kernel": {"registers": 32, "static_smem": 8448,
+                         "spill_stores": 4, "spill_loads": 8},
+      "row_max_kernel<true>": {"registers": 40, "static_smem": 0,
+                               "spill_stores": 0, "spill_loads": 0},
+  }
 
 
 @pytest.mark.parametrize("exclude", [False, True])
