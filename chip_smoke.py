@@ -41,7 +41,18 @@ result line):
        * the host API at N=10240, post_eigen_cluster_function=run_kmeans
          (one cold run, two warm): the host flow with eig_topk_staged,
          kernels 1-4.
-  Together about 2-4 minutes on one H100, most of it the host eig.
+  5. Turn-to-Diarize — first each stage alone at N=10240 on
+     make_t2d_fixture(N): one E2CP (with its steps and residuals), one
+     Percentile threshold (row sort and quantile), kernel 4's T2D form on
+     the constrained affinity against its twin (bit for bit) and timed
+     beside its RowMax/Max form, and one ascending top-k subspace iteration
+     on the GraphCut operand. Then make_turntodiarize_clusterer().predict(x,
+     ConstraintMatrix(scores, threshold=1).compute_diagonals()), a fresh
+     clusterer per predict (AutoTune narrows its own range), labels held
+     against benchmarks/reference_labels_t2d.npz at N=256, 1024, 2048 and
+     10240 (one cold run, T2D_WARM_RUNS warm); the affinity must launch
+     once and kernel 4 once per AutoTune candidate (11).
+  Together about 3-4 minutes on one H100, most of it the host eig.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,6 +81,8 @@ WARM_RUNS = 5
 N_GENERAL = 4096
 GENERAL_WARM_RUNS = 2
 API_WARM_RUNS = 2
+T2D_WARM_RUNS = 2
+T2D_P = 0.785  # the p the JAX bench's AutoTune picked at every size
 
 # (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
 _PEAKS = (
@@ -135,8 +148,10 @@ def main() -> int:
   sys.path.insert(0, HERE)
   import numpy as np
 
-  from spectralcluster_tpu_torch import configs, pipeline, utils
-  from spectralcluster_tpu_torch.fixtures import make_embeddings
+  from spectralcluster_tpu_torch import clusterer as clusterer_lib
+  from spectralcluster_tpu_torch import configs, constraint, pipeline, utils
+  from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+                                                  make_t2d_fixture)
   from spectralcluster_tpu_torch.kernels import build
   from spectralcluster_tpu_torch.kernels import fused
   from spectralcluster_tpu_torch.ops import eigen as eigen_ops
@@ -196,14 +211,15 @@ def main() -> int:
   x_ragged = torch.as_tensor(
       rng.randn(N_RAGGED, 100).astype(np.float32)).to(dev)
 
-  def t2d_thresholds(mat, n_valid=None):
+  def t2d_thresholds(mat, n_valid=None, p=0.85):
+    """The T2D path's Percentile thresholds (preserve_diagonal)."""
     eye = torch.eye(mat.shape[0], dtype=torch.bool, device=dev)
     a = torch.where(eye, 0.0, mat)
     if n_valid is None:
-      q = quantile_ops.quantile_from_sorted(quantile_ops.sort_rows(a), 0.85)
+      q = quantile_ops.quantile_from_sorted(quantile_ops.sort_rows(a), p)
     else:
       q = quantile_ops.quantile_from_sorted_masked(
-          quantile_ops.sort_rows_masked(a, n_valid), 0.85, n_valid)
+          quantile_ops.sort_rows_masked(a, n_valid), p, n_valid)
     return q[:, None].contiguous()
 
   checks = []
@@ -424,6 +440,144 @@ def main() -> int:
       N_MAIN, API_WARM_RUNS, main_kernels, solver="Auto",
       post_eigen_cluster_function="run_kmeans")
 
+  # 5. Turn-to-Diarize: its device stages alone at N_MAIN, then the leg.
+  t2d_x, t2d_scores, _ = make_t2d_fixture(N_MAIN, D_MAIN)
+  t2d_cm_host = constraint.ConstraintMatrix(
+      t2d_scores, threshold=1).compute_diagonals()
+  t2d_cfg = configs.make_turntodiarize_clusterer()._config()
+  alpha = t2d_cfg.constraint_options.constraint_propagation_alpha
+  aff = fused.affinity(torch.as_tensor(t2d_x).to(dev))
+  t2d_cm = torch.as_tensor(t2d_cm_host.astype(np.float32)).to(dev)
+  adjusted, e2cp_res = constraint.constraint_propagation(
+      aff, t2d_cm, alpha, with_residual=True)
+  e2cp_steps = constraint.propagate(aff, t2d_cm, alpha)[2]
+  t2d_thr = t2d_thresholds(adjusted, p=T2D_P)
+  check("threshold_symmetrize_general",
+        f"N={N_MAIN},T2D on the constrained affinity, p={T2D_P}",
+        fused.threshold_symmetrize_general(adjusted, t2d_thr, 0.01, **t2d),
+        fused.threshold_symmetrize_general_plain(adjusted, t2d_thr, 0.01,
+                                                 **t2d), True)
+  if not checks[-1]["ok"]:
+    raise SystemExit(f"kernel disagrees with its twin: {checks[-1]}")
+  t2d_m, _ = pipeline._symmetric_eig_operand(adjusted.clone(), t2d_cfg, T2D_P,
+                                             None, ref_ops.SYMMETRIC)
+  with torch.no_grad():
+    times["threshold_symmetrize_general"].update(
+        t2d_ms=time_ms(torch, lambda: fused.threshold_symmetrize_general(
+            adjusted, t2d_thr, 0.01, **t2d)),
+        t2d_plain_ms=time_ms(
+            torch, lambda: fused.threshold_symmetrize_general_plain(
+                adjusted, t2d_thr, 0.01, **t2d)))
+    t2d_breakdown = {
+        "e2cp": lambda: constraint.constraint_propagation(aff, t2d_cm, alpha),
+        "percentile_threshold": lambda: t2d_thresholds(adjusted, p=T2D_P),
+        "subspace_topk_ascending": lambda: pipeline._subspace(
+            t2d_m, t2d_cfg, None, False),
+    }
+    results["t2d_breakdown_ms"] = {
+        name: time_ms(torch, fn, reps=2 if name == "e2cp" else 3, batch=1,
+                      warmup=1)
+        for name, fn in t2d_breakdown.items()}
+    # The subspace iteration's length: one CholeskyQR2 per iteration, plus
+    # one for the start panel.
+    orthonormalize = eigen_ops.cholqr2_shifted
+    calls = []
+    eigen_ops.cholqr2_shifted = lambda y: calls.append(1) or orthonormalize(y)
+    try:
+      pipeline._subspace(t2d_m, t2d_cfg, None, False)
+    finally:
+      eigen_ops.cholqr2_shifted = orthonormalize
+    results["t2d_subspace_iterations"] = len(calls) - 1
+  # The constraint stage's host work, on the host clock: the symmetry check
+  # of predict's input validation and the tri-diagonal upload.
+  host_s = {}
+  for name, fn in (
+      ("symmetry_check", lambda: clusterer_lib._symmetric(t2d_cm_host)),
+      ("upload_constraint",
+       lambda: clusterer_lib._upload_constraint(t2d_cm_host, dev))):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s[name] = time.perf_counter() - t0
+  results["t2d_host_s"] = host_s
+  results["e2cp"] = {"alpha": alpha, "rel_residual": float(e2cp_res),
+                     "steps_left_right": list(e2cp_steps),
+                     "step_cap": constraint._neumann_cap(alpha)}
+  log(json.dumps({"phase": "t2d_stages", "n": N_MAIN, "e2cp": results["e2cp"],
+                  "breakdown_ms": results["t2d_breakdown_ms"],
+                  "subspace_iterations": results["t2d_subspace_iterations"],
+                  "subspace_max_iters": t2d_cfg.subspace_max_iters,
+                  "host_s": host_s,
+                  "threshold_symmetrize_general":
+                      times["threshold_symmetrize_general"]}))
+  if not float(e2cp_res) <= 1e-6:
+    raise SystemExit(f"E2CP did not converge: {results['e2cp']}")
+  del aff, t2d_cm, adjusted, t2d_thr, t2d_m
+
+  t2d_ref = np.load(os.path.join(HERE, "benchmarks",
+                                 "reference_labels_t2d.npz"))
+  with open(os.path.join(HERE, "benchmarks", "bench_t2d.json")) as f:
+    jax_best_p = {row["n"]: row["best_p"] for row in json.load(f)}
+
+  def t2d_inputs(n):
+    x, scores, _ = make_t2d_fixture(n, D_MAIN)
+    return x, constraint.ConstraintMatrix(scores,
+                                          threshold=1).compute_diagonals()
+
+  def t2d_predict(x, cm):
+    """One timed predict, on a fresh clusterer: AutoTune narrows its own
+    range as it searches."""
+    clusterer = configs.make_turntodiarize_clusterer()
+    t0 = time.perf_counter()
+    result = clusterer.predict_with_details(x, cm)
+    return result, time.perf_counter() - t0
+
+  def t2d_parity(n, result):
+    return bool(np.array_equal(utils.enforce_ordered_labels(result.labels),
+                               t2d_ref[f"labels_{n}"]))
+
+  for n_small in (256, 1024, 2048):
+    small, _ = t2d_predict(*t2d_inputs(n_small))
+    if not t2d_parity(n_small, small):
+      raise SystemExit(f"T2D: labels differ from the reference at "
+                       f"N={n_small} (best_p {small.best_p_percentile})")
+  torch.cuda.reset_peak_memory_stats()
+  cold, cold_s = t2d_predict(t2d_x, t2d_cm_host)
+  fused.reset_launch_counts()
+  warm_s = []
+  for _ in range(T2D_WARM_RUNS):
+    result, seconds = t2d_predict(t2d_x, t2d_cm_host)
+    warm_s.append(seconds)
+  launches = fused.launch_counts()
+  runs["t2d"] = {
+      "leg": "t2d", "n": N_MAIN, "d": D_MAIN, "solver": "Auto",
+      "route": "host flow: E2CP, then AutoTune's 11 candidates through "
+               "eig_topk_staged (ascending subspace iteration)",
+      "n_clusters": result.n_clusters,
+      "best_p_percentile": result.best_p_percentile,
+      "jax_bench_best_p": jax_best_p.get(N_MAIN),
+      "parity": t2d_parity(N_MAIN, result),
+      "eigenvalues": [float(v) for v in result.eigenvalues[:8]],
+      "eigenvalues_shape": list(result.eigenvalues.shape),
+      "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
+      "warm_wall_s_runs": warm_s, "warm_runs": T2D_WARM_RUNS,
+      "stage_timings_s_cold_run": cold.timings,
+      "stage_timings_s_last_run": result.timings, "launches": launches,
+      "launches_per_predict": {k: v / T2D_WARM_RUNS
+                               for k, v in launches.items()},
+      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+  }
+  log(json.dumps({"phase": "path", **runs["t2d"]}))
+  if not runs["t2d"]["parity"]:
+    raise SystemExit("t2d: labels differ from the reference")
+  if not np.all(np.isfinite(result.eigenvalues)):
+    raise SystemExit("t2d: non-finite eigenvalues")
+  idle = [k for k in ("affinity", "threshold_symmetrize_general")
+          if launches[k] == 0]
+  if idle:
+    raise SystemExit(f"t2d: kernels not launched by predict: {idle}")
+
   sources = {
       "affinity": "fused.py:46-77 affinity_pallas",
       "row_max": "fused.py:85-140 row_max_pallas",
@@ -449,6 +603,9 @@ def main() -> int:
     }
     if name in no_library:
       kernel["library_note"] = no_library[name]
+    if name == "threshold_symmetrize_general":
+      kernel["launches_per_t2d_predict"] = (
+          runs["t2d"]["launches_per_predict"][name])
     kernels.append(kernel)
   results["kernels"] = kernels
   results["paths"] = runs

@@ -1,28 +1,43 @@
 """The spectral-clustering pipeline on tensors.
 
 Port of ``spectralcluster_tpu/pipeline.py``:
-embeddings -> cosine affinity -> refinement sequence -> eigen operand ->
-eigenpairs -> snapped eigengap count -> masked K-Means.
+embeddings -> cosine affinity (-> constraint before refinement) ->
+refinement sequence (-> constraint after refinement) (-> Laplacian) ->
+eigen operand -> eigenpairs -> snapped eigengap count -> masked K-Means.
 
   * ``prepare_affinity`` / ``refine_and_eigendecompose`` /
-    ``spectral_cluster_fixed_k`` — the staged-free entry points;
+    ``spectral_cluster_fixed_k`` — the staged-free entry points. With
+    ``cfg.autotune`` (an ``AutoTuneStatic``), ``spectral_cluster_fixed_k``
+    runs the level-1 p_percentile sweep, one candidate after another, and
+    keeps the argmin of the proxy, as the JAX package's vmapped sweep does;
   * ``spectral_cluster_fixed_k_staged`` — the same computation split at the
     eigensolver boundary, with per-stage timings. The JAX package split its
     program there to get past a TPU compile wall; PyTorch runs eagerly and
     has no such wall, so here the split only gives the stage timings and the
     route past ``dc_max_block`` (below). Configurations it cannot split (the
-    GENERAL structure) run as ``spectral_cluster_fixed_k``, as in JAX;
+    GENERAL structure, in-graph autotune) run as
+    ``spectral_cluster_fixed_k``, as in JAX;
   * ``eig_topk_staged`` — the per-candidate refine -> top-k eig -> gap
     evaluator that the clusterer's host flow uses at large N.
 
-Symmetry structures (``refinement_ops.analyze_symmetry``): SYMMETRIC and
+Constraints (constraint.py) enter as ``constraint_matrix``, a keyword
+argument of every entry point, and apply where ``cfg.constraint_options``
+says: on the affinity before refinement (``prepare_affinity``), or on the
+refined matrix after it. A Laplacian ``laplacian_type`` (ops/laplacian.py)
+scans eigenvalues ascending, through the symmetric similarity form of
+``laplacian_similarity``, or, on the GENERAL structure, through
+``compute_laplacian`` before the host eig.
+
+Symmetry structures (``refinement_ops.analyze_symmetry``, then
+``_eig_structure`` for constraints and Laplacians): SYMMETRIC and
 ROWNORM_TAIL take ``torch.linalg.eigh`` (or the top-k subspace iteration)
-on the card. GENERAL — forced by ``EigenSolver.HostGeneral``, or a sequence
-with no symmetric form under ``Auto`` — applies the whole refinement
-sequence, RowWiseNormalize included (kernel 5), and hands the asymmetric
-result to LAPACK's general eig on the host (``sorted_eig_general_host``),
-as the JAX package does. That host eig is recorded as the ``host_eig``
-stage when the caller passes ``timings``.
+on the card. GENERAL — forced by ``EigenSolver.HostGeneral``, or a
+configuration with no symmetric form under ``Auto`` (an asymmetric
+constraint, a constraint after a RowWiseNormalize tail, a sequence that
+ends asymmetric) — applies the whole refinement sequence, RowWiseNormalize
+included (kernel 5), and hands the result to LAPACK's general eig on the
+host (``sorted_eig_general_host``), as the JAX package does. That host eig
+is recorded as the ``host_eig`` stage when the caller passes ``timings``.
 
 Eager PyTorch does not recompile per shape, so callers may run unpadded
 (``n_valid=None``); every op still honours ``n_valid``.
@@ -47,22 +62,25 @@ import contextlib
 import dataclasses
 import typing
 
+import numpy as np
 import torch
 
+from spectralcluster_tpu_torch import constraint as constraint_lib
 from spectralcluster_tpu_torch.kernels import fused as fused_kernels
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
 from spectralcluster_tpu_torch.ops import eigen as eigen_ops
 from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
+from spectralcluster_tpu_torch.ops import laplacian as laplacian_ops
 from spectralcluster_tpu_torch.ops import refinement as refinement_ops
 from spectralcluster_tpu_torch.precision import fp32_precision
-from spectralcluster_tpu_torch.types import (ConstraintOptions, EigenGapType,
-                                             EigenSolver, LaplacianType,
+from spectralcluster_tpu_torch.types import (AutoTuneProxy, ConstraintOptions,
+                                             EigenGapType, EigenSolver,
+                                             LaplacianType, RefinementName,
                                              RefinementOptions)
 
 # Geometric bucket growth factor above 512 (snapped up to multiples of 256).
 _BUCKET_GROWTH = 1.25
 _SUBSPACE_SEED = 42
-_ITEM_8 = "ROADMAP queue 1 item 8, Turn-to-Diarize"
 
 
 def pad_bucket(n: int) -> int:
@@ -84,18 +102,44 @@ def pad_bucket(n: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutoTuneStatic:
+  """Static auto-tune spec for the pipeline entry points (JAX
+  pipeline.py:72-108).
+
+  A level-1 search (the Turn-to-Diarize preset) is one sweep over a fixed
+  candidate grid, which ``spectral_cluster_fixed_k`` evaluates before it
+  keeps the argmin of the proxy. Deeper levels narrow the grid from data;
+  as in the JAX package, ``search_level`` other than 1 is refused: use
+  ``autotune.AutoTune`` through ``SpectralClusterer`` for those.
+  """
+  p_percentile_min: float = 0.60
+  p_percentile_max: float = 0.95
+  init_search_step: float = 0.01
+  proxy: AutoTuneProxy = AutoTuneProxy.PercentileSqrtOverNME
+  search_level: int = 1
+
+  def __post_init__(self):
+    if self.search_level != 1:
+      raise ValueError(
+          f"AutoTuneStatic supports search_level=1 only (got "
+          f"{self.search_level}): deeper levels narrow the grid from data. "
+          "Use autotune.AutoTune through SpectralClusterer.")
+
+  def candidates(self) -> np.ndarray:
+    num = int(np.ceil((self.p_percentile_max - self.p_percentile_min)
+                      / self.init_search_step))
+    return np.linspace(self.p_percentile_min, self.p_percentile_max, num)
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
   """Configuration of the pipeline; the JAX package's fields, by name.
 
   ``use_kernels`` is the JAX ``use_pallas``: route the refinement hot path
-  (all five kernels of kernels/fused.py) through the wrappers. Fields kept
-  for paths not ported yet, and refused where they would change the result:
-  ``constraint_options``, ``constraint_symmetric`` and ``autotune`` (ROADMAP
-  queue 1 item 8), a ``laplacian_type`` other than Affinity (item 8),
-  ``dc_sign_precision`` (item 9); ``constraint_symmetric`` and
-  ``dc_sign_precision`` are read by nothing yet.
-  ``matmul_precision`` must stay "highest": the port runs every product in
-  IEEE float32.
+  (all five kernels of kernels/fused.py) through the wrappers.
+  ``dc_sign_precision`` is kept for the spectral D&C route (ROADMAP queue
+  1 item 9) and read by nothing yet. ``matmul_precision`` must stay
+  "highest": the port runs every product in IEEE float32.
   """
   refinement_options: RefinementOptions = RefinementOptions()
   constraint_options: typing.Optional[ConstraintOptions] = None
@@ -108,7 +152,11 @@ class PipelineConfig:
   custom_dist: typing.Union[str, typing.Callable, None] = "cosine"
   max_iter: int = 300
   eigensolver: EigenSolver = EigenSolver.Auto
+  # Whether the (possibly user-injected) affinity is symmetric.
   affinity_symmetric: bool = True
+  # Whether the user's constraint matrix is symmetric; SpectralClusterer
+  # checks it on the host and clears this to route an asymmetric one to the
+  # general eigensolver.
   constraint_symmetric: bool = True
   eigenvalue_snap_tol: float = 1e-5
   use_kernels: bool = True
@@ -119,7 +167,7 @@ class PipelineConfig:
   subspace_drift_tol: typing.Optional[float] = 1e-4
   dc_max_block: int = 8192
   dc_sign_precision: typing.Optional[str] = None
-  autotune: typing.Optional[typing.Any] = None
+  autotune: typing.Optional[AutoTuneStatic] = None
 
   def replace(self, **kw) -> "PipelineConfig":
     return dataclasses.replace(self, **kw)
@@ -129,14 +177,6 @@ def _check_supported(cfg: PipelineConfig):
   if cfg.matmul_precision != "highest":
     raise ValueError("the port runs every matmul in IEEE float32; "
                      f"matmul_precision={cfg.matmul_precision!r} is refused")
-  if cfg.autotune is not None:
-    raise NotImplementedError(f"in-graph autotune is not ported yet ({_ITEM_8})")
-  if not _descend(cfg):
-    raise NotImplementedError("Laplacian pipelines are not ported yet "
-                              f"({_ITEM_8}, ops/laplacian.py)")
-  if cfg.constraint_options is not None:
-    raise NotImplementedError(f"constraints are not ported yet ({_ITEM_8}, "
-                              "constraint.py)")
 
 
 def _descend(cfg: PipelineConfig) -> bool:
@@ -145,19 +185,44 @@ def _descend(cfg: PipelineConfig) -> bool:
   return cfg.laplacian_type in (None, LaplacianType.Affinity)
 
 
-def _eig_structure(cfg: PipelineConfig) -> str:
-  """Statically classify which eigensolver path applies (no constraint)."""
+def _constraint_before(cfg: PipelineConfig, with_constraint: bool) -> bool:
+  return (with_constraint and cfg.constraint_options is not None
+          and cfg.constraint_options.apply_before_refinement)
+
+
+def _constraint_after(cfg: PipelineConfig, with_constraint: bool) -> bool:
+  return (with_constraint and cfg.constraint_options is not None
+          and not cfg.constraint_options.apply_before_refinement)
+
+
+def _eig_structure(cfg: PipelineConfig, with_constraint: bool = False) -> str:
+  """Statically classify which eigensolver path applies."""
+  # An asymmetric constraint before refinement makes the refinement input
+  # asymmetric; analyze_symmetry decides whether the sequence restores it.
+  input_symmetric = cfg.affinity_symmetric and not (
+      _constraint_before(cfg, with_constraint)
+      and not cfg.constraint_symmetric)
   structure = refinement_ops.analyze_symmetry(
-      cfg.refinement_options.refinement_sequence, cfg.affinity_symmetric)
+      cfg.refinement_options.refinement_sequence, input_symmetric)
+  if _constraint_after(cfg, with_constraint) and (
+      structure == refinement_ops.ROWNORM_TAIL
+      or not cfg.constraint_symmetric):
+    # A constraint on the final matrix breaks the D_r^{-1} S structure; an
+    # asymmetric one breaks symmetry outright.
+    structure = refinement_ops.GENERAL
   if not _descend(cfg):
-    return (refinement_ops.SYMMETRIC
-            if structure == refinement_ops.SYMMETRIC else refinement_ops.GENERAL)
+    # Laplacians need a symmetric affinity; laplacian_similarity then covers
+    # RandomWalk too.
+    if structure == refinement_ops.SYMMETRIC:
+      return structure
+    return refinement_ops.GENERAL
   return structure
 
 
-def _solver_structure(cfg: PipelineConfig) -> str:
+def _solver_structure(cfg: PipelineConfig,
+                      with_constraint: bool = False) -> str:
   """The structure the eigensolver sees, with the JAX package's refusals."""
-  structure = _eig_structure(cfg)
+  structure = _eig_structure(cfg, with_constraint)
   if cfg.eigensolver == EigenSolver.HostGeneral:
     structure = refinement_ops.GENERAL
   elif (cfg.eigensolver in (EigenSolver.Eigh, EigenSolver.SubspaceIteration)
@@ -177,17 +242,20 @@ def _stage(timings, name: str):
 
 
 def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
-                           n_valid, structure, consume_input=False):
-  """Refinement -> the symmetric matrix handed to eigh, plus its scale.
+                           n_valid, structure, consume_input=False,
+                           constraint_matrix=None):
+  """Refinement (-> constraint after) -> the symmetric matrix handed to
+  eigh, plus its scale.
 
   Returns (m, vec_scale) such that ``eigh(m)`` followed by
   ``recover_similarity_eigenvectors(u, vec_scale)`` reproduces the
-  eigendecomposition of the (possibly non-symmetric) refined matrix.
-  Padding sentinels are applied. ``consume_input`` lets the refinement
-  overwrite ``affinity``.
+  eigendecomposition of the (possibly non-symmetric) refined matrix, or of
+  its Laplacian. Padding sentinels are applied. ``consume_input`` lets the
+  refinement overwrite ``affinity``.
   """
   ropts = cfg.refinement_options
   seq = ropts.refinement_sequence or ()
+  descend = _descend(cfg)
 
   def apply_seq(mat, names):
     return refinement_ops.apply_refinement_sequence(
@@ -201,9 +269,17 @@ def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
     inv_sqrt = 1.0 / torch.sqrt(d)
     m, scale = inv_sqrt[:, None] * s * inv_sqrt[None, :], inv_sqrt
   else:
-    m, scale = apply_seq(affinity, seq), None
+    refined = apply_seq(affinity, seq)
+    if _constraint_after(cfg, constraint_matrix is not None):
+      refined = constraint_lib.adjust_affinity(
+          refined, constraint_matrix, cfg.constraint_options, n_valid)
+    if descend:
+      m, scale = refined, None
+    else:
+      m, scale = laplacian_ops.laplacian_similarity(
+          refined, cfg.laplacian_type, n_valid=n_valid)
   if n_valid is not None:
-    m = eigen_ops.apply_padding_sentinels(m, n_valid, True)
+    m = eigen_ops.apply_padding_sentinels(m, n_valid, descend)
   return m, scale
 
 
@@ -257,14 +333,20 @@ def prepare_affinity(
     embeddings: torch.Tensor,
     cfg: PipelineConfig,
     n_valid=None,
+    constraint_matrix: typing.Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-  """Cosine affinity of (N, d) embeddings, masked to n_valid."""
+  """Cosine affinity of (N, d) embeddings, masked to n_valid, then the
+  constraint when ``cfg.constraint_options`` applies it before refinement."""
   with fp32_precision():
     if cfg.use_kernels:
       affinity = fused_kernels.affinity(embeddings)
     else:
       affinity = affinity_ops.compute_affinity_matrix(embeddings)
-    return refinement_ops.mask_padding(affinity, n_valid)
+    affinity = refinement_ops.mask_padding(affinity, n_valid)
+    if _constraint_before(cfg, constraint_matrix is not None):
+      affinity = constraint_lib.adjust_affinity(
+          affinity, constraint_matrix, cfg.constraint_options, n_valid)
+    return affinity
 
 
 def refine_and_eigendecompose(
@@ -274,17 +356,22 @@ def refine_and_eigendecompose(
     n_valid=None,
     consume_input: bool = False,
     timings=None,
+    constraint_matrix: typing.Optional[torch.Tensor] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-  """Refinement -> eigendecomposition -> snapped eigengap count.
+  """Refinement -> (constraint after) -> (Laplacian) -> eigendecomposition
+  -> snapped eigengap count.
 
   Returns (eigenvalues, eigenvectors, n_clusters, max_delta_norm) as
   tensors. ``consume_input`` lets the refinement overwrite ``affinity``.
-  With ``timings`` (an observability.StageTimings), the GENERAL route's
-  host eig is recorded as the stage "host_eig".
+  ``constraint_matrix`` applies here only after refinement
+  (``prepare_affinity`` applies it before). With ``timings`` (an
+  observability.StageTimings), the GENERAL route's host eig is recorded as
+  the stage "host_eig".
   """
   _check_supported(cfg)
+  with_constraint = constraint_matrix is not None
   descend = _descend(cfg)
-  structure = _solver_structure(cfg)
+  structure = _solver_structure(cfg, with_constraint)
   with fp32_precision():
     if structure == refinement_ops.GENERAL:
       ropts = cfg.refinement_options
@@ -292,6 +379,12 @@ def refine_and_eigendecompose(
           affinity, ropts, sequence=ropts.refinement_sequence or (),
           p_percentile=p_percentile, n_valid=n_valid,
           use_kernels=cfg.use_kernels, consume_input=consume_input)
+      if _constraint_after(cfg, with_constraint):
+        mat = constraint_lib.adjust_affinity(
+            mat, constraint_matrix, cfg.constraint_options, n_valid)
+      if not descend:
+        mat = laplacian_ops.compute_laplacian(mat, cfg.laplacian_type,
+                                              n_valid=n_valid)
       if n_valid is not None:
         mat = eigen_ops.apply_padding_sentinels(mat, n_valid, descend)
       with _stage(timings, "host_eig"):
@@ -299,7 +392,8 @@ def refine_and_eigendecompose(
       gap_n_valid = n_valid
     else:
       m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
-                                        structure, consume_input)
+                                        structure, consume_input,
+                                        constraint_matrix)
       if cfg.eigensolver == EigenSolver.SubspaceIteration:
         w, u = _subspace(m, cfg, n_valid, descend)
         eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
@@ -369,6 +463,36 @@ def _require_max_clusters(cfg: PipelineConfig):
         "SpectralClusterer for unbounded k.")
 
 
+def _autotune_sweep(affinity: torch.Tensor, cfg: PipelineConfig, n_valid,
+                    timings, constraint_matrix):
+  """cfg.autotune's level-1 sweep (JAX pipeline.py:451-479): every
+  candidate's refine -> eig -> gap, eigenvectors trimmed to the
+  max_clusters columns K-Means reads, then the argmin of the proxy, all on
+  the device. ``affinity`` is not modified."""
+  if RefinementName.RowWiseThreshold not in (
+      cfg.refinement_options.refinement_sequence or ()):
+    raise ValueError(
+        "AutoTune is only effective when the refinement sequence "
+        "contains RowWiseThreshold")
+  ps = torch.as_tensor(cfg.autotune.candidates(), dtype=torch.float32,
+                       device=affinity.device)
+  outs = []
+  for p in ps:
+    w, v, n_c, delta = refine_and_eigendecompose(
+        affinity, cfg, p_percentile=p, n_valid=n_valid, timings=timings,
+        constraint_matrix=constraint_matrix)
+    outs.append((w, v[:, :cfg.max_clusters], n_c, delta))
+  ws, vs, ns, deltas = (torch.stack(t) for t in zip(*outs))
+  if cfg.autotune.proxy == AutoTuneProxy.PercentileSqrtOverNME:
+    ratios = torch.sqrt(1.0 - ps) / deltas
+  elif cfg.autotune.proxy == AutoTuneProxy.PercentileOverNME:
+    ratios = (1.0 - ps) / deltas
+  else:
+    raise ValueError("Unsupported value of AutoTuneProxy")
+  best = torch.argmin(ratios)
+  return ws[best], vs[best], ns[best], deltas[best]
+
+
 def spectral_cluster_fixed_k(
     embeddings: torch.Tensor,
     generator: torch.Generator,
@@ -376,26 +500,35 @@ def spectral_cluster_fixed_k(
     n_valid=None,
     kmeans_tol: float = 0.001,
     timings=None,
+    constraint_matrix: typing.Optional[torch.Tensor] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """End-to-end clustering (embeddings -> labels) on the embeddings' device.
 
   Requires cfg.max_clusters. Padded rows (index >= n_valid) receive label 0.
-  ``generator`` is a CPU generator for the K-Means seeding. Returns tensors
-  (labels, n_clusters, eigenvalues, max_delta_norm). ``timings`` records
-  the GENERAL route's host eig (see refine_and_eigendecompose).
+  ``generator`` is a CPU generator for the K-Means seeding. With
+  ``cfg.autotune`` the level-1 p_percentile sweep picks the refinement.
+  Returns tensors (labels, n_clusters, eigenvalues, max_delta_norm).
+  ``timings`` records the GENERAL route's host eig (see
+  refine_and_eigendecompose).
   """
   _require_max_clusters(cfg)
   with fp32_precision():
-    affinity = prepare_affinity(embeddings, cfg, n_valid)
-    eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
-        affinity, cfg, n_valid=n_valid, consume_input=True, timings=timings)
+    affinity = prepare_affinity(embeddings, cfg, n_valid, constraint_matrix)
+    if cfg.autotune is not None:
+      eigenvalues, eigenvectors, n_gap, max_delta = _autotune_sweep(
+          affinity, cfg, n_valid, timings, constraint_matrix)
+    else:
+      eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
+          affinity, cfg, n_valid=n_valid, consume_input=True, timings=timings,
+          constraint_matrix=constraint_matrix)
     del affinity
     labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
                                             generator, n_valid, kmeans_tol)
   return labels, n_clusters, eigenvalues, max_delta
 
 
-def _staged_applicable(cfg: PipelineConfig) -> bool:
+def _staged_applicable(cfg: PipelineConfig,
+                       with_constraint: bool = False) -> bool:
   """Whether the staged executor can split this configuration (JAX
   pipeline.py:522-532): a symmetric or diagonal-similar structure, a
   symmetric solver, no in-graph autotune."""
@@ -406,14 +539,15 @@ def _staged_applicable(cfg: PipelineConfig) -> bool:
       return False
   elif cfg.eigensolver not in (EigenSolver.Auto, EigenSolver.Eigh):
     return False
-  return _eig_structure(cfg) != refinement_ops.GENERAL
+  return _eig_structure(cfg, with_constraint) != refinement_ops.GENERAL
 
 
-def _staged_eig_applicable(cfg: PipelineConfig) -> bool:
+def _staged_eig_applicable(cfg: PipelineConfig,
+                           with_constraint: bool = False) -> bool:
   """Whether eig_topk_staged can run this configuration (JAX
   pipeline.py:651-660): a symmetric or diagonal-similar structure, a
   symmetric solver and max_clusters."""
-  if _eig_structure(cfg) == refinement_ops.GENERAL:
+  if _eig_structure(cfg, with_constraint) == refinement_ops.GENERAL:
     return False
   if cfg.eigensolver not in (EigenSolver.Auto, EigenSolver.Eigh,
                              EigenSolver.SubspaceIteration):
@@ -428,26 +562,29 @@ def eig_topk_staged(
     n_valid=None,
     p_percentile=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-  """Refine -> top-k eig -> gap for one p_percentile, at large N.
+  """Refine (-> constraint after) -> top-k eig -> gap for one p_percentile,
+  at large N.
 
-  Port of the JAX evaluator (pipeline.py:766-837) without constraints. The
-  middle stage is the subspace iteration for Auto and SubspaceIteration;
-  the full eigh for Eigh, with the port's full-eigh top-k stand-in past
+  Port of the JAX evaluator (pipeline.py:766-837). ``affinity`` already
+  carries a constraint applied before refinement; ``constraint_matrix``
+  applies here only after it. The middle stage is the subspace iteration
+  for Auto and SubspaceIteration (ascending on a Laplacian); the full eigh
+  for Eigh, with the port's full-eigh top-k stand-in past
   ``dc_max_block``. Returns tensors (eigenvalues, eigenvectors[:, :k_cap],
   n_gap, max_delta), k_cap = max(max_clusters, min_clusters): the columns
   downstream K-Means can read. ``affinity`` is not modified.
   """
-  if constraint_matrix is not None:
-    raise NotImplementedError(f"constraints are not ported yet ({_ITEM_8})")
   _check_supported(cfg)
-  if not _staged_eig_applicable(cfg):
+  with_constraint = constraint_matrix is not None
+  if not _staged_eig_applicable(cfg, with_constraint):
     raise ValueError("eig_topk_staged: config requires the general-eig or "
                      "unbounded-k path; use refine_and_eigendecompose.")
   descend = _descend(cfg)
   k_cap = max(cfg.max_clusters, cfg.min_clusters or 0)
   with fp32_precision():
     m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
-                                      _eig_structure(cfg))
+                                      _eig_structure(cfg, with_constraint),
+                                      constraint_matrix=constraint_matrix)
     wmax = None
     if cfg.eigensolver != EigenSolver.Eigh:
       w, u = _subspace(m, cfg, n_valid, descend)
@@ -469,15 +606,17 @@ def spectral_cluster_fixed_k_staged(
     cfg: PipelineConfig,
     n_valid=None,
     timings=None,
+    constraint_matrix: typing.Optional[torch.Tensor] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """``spectral_cluster_fixed_k`` split at the eigensolver boundary.
 
-  Stages: "staged_prep" (affinity + refinement + eigen operand), then
-  "staged_subspace" (SubspaceIteration) or "staged_eigh" (full eigh), then
-  "staged_finish" (snap, eigengap, K-Means). With ``timings`` (an
-  observability.StageTimings) each stage's duration is recorded. A
-  configuration the executor cannot split (``_staged_applicable``: the
-  GENERAL structure, HostGeneral) runs as ``spectral_cluster_fixed_k``.
+  Stages: "staged_prep" (affinity + constraint + refinement + eigen
+  operand), then "staged_subspace" (SubspaceIteration) or "staged_eigh"
+  (full eigh), then "staged_finish" (snap, eigengap, K-Means). With
+  ``timings`` (an observability.StageTimings) each stage's duration is
+  recorded. A configuration the executor cannot split
+  (``_staged_applicable``: the GENERAL structure, HostGeneral, in-graph
+  autotune) runs as ``spectral_cluster_fixed_k``.
 
   Routes, as in the JAX executor:
     * SubspaceIteration: top-k subspace iteration; the snap and the
@@ -489,18 +628,21 @@ def spectral_cluster_fixed_k_staged(
     * otherwise: full eigh, all N eigenvalues.
   """
   _require_max_clusters(cfg)
-  if not _staged_applicable(cfg):
+  with_constraint = constraint_matrix is not None
+  if not _staged_applicable(cfg, with_constraint):
     return spectral_cluster_fixed_k(embeddings, generator, cfg, n_valid,
-                                    timings=timings)
+                                    timings=timings,
+                                    constraint_matrix=constraint_matrix)
   _check_supported(cfg)
-  structure = _eig_structure(cfg)
+  structure = _eig_structure(cfg, with_constraint)
   descend = _descend(cfg)
 
   with fp32_precision():
     with _stage(timings, "staged_prep"):
-      affinity = prepare_affinity(embeddings, cfg, n_valid)
+      affinity = prepare_affinity(embeddings, cfg, n_valid, constraint_matrix)
       m, scale = _symmetric_eig_operand(affinity, cfg, None, n_valid,
-                                        structure, consume_input=True)
+                                        structure, consume_input=True,
+                                        constraint_matrix=constraint_matrix)
       del affinity
     wmax = None
     if cfg.eigensolver == EigenSolver.SubspaceIteration:

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from spectralcluster_tpu_torch import configs, utils
-from spectralcluster_tpu_torch.fixtures import make_embeddings
+from spectralcluster_tpu_torch import configs, constraint, utils
+from spectralcluster_tpu_torch.constraint import ConstraintMatrix
+from spectralcluster_tpu_torch.fixtures import make_embeddings, make_t2d_fixture
 from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.types import EigenSolver
 
@@ -127,3 +128,38 @@ def test_host_general_predict_launches_all_five(cuda):
   assert "host_eig" in result.timings
   np.testing.assert_array_equal(utils.enforce_ordered_labels(result.labels),
                                 _reference(512))
+
+
+def _t2d_inputs(n):
+  x, scores, _ = make_t2d_fixture(n)
+  return x, ConstraintMatrix(scores, threshold=1).compute_diagonals()
+
+
+def test_t2d_predict_on_the_card(cuda):
+  # The host flow: E2CP, then AutoTune's 11 candidates, each through
+  # kernel 4's T2D form (Percentile, Average, binarize, preserve_diagonal).
+  x, cm = _t2d_inputs(1024)
+  fused.reset_launch_counts()
+  result = configs.make_turntodiarize_clusterer().predict_with_details(x, cm)
+  counts = fused.launch_counts()
+  assert counts["affinity"] == 1
+  assert counts["threshold_symmetrize_general"] == 11
+  ref = np.load(os.path.join(os.path.dirname(__file__), os.pardir,
+                             "benchmarks", "reference_labels_t2d.npz"))
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(result.labels),
+                                ref["labels_1024"])
+  assert result.n_clusters == 4
+  assert abs(result.best_p_percentile - 0.785) < 1e-9
+
+
+@pytest.mark.parametrize("alpha", [0.4, 0.97])
+def test_e2cp_card_matches_cpu(cuda, alpha):
+  x, cm = _t2d_inputs(512)
+  aff = fused.affinity_plain(torch.as_tensor(x))
+  q = torch.as_tensor(cm.astype(np.float32))
+  want, want_res = constraint.constraint_propagation(aff, q, alpha,
+                                                     with_residual=True)
+  got, got_res = constraint.constraint_propagation(aff.to(cuda), q.to(cuda),
+                                                   alpha, with_residual=True)
+  torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+  assert float(got_res) <= 1e-6 and float(want_res) <= 1e-6

@@ -24,7 +24,6 @@ from spectralcluster_tpu_torch import configs
 from spectralcluster_tpu_torch import convert
 from spectralcluster_tpu_torch import pipeline
 from spectralcluster_tpu_torch import utils
-from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.fixtures import make_embeddings
 from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.observability import StageTimings
@@ -150,19 +149,6 @@ def test_staged_auto_past_dc_max_block_returns_topk():
   assert eigh[2].shape == (512,)
 
 
-@pytest.mark.parametrize("kwargs,call", [
-    (dict(autotune=object()), {}),
-    ({}, dict(constraint_matrix=np.eye(32))),
-])
-def test_unported_branches_raise(kwargs, call):
-  # The rest of the JAX clusterer's branches are held against it in
-  # tests/test_torch_clusterer.py.
-  base = dict(min_clusters=2, max_clusters=7, device="cpu")
-  clusterer = SpectralClusterer(**{**base, **kwargs})
-  with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-    clusterer.predict(make_embeddings(32, d=8), **call)
-
-
 # No symmetric form: the threshold leaves the matrix asymmetric before the
 # final RowWiseNormalize, so analyze_symmetry gives GENERAL.
 _GENERAL_SEQ = ("CropDiagonal", "GaussianBlur", "RowWiseThreshold",
@@ -274,8 +260,25 @@ def test_eig_topk_staged_eigh_routes():
   assert int(full[2]) == int(topk[2]) == 3
   with pytest.raises(ValueError, match="general-eig or unbounded-k"):
     pipeline.eig_topk_staged(aff, _cfg("HostGeneral"))
-  with pytest.raises(NotImplementedError, match="item 8"):
-    pipeline.eig_topk_staged(aff, cfg, constraint_matrix=aff)
+  # A constraint after refinement on the Eigh route, as in JAX (after the
+  # icassp2018 sequence's RowWiseNormalize tail it would be GENERAL).
+  options = j_types.ConstraintOptions(
+      j_types.ConstraintName.AffinityIntegration, False,
+      integration_type=j_types.IntegrationType.Average)
+  jcfg = _jcfg("Eigh").replace(
+      constraint_options=options,
+      refinement_options=j_configs.turntodiarize_refinement_options())
+  cm = np.eye(300, k=1, dtype=np.float32) + np.eye(300, k=-1,
+                                                   dtype=np.float32)
+  w, _, n_c, delta = pipeline.eig_topk_staged(
+      aff, convert.pipeline_config_from(jcfg),
+      constraint_matrix=torch.as_tensor(cm))
+  jw, _, jn_c, jdelta = j_pipeline.eig_topk_staged(
+      jnp.asarray(aff.numpy()), jcfg, constraint_matrix=jnp.asarray(cm))
+  assert int(n_c) == int(jn_c) and w.shape == jw.shape == (300,)
+  np.testing.assert_allclose(w.numpy()[:8], np.asarray(jw)[:8],
+                             atol=1e-4 * float(np.max(np.abs(jw))))
+  np.testing.assert_allclose(float(delta), float(jdelta), rtol=1e-3)
 
 
 def test_clusterer_defaults_to_the_card():
@@ -326,9 +329,12 @@ def test_convert_pipeline_config_every_field():
     name = "use_kernels" if f.name == "use_pallas" else f.name
     assert plain(getattr(cfg, name)) == plain(getattr(jcfg, f.name)), f.name
   assert len(dataclasses.fields(cfg)) == len(dataclasses.fields(jcfg))
-  with pytest.raises(NotImplementedError, match="item 8"):
-    convert.pipeline_config_from(
-        jcfg.replace(autotune=j_pipeline.AutoTuneStatic()))
+  # An in-graph autotune spec carries across field by field.
+  jstatic = j_pipeline.AutoTuneStatic(
+      0.5, 0.9, 0.1, proxy=j_types.AutoTuneProxy.PercentileOverNME)
+  static = convert.pipeline_config_from(jcfg.replace(autotune=jstatic)).autotune
+  assert plain(static) == plain(jstatic)
+  np.testing.assert_array_equal(static.candidates(), jstatic.candidates())
 
 
 def test_subspace_survives_a_collapsed_basis():
