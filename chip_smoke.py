@@ -26,6 +26,12 @@ result line):
      affinity's as the symmetric least work, N(N+1)/2 dot products), and of
      the main path's other device stages (blur, Diffuse, full eigh, top-k
      subspace);
+  3b. the exact top-k route's parts, each alone, on the icassp2018 Auto
+     operand at N=10240 and 20480: the certified route (accepted or
+     declined, its iterations, res, scale, est_next against w_t), the
+     completeness probe, the full eigh, and at 10240 the forced decline
+     (try_iterative_first=False: full eigh + residual), whose eigenvalues
+     must be within 2e-4·scale of the certified route's;
   4. paths — make_icassp2018_clusterer(...).predict on make_embeddings(N),
      labels held against benchmarks/reference_labels.npz at N=512, 2048 and
      the leg's N, with launch counts zeroed after the cold run and read
@@ -33,7 +39,15 @@ result line):
      each leg fails if a kernel of its path did not launch:
        * Auto and SubspaceIteration at N=10240 (one cold run, WARM_RUNS
          warm): kernels 1-4 (RowWiseNormalize is absorbed into the eigh
-         similarity transform there);
+         similarity transform there). Auto runs the exact top-k route
+         (ops/dc.py, stage staged_dc); each Auto leg prints the route its
+         dc solve took and fails on a certified residual above 1e-5;
+       * Auto at N=20480 (labels_20480), and at N=10240 on
+         make_embeddings_k(N, k) for k=4 and k=7
+         (benchmarks/reference_labels_multi.npz), one cold run and one
+         warm; then Auto at N=10240 with the dc route forced to decline:
+         the same labels, eigenvalues within 2e-4·scale of the certified
+         leg's;
        * HostGeneral at N=4096 (one cold run, two warm): all five kernels;
          its host LAPACK eig is reported apart from the device stages. N is
          cut from 10240 because the float64 general eig is O(N^3) on the
@@ -52,7 +66,17 @@ result line):
      against benchmarks/reference_labels_t2d.npz at N=256, 1024, 2048 and
      10240 (one cold run, T2D_WARM_RUNS warm); the affinity must launch
      once and kernel 4 once per AutoTune candidate (11).
-  Together about 3-4 minutes on one H100, most of it the host eig.
+  6. streaming — MultiStageClusterer over make_stream(1500) (the JAX
+     streaming bench's stream and main clusterer; L=50, U1=100, U2=600),
+     once without deflicker and once with the Hungarian deflicker: each
+     history recorded in tests/data/reference_streaming.npz (steps 1, 50,
+     51, 100, 101, 600, 601, 1100, 1101, 1500) must be equal after
+     enforce_ordered_labels, as must the final compression chain; 2
+     compressions; the history covers all 1500 steps; kernels 1-4 must
+     launch. Prints steps/s per window and, from a torch.profiler trace of
+     ten more steps, the device's idle share.
+  Together about 5-7 minutes on one H100, most of it the host eig and the
+  host side of the streams.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -82,6 +106,13 @@ N_GENERAL = 4096
 GENERAL_WARM_RUNS = 2
 API_WARM_RUNS = 2
 T2D_WARM_RUNS = 2
+N_BIG = 20480
+DC_REPS = 3           # the certified route alone: one cold run, two timed
+MULTI_KS = (4, 7)
+STREAM_STEPS = 1500
+STREAM_WINDOWS = ((1, 50), (51, 100), (101, 600), (601, 1100), (1101, 1500))
+STREAM_L, STREAM_U1, STREAM_U2 = 50, 100, 600
+PROFILED_STEPS = 10
 T2D_P = 0.785  # the p the JAX bench's AutoTune picked at every size
 
 # (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
@@ -149,16 +180,20 @@ def main() -> int:
   import numpy as np
 
   from spectralcluster_tpu_torch import clusterer as clusterer_lib
-  from spectralcluster_tpu_torch import configs, constraint, pipeline, utils
+  from spectralcluster_tpu_torch import (configs, constraint, pipeline,
+                                         streaming, utils)
   from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+                                                  make_embeddings_k,
+                                                  make_stream,
                                                   make_t2d_fixture)
   from spectralcluster_tpu_torch.kernels import build
   from spectralcluster_tpu_torch.kernels import fused
+  from spectralcluster_tpu_torch.ops import dc as dc_ops
   from spectralcluster_tpu_torch.ops import eigen as eigen_ops
   from spectralcluster_tpu_torch.ops.kmeans import run_kmeans
   from spectralcluster_tpu_torch.ops import quantile as quantile_ops
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
-  from spectralcluster_tpu_torch.types import EigenSolver
+  from spectralcluster_tpu_torch.types import Deflicker, EigenSolver
 
   results = {}
   dev = torch.device("cuda")
@@ -365,27 +400,114 @@ def main() -> int:
       results["breakdown_ms"][name] = time_ms(torch, fn, reps=3, batch=1,
                                               warmup=1)
   log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
-  del crop_scratch, blurred, ragged, aff, sym, m
+  del crop_scratch, blurred, ragged, aff, sym
+
+  # 3b. The exact top-k route's parts, each alone, on the Auto operand.
+  t_dc = cfg.max_clusters + 1
+
+  def host_s(fn):
+    """Host seconds of a host-orchestrated routine, card synced around."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+  def dc_generator():
+    return torch.Generator().manual_seed(pipeline._DC_SEED)
+
+  def dc_breakdown(m, n, forced_decline):
+    row = {"phase": "dc_breakdown", "n": n}
+    runs = []
+    for _ in range(DC_REPS):
+      info = {}
+      seconds, out = host_s(lambda: dc_ops._certified_iterative_topt(
+          m, t_dc, dc_generator(), True, None, info))
+      runs.append(seconds)
+    row["certified"] = {
+        "accepted": out is not None, **info, "seconds_cold": runs[0],
+        "seconds": statistics.median(runs[1:])}
+    if out is not None and not out[2] <= 1e-5:
+      raise SystemExit(f"dc route at N={n}: certified residual {out[2]}")
+    eigh_s, (w_all, u_all) = host_s(lambda: torch.linalg.eigh(m))
+    row["full_eigh_seconds"] = eigh_s
+    # The probe alone, on the t extreme pairs of the full eigh (its cost
+    # does not depend on which pairs it is given).
+    w_top = torch.flip(w_all, (0,))[:t_dc].contiguous()
+    u_top = torch.flip(u_all, (1,))[:, :t_dc].contiguous()
+    del w_all, u_all
+    b = float(torch.amax(torch.sum(torch.abs(m), dim=1))) + 1.0
+    probe_runs = [host_s(lambda: dc_ops._probe_next(
+        m, u_top, w_top, None, b, dc_generator(), True)) for _ in range(3)]
+    row["probe"] = {"seconds": statistics.median(p[0] for p in probe_runs),
+                    "est_next": probe_runs[-1][1][0],
+                    "norm_lo": probe_runs[-1][1][1]}
+    if forced_decline:
+      info = {}
+      seconds, (w, _, res, scale) = host_s(lambda: dc_ops.eigh_topk_dc(
+          m, t_dc, dc_generator(), max_block=0, try_iterative_first=False,
+          info=info))
+      row["forced_decline"] = {"route": info["route"], "res": res,
+                               "scale": scale, "seconds": seconds}
+      if out is not None:
+        err = float(torch.max(torch.abs(w - out[0])))
+        row["forced_decline"]["max_abs_diff_vs_certified"] = err
+        if not err <= 2e-4 * out[3]:
+          raise SystemExit(f"forced decline at N={n}: eigenvalues differ "
+                           f"from the certified route's by {err}")
+    log(json.dumps(row))
+    return row
+
+  results["dc_breakdown"] = [dc_breakdown(m, N_MAIN, forced_decline=True)]
+  del m
+  aff = fused.affinity(torch.as_tensor(make_embeddings(N_BIG, D_MAIN)).to(dev))
+  m, _ = pipeline._symmetric_eig_operand(aff, cfg, None, None,
+                                         ref_ops.ROWNORM_TAIL,
+                                         consume_input=True)
+  del aff
+  results["dc_breakdown"].append(dc_breakdown(m, N_BIG, forced_decline=False))
+  del m
+  torch.cuda.empty_cache()
 
   # 4. Paths: each leg's launch counts are zeroed after its cold run and
   # read after its warm runs.
   ref = np.load(os.path.join(HERE, "benchmarks", "reference_labels.npz"))
+  ref_multi = np.load(os.path.join(HERE, "benchmarks",
+                                   "reference_labels_multi.npz"))
   main_kernels = ("affinity", "row_max", "crop_diagonal",
                   "threshold_symmetrize_general")
+  # Every dc solve of the pipeline reports its route here; a leg may force
+  # the route to decline.
+  dc_infos = []
+  dc_force = {"decline": False}
+  solve_dc = dc_ops.eigh_topk_dc
 
-  def drive(leg, clusterer, n, warm_runs, expected, **extra):
-    for n_small in (512, 2048):
+  def recording_dc(*a, **kw):
+    info = {}
+    if dc_force["decline"]:
+      kw["try_iterative_first"] = False
+    out = solve_dc(*a, info=info, **kw)
+    dc_infos.append({**info, "res_returned": out[2], "scale": out[3]})
+    return out
+
+  dc_ops.eigh_topk_dc = recording_dc
+
+  def drive(leg, clusterer, n, warm_runs, expected, emb=None, want=None,
+            small_sizes=(512, 2048), **extra):
+    for n_small in small_sizes:
       small = clusterer.predict(make_embeddings(n_small))
       if not np.array_equal(utils.enforce_ordered_labels(small),
                             ref[f"labels_{n_small}"]):
         raise SystemExit(f"{leg}: labels differ from the reference at "
                          f"N={n_small}")
-    emb = make_embeddings(n, D_MAIN)
+    if emb is None:
+      emb, want = make_embeddings(n, D_MAIN), ref[f"labels_{n}"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cold = clusterer.predict_with_details(emb)
     cold_s = time.perf_counter() - t0
     fused.reset_launch_counts()
+    del dc_infos[:]
     warm_s = []
     for _ in range(warm_runs):
       t0 = time.perf_counter()
@@ -396,7 +518,7 @@ def main() -> int:
     run = {
         "leg": leg, "n": n, "d": D_MAIN, **extra,
         "n_clusters": result.n_clusters,
-        "parity": bool(np.array_equal(labels, ref[f"labels_{n}"])),
+        "parity": bool(np.array_equal(labels, want)),
         "eigenvalues": [float(v) for v in result.eigenvalues[:8]],
         "eigenvalues_shape": list(result.eigenvalues.shape),
         "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
@@ -405,6 +527,10 @@ def main() -> int:
         "stage_timings_s_last_run": result.timings, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if dc_infos:
+      # The dc solve of the last warm run, and the routes of all of them.
+      run["dc_routes"] = [i["route"] for i in dc_infos]
+      run["dc"] = dc_infos[-1]
     if "host_eig" in result.timings:
       # The host LAPACK eig apart from everything else in the predict.
       run["host_eig_s"] = result.timings["host_eig"]
@@ -418,6 +544,10 @@ def main() -> int:
     idle = [k for k in expected if launches[k] == 0]
     if idle:
       raise SystemExit(f"{leg}: kernels not launched by predict: {idle}")
+    bad = [i for i in dc_infos
+           if i["route"] == "certified" and not i["res_returned"] <= 1e-5]
+    if bad:
+      raise SystemExit(f"{leg}: certified residual above 1e-5: {bad}")
     return run
 
   runs = {}
@@ -439,6 +569,31 @@ def main() -> int:
           post_eigen_cluster_function=run_kmeans),
       N_MAIN, API_WARM_RUNS, main_kernels, solver="Auto",
       post_eigen_cluster_function="run_kmeans")
+  # The exact top-k route at the other record sizes and speaker counts.
+  auto = configs.make_icassp2018_clusterer(staged_stage_timings=True)
+  runs["Auto_20480"] = drive("Auto_20480", auto, N_BIG, 1, main_kernels,
+                             small_sizes=(), solver="Auto")
+  for k in MULTI_KS:
+    emb, _ = make_embeddings_k(N_MAIN, k, D_MAIN)
+    runs[f"Auto_k{k}"] = drive(
+        f"Auto_k{k}", auto, N_MAIN, 1, main_kernels, emb=emb,
+        want=ref_multi[f"labels_{N_MAIN}_k{k}"], small_sizes=(),
+        solver="Auto", fixture=f"make_embeddings_k(N, k={k})")
+  dc_force["decline"] = True
+  runs["Auto_forced_decline"] = drive(
+      "Auto_forced_decline", auto, N_MAIN, 1, main_kernels, small_sizes=(),
+      solver="Auto", forced="try_iterative_first=False")
+  dc_force["decline"] = False
+  forced = runs["Auto_forced_decline"]
+  if set(forced["dc_routes"]) != {"full_eigh"}:
+    raise SystemExit(f"forced decline took {forced['dc_routes']}")
+  scale = runs["Auto"]["dc"]["scale"]
+  err = float(np.max(np.abs(np.subtract(forced["eigenvalues"],
+                                        runs["Auto"]["eigenvalues"]))))
+  forced["max_abs_diff_vs_auto"] = err
+  if not err <= 2e-4 * scale:
+    raise SystemExit(f"forced decline: eigenvalues differ from the Auto "
+                     f"leg's by {err} (scale {scale})")
 
   # 5. Turn-to-Diarize: its device stages alone at N_MAIN, then the leg.
   t2d_x, t2d_scores, _ = make_t2d_fixture(N_MAIN, D_MAIN)
@@ -578,6 +733,91 @@ def main() -> int:
   if idle:
     raise SystemExit(f"t2d: kernels not launched by predict: {idle}")
 
+  # 6. Streaming, against the JAX package's recorded histories.
+  stream_ref = np.load(os.path.join(HERE, "tests", "data",
+                                    "reference_streaming.npz"))
+  stream, _ = make_stream(STREAM_STEPS)
+  results["streaming"] = {}
+  for mode, deflicker in (("nodeflicker", Deflicker.NoDeflicker),
+                          ("hungarian", Deflicker.Hungarian)):
+    ms = streaming.MultiStageClusterer(
+        clusterer_lib.SpectralClusterer(
+            min_clusters=2, max_clusters=7,
+            refinement_options=configs.icassp2018_refinement_options()),
+        fallback_threshold=0.5, L=STREAM_L, U1=STREAM_U1, U2=STREAM_U2,
+        deflicker=deflicker)
+    fused.reset_launch_counts()
+    checked, compressions, ends = {}, 0, {}
+    t_start = time.perf_counter()
+    for step, e in enumerate(stream, start=1):
+      rows = 0 if ms.cache is None else np.atleast_2d(ms.cache).shape[0]
+      out = ms.streaming_predict(e)
+      if ms.cache.shape[0] <= rows:  # the cache was compressed
+        compressions += 1
+      key = f"{mode}_step_{step}"
+      if key in stream_ref.files:
+        checked[step] = {
+            "equal": bool(np.array_equal(utils.enforce_ordered_labels(out),
+                                         utils.enforce_ordered_labels(
+                                             stream_ref[key]))),
+            "equal_ids": bool(np.array_equal(
+                np.asarray(out).astype(np.int64),
+                stream_ref[key].astype(np.int64)))}
+      ends[step] = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = fused.launch_counts()
+    past_l = STREAM_STEPS - STREAM_L + 1
+    rates = {}
+    for lo, hi in STREAM_WINDOWS:
+      begin = ends[lo - 1] if lo > 1 else t_start
+      rates[f"{lo}-{hi}"] = (hi - lo + 1) / (ends[hi] - begin)
+    row = {
+        "phase": "streaming", "mode": mode, "steps": STREAM_STEPS,
+        "L": STREAM_L, "U1": STREAM_U1, "U2": STREAM_U2,
+        "seconds": ends[STREAM_STEPS] - t_start, "steps_per_s": rates,
+        "history_len": int(np.asarray(out).shape[0]),
+        "compressions": compressions,
+        "compressions_reference": int(stream_ref[f"{mode}_compressions"]),
+        "compression_chain_equal": bool(np.array_equal(
+            ms.compression_labels,
+            stream_ref[f"{mode}_compression_labels"])),
+        "checked_steps": checked, "launches": launches,
+        "launches_per_step_past_L": {k: v / past_l
+                                     for k, v in launches.items()},
+    }
+    if mode == "nodeflicker":
+      # The device's idle share over a few more steps past U1, traced.
+      from torch.profiler import ProfilerActivity, profile
+      with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for e in stream[:PROFILED_STEPS]:
+          ms.streaming_predict(e)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+      busy_ms = sum(
+          getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA)
+      row["profiled"] = {"steps": PROFILED_STEPS, "wall_ms": wall_ms,
+                         "device_busy_ms": busy_ms,
+                         "device_idle_share": 1.0 - busy_ms / wall_ms}
+    results["streaming"][mode] = row
+    log(json.dumps(row))
+    failed = [s for s, c in checked.items() if not c["equal"]]
+    if failed or len(checked) != 10:
+      raise SystemExit(f"streaming {mode}: histories differ from the "
+                       f"reference at steps {failed}")
+    if not (compressions == row["compressions_reference"] == 2
+            and row["compression_chain_equal"]
+            and row["history_len"] == STREAM_STEPS):
+      raise SystemExit(f"streaming {mode}: compression chain or history "
+                       f"length wrong: {row}")
+    idle = [k for k in main_kernels if launches[k] == 0]
+    if idle:
+      raise SystemExit(f"streaming {mode}: kernels not launched: {idle}")
+
   sources = {
       "affinity": "fused.py:46-77 affinity_pallas",
       "row_max": "fused.py:85-140 row_max_pallas",
@@ -595,9 +835,14 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": "spectralcluster_tpu_torch/csrc/fused.cu",
         "replaces": "spectralcluster_tpu/kernels/" + sources[name],
-        "launches": sum(r["launches"][name] for r in runs.values()),
+        "launches": (sum(r["launches"][name] for r in runs.values())
+                     + sum(r["launches"][name]
+                           for r in results["streaming"].values())),
         "launches_per_predict":
             per_predict["launches"][name] / per_predict["warm_runs"],
+        "launches_auto_20480_predict": runs["Auto_20480"]["launches"][name],
+        "launches_per_stream_step_past_L": results["streaming"][
+            "nodeflicker"]["launches_per_step_past_L"][name],
         "max_abs_err": err, "kernel_ms": times[name]["ms"],
         **times[name],
     }

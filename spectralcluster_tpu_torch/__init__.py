@@ -4,10 +4,11 @@ Runs on one NVIDIA H100 (entry points default to ``device="cuda"``; pass
 ``device="cpu"`` to run on the CPU, where the hand-written kernels are
 replaced by their plain PyTorch twins). Ported so far: the batch
 ``SpectralClusterer`` with every branch, both presets (icassp2018 and
-Turn-to-Diarize: constraints, Laplacians, AutoTune), the fallback and AHC
-clusterers, K-Means, and all five Pallas kernels of the JAX package as
-CUDA kernels (kernels/fused.py, csrc/fused.cu). See ROADMAP.md for what is
-still to port.
+Turn-to-Diarize: constraints, Laplacians, AutoTune), the exact top-k route
+past ``dc_max_block`` (ops/dc.py), streaming (``MultiStageClusterer``), the
+fallback and AHC clusterers, K-Means, and all five Pallas kernels of the JAX
+package as CUDA kernels (kernels/fused.py, csrc/fused.cu). See ROADMAP.md
+for what is still to port.
 """
 
 from spectralcluster_tpu_torch import configs
@@ -22,12 +23,16 @@ from spectralcluster_tpu_torch.convert import clusterer_from
 from spectralcluster_tpu_torch.fallback import (FallbackClusterer,
                                                 NaiveClusterer,
                                                 check_single_cluster)
-from spectralcluster_tpu_torch.fixtures import make_embeddings, make_t2d_fixture
+from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+                                                make_embeddings_k, make_stream,
+                                                make_t2d_fixture)
 from spectralcluster_tpu_torch.ops.kmeans import CustomKMeans, run_kmeans
 from spectralcluster_tpu_torch.pipeline import (AutoTuneStatic,
                                                 PipelineConfig,
                                                 spectral_cluster_fixed_k,
                                                 spectral_cluster_fixed_k_staged)
+from spectralcluster_tpu_torch.streaming import (MultiStageClusterer,
+                                                 MultiStageState, match_labels)
 from spectralcluster_tpu_torch.types import (AutoTuneProxy, ClusterResult,
                                              ConstraintName,
                                              ConstraintOptions, Deflicker,
@@ -50,13 +55,15 @@ __all__ = [
     "ConstraintMatrix", "ConstraintName", "ConstraintOptions", "Deflicker",
     "EigenGapType", "EigenSolver", "FallbackClusterer",
     "FallbackClustererType", "FallbackOptions", "IntegrationType",
-    "LaplacianType", "NaiveClusterer", "PipelineConfig", "RefinementName",
+    "LaplacianType", "MultiStageClusterer", "MultiStageState",
+    "NaiveClusterer", "PipelineConfig", "RefinementName",
     "RefinementOptions", "SingleClusterCondition", "SpectralClusterer",
     "SymmetrizeType", "ThresholdType", "CustomKMeans",
     "agglomerative_cluster", "chain_labels", "check_single_cluster",
     "clusterer_from", "configs", "convert", "run_kmeans",
     "enforce_ordered_labels", "get_cluster_centroids", "make_embeddings",
-    "make_t2d_fixture", "pipeline", "spectral_cluster_fixed_k",
+    "make_embeddings_k", "make_stream", "make_t2d_fixture", "match_labels",
+    "pipeline", "spectral_cluster_fixed_k",
     "spectral_cluster_fixed_k_staged", "utils",
     "ICASSP2018_REFINEMENT_SEQUENCE", "TURNTODIARIZE_REFINEMENT_SEQUENCE",
 ]

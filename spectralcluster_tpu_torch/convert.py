@@ -3,8 +3,9 @@
 The system has no learned weights: what carries across is configuration —
 enum values, ``RefinementOptions``, ``ConstraintOptions``,
 ``FallbackOptions``, ``AutoTuneStatic``, an ``AutoTune`` (its search
-state as it stands), ``PipelineConfig`` and a whole ``SpectralClusterer``
-(``clusterer_from``). Objects are read by attribute and enums by
+state as it stands), ``PipelineConfig``, a whole ``SpectralClusterer``
+(``clusterer_from``) and a ``MultiStageClusterer`` with its streaming state
+(``multi_stage_from``). Objects are read by attribute and enums by
 ``.name``, and matched to the port's classes by class name, so nothing
 here imports the JAX package.
 """
@@ -16,9 +17,12 @@ import enum
 import inspect
 import typing
 
+import numpy as np
+
 from spectralcluster_tpu_torch import autotune
 from spectralcluster_tpu_torch import clusterer as clusterer_lib
 from spectralcluster_tpu_torch import pipeline as pipeline_lib
+from spectralcluster_tpu_torch import streaming
 from spectralcluster_tpu_torch import types
 
 # Options dataclasses that exist under the same name in both packages.
@@ -79,3 +83,21 @@ def clusterer_from(clusterer: typing.Any,
   return clusterer_lib.SpectralClusterer(
       device=device,
       **{name: convert_value(getattr(clusterer, name)) for name in knobs})
+
+
+def multi_stage_from(multi_stage: typing.Any,
+                     device="cuda") -> streaming.MultiStageClusterer:
+  """The port's MultiStageClusterer for a JAX one: its main clusterer
+  through ``clusterer_from`` (L and the fallback threshold live in that
+  clusterer's fallback options), U1, U2, the deflicker and a copy of its
+  streaming state as it stands."""
+  fallback = multi_stage.main.fallback_options
+  out = streaming.MultiStageClusterer(
+      clusterer_from(multi_stage.main, device=device),
+      fallback_threshold=fallback.agglomerative_threshold,
+      L=fallback.spectral_min_embeddings, U1=multi_stage.U1,
+      U2=multi_stage.U2, deflicker=convert_value(multi_stage.deflicker))
+  out.state = streaming.MultiStageState.from_dict({
+      k: np.array(v) if isinstance(v, np.ndarray) else v
+      for k, v in multi_stage.state.to_dict().items()})
+  return out

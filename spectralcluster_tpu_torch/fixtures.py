@@ -1,10 +1,15 @@
 """The benchmark fixtures: k well-separated Gaussian speakers.
 
-``make_embeddings`` is the generator of the repository's ``bench.py`` and
-``make_t2d_fixture`` the one of ``benchmarks/t2d_fixture.py``, copied here
-so that the port's scripts need not import the JAX bench. Their labels are
+``make_embeddings`` is the generator of the repository's ``bench.py``,
+``make_embeddings_k`` the one of ``benchmarks/bench_multispeaker.py``,
+``make_t2d_fixture`` the one of ``benchmarks/t2d_fixture.py`` and
+``make_stream`` the stream of ``benchmarks/bench_streaming.py``, copied here
+so that the port's scripts need not import the JAX benches. Their labels are
 recorded under ``labels_{n}`` in ``benchmarks/reference_labels.npz`` and
-``benchmarks/reference_labels_t2d.npz``.
+``benchmarks/reference_labels_t2d.npz``, under ``labels_{n}_k{k}`` in
+``benchmarks/reference_labels_multi.npz``, and the stream's label histories
+in ``tests/data/reference_streaming.npz``
+(``tools/record_streaming_reference.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,24 @@ def make_embeddings(n, d=256, k=2, seed=0):
   centers = rng.randn(k, d) * 3
   labels = np.repeat(np.arange(k), n // k)
   return (centers[labels] + rng.randn(n, d) * 0.4).astype(np.float32)
+
+
+def make_embeddings_k(n, k, d=256, seed=0):
+  """k block-ordered speakers, the last block short when k does not divide
+  n. Returns (embeddings, labels)."""
+  rng = np.random.RandomState(seed)
+  centers = rng.randn(k, d) * 3
+  labels = np.repeat(np.arange(k), -(-n // k))[:n]
+  return (centers[labels] + rng.randn(n, d) * 0.4).astype(np.float32), labels
+
+
+def make_stream(n_steps, d=64, k=4, seed=0):
+  """A stream of n_steps float64 embeddings, each from one of k speakers
+  drawn at random. Returns (stream, speakers)."""
+  rng = np.random.RandomState(seed)
+  centers = rng.randn(k, d) * 3
+  speakers = rng.randint(0, k, size=n_steps)
+  return centers[speakers] + rng.randn(n_steps, d) * 0.3, speakers
 
 
 def make_t2d_fixture(n, d=256, k=4, seed=0):

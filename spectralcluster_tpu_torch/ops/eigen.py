@@ -328,6 +328,7 @@ def topk_eigh_subspace(
     residual_tol: typing.Optional[float] = None,
     max_iters: int = 384,
     drift_tol: typing.Optional[float] = None,
+    stats: typing.Optional[dict] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
   """Randomized subspace (block power) iteration for extreme eigenpairs.
 
@@ -340,7 +341,8 @@ def topk_eigh_subspace(
   the worst top-k residual max_i ‖M v_i − λ_i v_i‖ / max|λ| drops below the
   tolerance, or, with ``drift_tol``, until the Ritz values moved by at most
   drift_tol·max|λ| over the last chunk. The loop reads the residual and the
-  drift on the host once per chunk.
+  drift on the host once per chunk. A ``stats`` dict receives the number of
+  iterations run under "iters".
   """
   n = mat.shape[0]
   b = min(n, k + oversample)
@@ -376,21 +378,20 @@ def topk_eigh_subspace(
 
   q = cholqr2_shifted(start_panel(n, b, generator, mat.dtype, mat.device))
   q = iterate(q, num_iters)
-
-  if residual_tol is None:
-    w, v, _ = rayleigh_ritz(q)
-    return w, v
-
-  dtol = -1.0 if drift_tol is None else drift_tol
-  w_prev, _, res = rayleigh_ritz(q)
-  drift = float("inf")
   it = num_iters
-  while float(res) > residual_tol and drift > dtol and it < max_iters:
-    q = iterate(q, num_iters)
-    w_new, _, res = rayleigh_ritz(q)
-    scale = torch.clamp_min(torch.amax(torch.abs(w_new)), 1e-30)
-    drift = float(torch.amax(torch.abs(w_new - w_prev)) / scale)
-    w_prev = w_new
-    it += num_iters
+
+  if residual_tol is not None:
+    dtol = -1.0 if drift_tol is None else drift_tol
+    w_prev, _, res = rayleigh_ritz(q)
+    drift = float("inf")
+    while float(res) > residual_tol and drift > dtol and it < max_iters:
+      q = iterate(q, num_iters)
+      w_new, _, res = rayleigh_ritz(q)
+      scale = torch.clamp_min(torch.amax(torch.abs(w_new)), 1e-30)
+      drift = float(torch.amax(torch.abs(w_new - w_prev)) / scale)
+      w_prev = w_new
+      it += num_iters
+  if stats is not None:
+    stats["iters"] = it
   w, v, _ = rayleigh_ritz(q)
   return w, v

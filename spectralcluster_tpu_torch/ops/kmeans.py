@@ -2,11 +2,14 @@
 
 Port of ``spectralcluster_tpu/ops/kmeans.py``, with the host-facing
 ``CustomKMeans`` and ``run_kmeans`` (numpy in, numpy out):
-  * k-means++ seeding (sklearn-style greedy local trials) drawn from a
-    ``torch.Generator``. The draws are Gumbel-max samples, as
-    ``jax.random.categorical`` makes them, from uniform noise generated on
-    the CPU and moved to the data's device, so a CPU run and a card run seed
-    alike (the numbers differ from ``jax.random``'s).
+  * k-means++ seeding (sklearn-style greedy local trials). The draws are
+    ``jax.random.categorical``'s Gumbel-max samples from the JAX package's
+    own stream (``prng.py``, threefry2x32 in numpy) for
+    ``PRNGKey(generator.initial_seed())``, over the rows of the JAX
+    package's shape bucket, made on the host and moved to the data's
+    device: a CPU run, a card run and the JAX package pick the same
+    starting centroids for the same seed (up to a last-ulp difference of
+    float32 ``log`` between numpy and XLA).
   * Lloyd iterations with the reference's exact convergence rule
     (custom_distance_kmeans.py:120-133), as a Python loop that reads one
     scalar per round: stop when the mean assigned distance is within
@@ -24,34 +27,39 @@ import typing
 import numpy as np
 import torch
 
+from spectralcluster_tpu_torch import prng
 from spectralcluster_tpu_torch import utils
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
-
-
-def _gumbel(generator: torch.Generator, shape, dtype, device) -> torch.Tensor:
-  u = torch.rand(shape, generator=generator, dtype=dtype)
-  tiny = torch.finfo(dtype).tiny
-  return (-torch.log(-torch.log(u.clamp(tiny, 1.0)))).to(device)
 
 
 def kmeans_plusplus(
     x: torch.Tensor,
     k_max: int,
     generator: torch.Generator,
-    sample_weight: typing.Optional[torch.Tensor] = None) -> torch.Tensor:
-  """Greedy k-means++ seeding (sklearn-style local trials), seeded generator.
+    sample_weight: typing.Optional[torch.Tensor] = None,
+    draw_rows: typing.Optional[int] = None) -> torch.Tensor:
+  """Greedy k-means++ seeding (sklearn-style local trials), seeded.
 
   Selection always uses squared-euclidean potentials, as in the reference,
-  where sklearn's k-means++ initializes even custom-distance K-Means.
-  ``generator`` is a CPU generator. Returns (k_max, d) centers.
+  where sklearn's k-means++ initializes even custom-distance K-Means. The
+  draws are the JAX package's for ``PRNGKey(generator.initial_seed())``
+  (the generator names the seed and is not advanced) over ``draw_rows``
+  rows, by default ``utils.pad_bucket(N)``: the rows of the array the JAX
+  package clusters, which pads to its shape bucket. Rows past N carry zero
+  weight there and are never drawn. Returns (k_max, d) centers.
   """
   n, d = x.shape
   w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
   valid = w > 0
+  rows = utils.pad_bucket(n) if draw_rows is None else draw_rows
+  keys = prng.split(prng.key(generator.initial_seed()), k_max + 1)
 
-  c0 = torch.argmax(torch.log(w + 1e-30)
-                    + _gumbel(generator, (n,), x.dtype, x.device))
+  def gumbel(j, shape):
+    g = prng.gumbel(keys[j], shape + (rows,))[..., :n]
+    return torch.from_numpy(g).to(x.device, x.dtype)
+
+  c0 = torch.argmax(torch.log(w + 1e-30) + gumbel(0, ()))
   centers = torch.zeros((k_max, d), dtype=x.dtype, device=x.device)
   centers[0] = x[c0]
   closest = affinity_ops.cdist_sqeuclidean(x, x[c0][None, :])[:, 0]
@@ -60,9 +68,7 @@ def kmeans_plusplus(
 
   for j in range(1, k_max):
     logits = torch.where(valid, torch.log(closest + 1e-30), -torch.inf)
-    cand = torch.argmax(
-        logits[None, :] + _gumbel(generator, (trials, n), x.dtype, x.device),
-        dim=1)
+    cand = torch.argmax(logits[None, :] + gumbel(j, (trials,)), dim=1)
     d_cand = affinity_ops.cdist_sqeuclidean(x, x[cand])     # (N, trials)
     new_closest = torch.minimum(closest[:, None], d_cand)
     new_closest = torch.where(valid[:, None], new_closest, 0.0)
@@ -161,17 +167,19 @@ def kmeans_fit(
     tol: float = 0.001,
     k_max: typing.Optional[int] = None,
     sample_weight: typing.Optional[torch.Tensor] = None,
+    draw_rows: typing.Optional[int] = None,
 ) -> torch.Tensor:
   """Full K-Means: seeded k-means++ init, then Lloyd with the chosen metric.
 
   Mirrors reference run_kmeans (custom_distance_kmeans.py:13-52): falsy
   ``custom_dist`` means plain euclidean K-Means with max_iter=300; otherwise
   k-means++ provides the initial centroids for the custom-distance loop.
-  ``k_max`` is the centroid count when ``n_clusters`` is a tensor.
+  ``k_max`` is the centroid count when ``n_clusters`` is a tensor;
+  ``draw_rows`` goes to ``kmeans_plusplus``.
   """
   if k_max is None:
     k_max = int(n_clusters)
-  centroids = kmeans_plusplus(x, k_max, generator, sample_weight)
+  centroids = kmeans_plusplus(x, k_max, generator, sample_weight, draw_rows)
   if not custom_dist:
     labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,
                                sample_weight=sample_weight)
@@ -252,13 +260,18 @@ def run_kmeans(spectral_embeddings,
   Runs on ``device`` at the input's exact shape: eager PyTorch does not
   recompile per shape, so the JAX package's row padding has no purpose
   here (and mahalanobis and callables must not see padded rows). The
-  optional ``generator`` is a CPU generator for the k-means++ draws;
-  it defaults to seed 0, the analog of the reference's random_state=0.
+  k-means++ draws still cover the rows the JAX package clusters: its shape
+  bucket for row-local metrics, the exact N otherwise. The optional
+  ``generator`` names the seed of those draws; it defaults to seed 0, the
+  analog of the reference's random_state=0.
   """
   x = torch.as_tensor(np.asarray(spectral_embeddings, np.float32)).to(
       utils.resolve_device(device))
   if generator is None:
     generator = torch.Generator().manual_seed(0)
+  padded = not custom_dist or (isinstance(custom_dist, str)
+                               and custom_dist != "mahalanobis")
   labels = kmeans_fit(x, int(n_clusters), generator, custom_dist=custom_dist,
-                      max_iter=int(max_iter), tol=0.001)
+                      max_iter=int(max_iter), tol=0.001,
+                      draw_rows=None if padded else x.shape[0])
   return labels.cpu().numpy()

@@ -42,18 +42,20 @@ is recorded as the ``host_eig`` stage when the caller passes ``timings``.
 Eager PyTorch does not recompile per shape, so callers may run unpadded
 (``n_valid=None``); every op still honours ``n_valid``.
 
-Past ``dc_max_block`` the JAX route for ``Auto`` in the staged executor, and
-for ``Eigh`` in ``eig_topk_staged``, is the spectral divide-and-conquer top-k
-solver (ROADMAP queue 1 item 9, not ported). On the card a full
-``torch.linalg.eigh`` fits at those sizes (one (N,N) float32 is 0.42 GB at
-N=10240), so the port runs the full eigh and returns what the JAX route
-returns: the max_clusters+1 extreme eigenvalues in scan order, snapped
-against the full spectrum's max|w|.
+Past ``dc_max_block`` the route for ``Auto`` in the staged executor, and
+for ``Eigh`` in ``eig_topk_staged``, is the exact top-k route of
+``ops/dc.py`` (``eigh_topk_dc``, stage "staged_dc"): the max_clusters+1
+extreme eigenpairs in scan order with a residual certificate, snapped
+against the solver's norm estimate; on a descending scan
+``_warn_near_stop`` warns when the cluster count depends on digits that
+certificate cannot vouch for, as in JAX.
 
 Each entry point runs under ``precision.fp32_precision()`` (TF32 off).
 Randomness: the K-Means seeding takes a CPU ``torch.Generator`` where JAX
-took a PRNG key; the subspace start panel comes from a generator seeded 42,
-as JAX used ``PRNGKey(42)``.
+took a PRNG key, and draws the JAX stream of ``PRNGKey`` of its seed
+(``ops/kmeans.py``); the subspace start panel comes from a generator seeded
+42 and the dc route's from one seeded 17, as JAX used ``PRNGKey(42)`` and
+``PRNGKey(17)``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import typing
+import warnings
 
 import numpy as np
 import torch
@@ -68,6 +71,7 @@ import torch
 from spectralcluster_tpu_torch import constraint as constraint_lib
 from spectralcluster_tpu_torch.kernels import fused as fused_kernels
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+from spectralcluster_tpu_torch.ops import dc as dc_ops
 from spectralcluster_tpu_torch.ops import eigen as eigen_ops
 from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
 from spectralcluster_tpu_torch.ops import laplacian as laplacian_ops
@@ -77,28 +81,10 @@ from spectralcluster_tpu_torch.types import (AutoTuneProxy, ConstraintOptions,
                                              EigenGapType, EigenSolver,
                                              LaplacianType, RefinementName,
                                              RefinementOptions)
+from spectralcluster_tpu_torch.utils import pad_bucket
 
-# Geometric bucket growth factor above 512 (snapped up to multiples of 256).
-_BUCKET_GROWTH = 1.25
 _SUBSPACE_SEED = 42
-
-
-def pad_bucket(n: int) -> int:
-  """Round a problem size up to the JAX package's shape bucket.
-
-  Powers of two up to 512, then a geometric ladder (×1.25, snapped up to
-  multiples of 256). A bucket maps to itself. The port does not pad, but
-  routes by the bucket so that it picks the same solver route (and returns
-  eigenvalues of the same shape) as the JAX package for the same N.
-  """
-  if n <= 8:
-    return 8
-  if n <= 512:
-    return 1 << (n - 1).bit_length()
-  b = 512
-  while b < n:
-    b = -(-int(b * _BUCKET_GROWTH) // 256) * 256
-  return b
+_DC_SEED = 17
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +123,9 @@ class PipelineConfig:
 
   ``use_kernels`` is the JAX ``use_pallas``: route the refinement hot path
   (all five kernels of kernels/fused.py) through the wrappers.
-  ``dc_sign_precision`` is kept for the spectral D&C route (ROADMAP queue
-  1 item 9) and read by nothing yet. ``matmul_precision`` must stay
-  "highest": the port runs every product in IEEE float32.
+  ``dc_sign_precision`` is the JAX sign chain's precision; the port's
+  ``ops/dc.py`` has no sign chain and reads it nowhere. ``matmul_precision``
+  must stay "highest": the port runs every product in IEEE float32.
   """
   refinement_options: RefinementOptions = RefinementOptions()
   constraint_options: typing.Optional[ConstraintOptions] = None
@@ -292,19 +278,80 @@ def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
       drift_tol=cfg.subspace_drift_tol)
 
 
-def _full_eigh_topk(m: torch.Tensor, k: int, n_valid, descend: bool):
-  """Full eigh, keeping the k extreme eigenpairs in scan order.
+def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
+  """The exact top-k route past ``dc_max_block`` (JAX pipeline.py:815-830,
+  :970-991): ``ops/dc.eigh_topk_dc`` for the max_clusters+1 extreme
+  eigenpairs, then ``_warn_near_stop`` on a descending scan. Returns (w, u,
+  wscale), wscale being the solver's norm estimate as a 0-dim tensor.
 
-  The port's stand-in for the JAX spectral-D&C top-k route past
-  ``dc_max_block``. Returns (w, u, wscale), wscale being the valid
-  spectrum's max|w|.
+  The JAX executor hands the solver its bucket-padded m, which is past
+  dc_max_block here; the port's m is unpadded and may not be, so the
+  solver's dense branch is closed (max_block=0).
   """
-  w, u = eigen_ops.sorted_eigh(m, descend=descend)
-  valid = torch.ones_like(w, dtype=torch.bool) if n_valid is None else (
-      torch.arange(w.shape[0], device=w.device) < n_valid)
-  wscale = torch.amax(torch.where(valid, torch.abs(w), 0.0))
-  # Sentinels sort past the scan end, so the first k are valid.
-  return w[:k], u[:, :k], wscale
+  w, u, res, wscale = dc_ops.eigh_topk_dc(
+      m, cfg.max_clusters + 1, torch.Generator().manual_seed(_DC_SEED),
+      descend=descend, n_valid=None if n_valid is None else int(n_valid),
+      max_block=0, sign_precision=cfg.dc_sign_precision)
+  if descend:
+    _warn_near_stop(w.cpu().numpy(), res, wscale, cfg, "spectral D&C top-k")
+  return w, u, torch.tensor(wscale, dtype=m.dtype, device=m.device)
+
+
+def _count_topk_descend_np(w, wscale, cfg: PipelineConfig) -> int:
+  """Numpy mirror of the descending eigengap scan on t extreme values
+  (reference utils.py:117-128 semantics, snap included), for the
+  count-sensitivity guard below (JAX pipeline.py:840-860)."""
+  w = np.asarray(w, np.float64).copy()
+  w[np.abs(w) < cfg.eigenvalue_snap_tol * wscale] = 0.0
+  t = w.shape[0]
+  range_end = min(t, (cfg.max_clusters + 1) if cfg.max_clusters else t)
+  best, n = 0.0, 0
+  for i in range(1, range_end):
+    if w[i - 1] < cfg.stop_eigenvalue:
+      break
+    if cfg.eigengap_type == EigenGapType.Ratio:
+      delta = w[i - 1] / (w[i] + 1e-10)
+    else:
+      delta = (w[i - 1] - w[i]) / max(float(np.max(w)), 1e-30)
+    if delta > best:
+      best, n = delta, i
+  return n
+
+
+def _warn_near_stop(w, res: float, wscale: float, cfg: PipelineConfig,
+                    where: str) -> bool:
+  """Warn when the cluster count depends on digits the residual
+  certificate cannot vouch for (JAX pipeline.py:863-902).
+
+  The certificate bounds each returned eigenvalue's error by res·wscale
+  (Weyl). The scan is re-run with the values inside that band around
+  stop_eigenvalue pushed to both extremes; only if the counts disagree is
+  there a warning. Returns whether it warned.
+  """
+  wh = np.asarray(w, np.float64)
+  unc = max(res, 1e-6) * wscale
+  near = np.abs(wh - cfg.stop_eigenvalue) <= unc
+  if not bool(near.any()):
+    return False
+  n0 = _count_topk_descend_np(wh, wscale, cfg)
+  w_hi = wh.copy()
+  w_hi[near] = wh[near] + unc
+  w_lo = wh.copy()
+  w_lo[near] = wh[near] - unc
+  n_hi = _count_topk_descend_np(w_hi, wscale, cfg)
+  n_lo = _count_topk_descend_np(w_lo, wscale, cfg)
+  if n_hi == n0 == n_lo:
+    return False
+  vals = ", ".join(f"{v:.4e}" for v in wh[near][:4])
+  warnings.warn(
+      f"{where}: eigenvalue(s) [{vals}] lie within the solver's "
+      f"certified uncertainty ({unc:.2e}) of stop_eigenvalue="
+      f"{cfg.stop_eigenvalue:g} AND the cluster count depends on them "
+      f"(count range [{min(n_lo, n_hi, n0)}, {max(n_lo, n_hi, n0)}]); the "
+      "break decision may differ from an exact solver. Consider a tighter "
+      "subspace_residual_tol, EigenSolver.Eigh, or float64 verification.",
+      UserWarning, stacklevel=3)
+  return True
 
 
 def _valid_gershgorin(m: torch.Tensor, n_valid) -> torch.Tensor:
@@ -569,8 +616,8 @@ def eig_topk_staged(
   carries a constraint applied before refinement; ``constraint_matrix``
   applies here only after it. The middle stage is the subspace iteration
   for Auto and SubspaceIteration (ascending on a Laplacian); the full eigh
-  for Eigh, with the port's full-eigh top-k stand-in past
-  ``dc_max_block``. Returns tensors (eigenvalues, eigenvectors[:, :k_cap],
+  for Eigh, and past ``dc_max_block`` the exact top-k route
+  (``_dc_topk``). Returns tensors (eigenvalues, eigenvectors[:, :k_cap],
   n_gap, max_delta), k_cap = max(max_clusters, min_clusters): the columns
   downstream K-Means can read. ``affinity`` is not modified.
   """
@@ -590,7 +637,7 @@ def eig_topk_staged(
       w, u = _subspace(m, cfg, n_valid, descend)
       wmax = _valid_gershgorin(m, n_valid)
     elif pad_bucket(m.shape[0]) > cfg.dc_max_block:
-      w, u, wmax = _full_eigh_topk(m, cfg.max_clusters + 1, n_valid, descend)
+      w, u, wmax = _dc_topk(m, cfg, n_valid, descend)
     else:
       w, u = eigen_ops.sorted_eigh(m, descend=descend)
     del m
@@ -611,8 +658,9 @@ def spectral_cluster_fixed_k_staged(
   """``spectral_cluster_fixed_k`` split at the eigensolver boundary.
 
   Stages: "staged_prep" (affinity + constraint + refinement + eigen
-  operand), then "staged_subspace" (SubspaceIteration) or "staged_eigh"
-  (full eigh), then "staged_finish" (snap, eigengap, K-Means). With
+  operand), then "staged_subspace" (SubspaceIteration), "staged_dc" (the
+  exact top-k route) or "staged_eigh" (full eigh), then "staged_finish"
+  (snap, eigengap, K-Means). With
   ``timings`` (an observability.StageTimings) each stage's duration is
   recorded. A configuration the executor cannot split
   (``_staged_applicable``: the GENERAL structure, HostGeneral, in-graph
@@ -622,9 +670,9 @@ def spectral_cluster_fixed_k_staged(
     * SubspaceIteration: top-k subspace iteration; the snap and the
       NormalizedDiff denominator use the operand's valid Gershgorin bound
       as the full-spectrum scale.
-    * Auto with pad_bucket(N) > dc_max_block (the JAX spectral-D&C route):
-      full eigh, then only the max_clusters+1 extreme eigenpairs in scan
-      order go on, snapped against the full spectrum's max|w|.
+    * Auto with pad_bucket(N) > dc_max_block: the exact top-k route
+      (``ops/dc.eigh_topk_dc``); only the max_clusters+1 extreme
+      eigenpairs in scan order go on, snapped against its norm estimate.
     * otherwise: full eigh, all N eigenvalues.
   """
   _require_max_clusters(cfg)
@@ -649,14 +697,13 @@ def spectral_cluster_fixed_k_staged(
       with _stage(timings, "staged_subspace"):
         w, u = _subspace(m, cfg, n_valid, descend)
         wmax = _valid_gershgorin(m, n_valid)
+    elif (cfg.eigensolver == EigenSolver.Auto
+          and pad_bucket(m.shape[0]) > cfg.dc_max_block):
+      with _stage(timings, "staged_dc"):
+        w, u, wmax = _dc_topk(m, cfg, n_valid, descend)
     else:
       with _stage(timings, "staged_eigh"):
-        if (cfg.eigensolver == EigenSolver.Auto
-            and pad_bucket(m.shape[0]) > cfg.dc_max_block):
-          w, u, wmax = _full_eigh_topk(m, cfg.max_clusters + 1, n_valid,
-                                       descend)
-        else:
-          w, u = eigen_ops.sorted_eigh(m, descend=descend)
+        w, u = eigen_ops.sorted_eigh(m, descend=descend)
     del m
     with _stage(timings, "staged_finish"):
       eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,

@@ -17,6 +17,29 @@ import torch
 from spectralcluster_tpu_torch.types import EPS, EigenGapType
 
 
+# Geometric bucket growth factor above 512 (snapped up to multiples of 256).
+_BUCKET_GROWTH = 1.25
+
+
+def pad_bucket(n: int) -> int:
+  """Round a problem size up to the JAX package's shape bucket.
+
+  Powers of two up to 512, then a geometric ladder (×1.25, snapped up to
+  multiples of 256). A bucket maps to itself. The port does not pad, but
+  routes by the bucket so that it picks the same solver route (and returns
+  eigenvalues of the same shape) as the JAX package for the same N, and
+  draws its k-means++ samples over the bucket's rows, as JAX does.
+  """
+  if n <= 8:
+    return 8
+  if n <= 512:
+    return 1 << (n - 1).bit_length()
+  b = 512
+  while b < n:
+    b = -(-int(b * _BUCKET_GROWTH) // 256) * 256
+  return b
+
+
 def resolve_device(device) -> torch.device:
   """The torch device to run on; a CUDA device must exist."""
   dev = torch.device(device)

@@ -1,0 +1,357 @@
+"""The port's exact top-k route (``ops/dc.py``) and its pipeline wiring vs
+the JAX package, on the same numpy inputs (CPU).
+
+Spectra are the JAX tests' own (``tests/test_eigen_dc.py``) at n ≤ 512
+with ``max_block=128``, and the staged pipeline at ``dc_max_block=48``.
+Tolerances, as stated in each test: eigenvalues within 1e-3·λmax of a
+float64 numpy eigh and within 2e-4·scale of the JAX route (float32 solves
+from different start panels); residual certificates ≤ 1e-5; the separated
+pairs' subspaces equal to 1e-4 in their smallest principal cosine.
+"""
+
+import ast
+import os
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spectralcluster_tpu import configs as j_configs
+from spectralcluster_tpu import pipeline as j_pipeline
+from spectralcluster_tpu import types as j_types
+from spectralcluster_tpu.ops import dc as j_dc
+from spectralcluster_tpu.ops import eigen as j_eigen
+from spectralcluster_tpu_torch import convert
+from spectralcluster_tpu_torch import pipeline
+from spectralcluster_tpu_torch import utils
+from spectralcluster_tpu_torch.fixtures import make_embeddings_k
+from spectralcluster_tpu_torch.observability import StageTimings
+from spectralcluster_tpu_torch.ops import dc
+from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _make_sym(n, eigs, seed):
+  q, _ = np.linalg.qr(np.random.RandomState(seed).randn(n, n))
+  return (q * np.asarray(eigs)[None, :]) @ q.T
+
+
+def _gen(seed=0):
+  return torch.Generator().manual_seed(seed)
+
+
+def _dominant(n=512):
+  # Diarization-like: four dominant eigenvalues over a quasi-degenerate
+  # bulk (test_eigen_dc.py:426-447).
+  rng = np.random.RandomState(1)
+  eigs = np.concatenate([[260.0, 250.0, 240.0, 230.0],
+                         1e-3 + rng.randn(n - 4) * 1e-4])
+  return _make_sym(n, eigs, seed=2), 4
+
+
+def _padded_ascending(n=512, nv=400):
+  # Two dominant negative eigenvalues over a flat bulk, padded, scanned
+  # ascending (test_eigen_dc.py:449-463).
+  eigs = np.concatenate([[-260.0, -250.0], np.full(nv - 2, -1e-3)])
+  a = np.zeros((n, n), np.float32)
+  a[:nv, :nv] = _make_sym(nv, eigs, seed=3).astype(np.float32)
+  return a, nv, 2
+
+
+def _both(a, t, descend=True, n_valid=None, **kw):
+  """The port's and JAX's eigh_topk_dc on the same float32 operand (with
+  the padding sentinels when n_valid is set)."""
+  a32 = a.astype(np.float32)
+  m_j = jnp.asarray(a32)
+  m_t = torch.as_tensor(a32)
+  if n_valid is not None:
+    m_j = j_eigen.apply_padding_sentinels(m_j, n_valid, descend)
+    m_t = eigen_ops.apply_padding_sentinels(m_t, n_valid, descend)
+  info = {}
+  ours = dc.eigh_topk_dc(m_t, t, _gen(), descend=descend, n_valid=n_valid,
+                         max_block=128, info=info, **kw)
+  theirs = j_dc.eigh_topk_dc(m_j, t, jax.random.PRNGKey(0), descend=descend,
+                             n_valid=n_valid, max_block=128, **kw)
+  return ours, theirs, info
+
+
+@pytest.mark.parametrize("case", ["dominant", "padded_ascending"])
+def test_certified_route_matches_jax(case):
+  if case == "dominant":
+    (a, n_sep), nv, descend = _dominant(), None, True
+  else:
+    a, nv, n_sep = _padded_ascending()
+    descend = False
+  (w, v, res, scale), (jw, jv, jres, jscale), info = _both(
+      a, 8, descend=descend, n_valid=nv)
+  assert info["route"] == "certified"
+  w, v, jw, jv = w.numpy(), v.numpy(), np.asarray(jw), np.asarray(jv)
+  nvv = a.shape[0] if nv is None else nv
+  ref = np.linalg.eigh(a[:nvv, :nvv].astype(np.float64))[0]
+  ref = ref[::-1][:8] if descend else ref[:8]
+  lam = float(np.max(np.abs(ref)))
+  np.testing.assert_allclose(w, ref, atol=1e-3 * lam)
+  np.testing.assert_allclose(w, jw, atol=2e-4 * scale)
+  assert res <= dc._ITER_ACCEPT_RES and jres <= j_dc._ITER_ACCEPT_RES
+  assert 0.3 * lam <= scale <= 3.2 * lam
+  # The separated pairs span the same subspace as JAX's.
+  cosines = np.linalg.svd(v[:, :n_sep].T @ jv[:, :n_sep], compute_uv=False)
+  assert cosines.min() >= 1 - 1e-4
+  if nv is not None:
+    assert np.abs(v[nv:]).max() < 1e-3
+
+
+def test_probe_detects_missed_top_eigenvalue():
+  # The probe gets t pairs that leave out the dominant one
+  # (test_eigen_dc.py:485-502): the deflated remainder must surface it,
+  # in both packages.
+  n, t = 256, 4
+  rng = np.random.RandomState(4)
+  a = _make_sym(n, np.concatenate([[100.0, 50.0, 45.0, 40.0, 35.0],
+                                   rng.randn(n - 5) * 0.3]), seed=5)
+  w64, v64 = np.linalg.eigh(a)
+  w_miss = w64[::-1][1:t + 1].astype(np.float32)
+  v_miss = v64[:, ::-1][:, 1:t + 1].astype(np.float32)
+  b = float(np.abs(a).sum(1).max()) + 1.0
+  a32 = a.astype(np.float32)
+  est, _ = dc._probe_next(torch.as_tensor(a32), torch.as_tensor(v_miss),
+                          torch.as_tensor(w_miss), None, b, _gen(3), True)
+  j_est, _ = jax.device_get(j_dc._probe_next_jit(n, t, True, False)(
+      jnp.asarray(a32), jnp.asarray(v_miss), jnp.asarray(w_miss),
+      jnp.asarray(n), jnp.float32(b), jax.random.PRNGKey(3)))
+  assert est > 90.0 and float(j_est) > 90.0
+  # And the certified route declines on it.
+  w_t = float(w_miss[-1])
+  assert est > w_t + dc._MISS_MARGIN * b
+
+
+@pytest.mark.parametrize("how", ["forced", "spread_bulk"])
+def test_decline_lands_on_full_eigh(how):
+  # Forced: try_iterative_first=False on the dominant spectrum. Spread
+  # bulk: the six bulk pairs of t=8 cannot meet the 1e-5 residual within
+  # the iteration cap (test_eigen_dc.py:465-483), so the route declines by
+  # itself. Either way the full eigh answers with the exact eigenvalues.
+  if how == "forced":
+    a, _ = _dominant()
+    kw = {"try_iterative_first": False}
+  else:
+    rng = np.random.RandomState(6)
+    a = _make_sym(512, np.concatenate([[260.0, 250.0],
+                                       rng.randn(510) * 0.5]), seed=7)
+    kw = {}
+  info = {}
+  w, v, res, scale = dc.eigh_topk_dc(torch.as_tensor(a.astype(np.float32)),
+                                     8, _gen(), max_block=128, info=info,
+                                     **kw)
+  assert info["route"] == "full_eigh"
+  ref = np.linalg.eigh(a)[0][::-1][:8]
+  np.testing.assert_allclose(w.numpy(), ref, atol=1e-3 * ref[0])
+  assert res <= dc._ITER_ACCEPT_RES
+  assert scale == pytest.approx(float(np.max(np.abs(np.linalg.eigvalsh(
+      a.astype(np.float32))))), rel=1e-4)
+  if how == "forced":
+    certified, _, _, _ = dc.eigh_topk_dc(
+        torch.as_tensor(a.astype(np.float32)), 8, _gen(), max_block=128)
+    np.testing.assert_allclose(w.numpy(), certified.numpy(),
+                               atol=2e-4 * scale)
+
+
+def test_dense_branch_matches_jax():
+  a, _ = _dominant(n=96)
+  (w, _, res, scale), (jw, _, jres, jscale), info = _both(a, 8)
+  assert info["route"] == "dense" and res == jres == 0.0
+  np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=2e-4 * jscale)
+  assert scale == pytest.approx(jscale, rel=1e-5)
+
+
+@pytest.mark.parametrize("res,raises", [(1e-3, False), (0.0101, True),
+                                        (float("nan"), True)])
+def test_check_residual(res, raises):
+  for check in (dc._check_residual, j_dc._check_residual):
+    if raises:
+      with pytest.raises(RuntimeError, match="residual"):
+        check(res)
+    else:
+      check(res)
+
+
+def _icassp_cfg(**kw):
+  return j_pipeline.PipelineConfig(
+      refinement_options=j_configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, **kw)
+
+
+# test_eigen_dc.py:540-574: (w, res, wscale, whether it warns).
+WARN_CASES = {
+    "count_depends_on_banded_value": ([5.0, 0.0101, 1e-6, 1e-6], 1e-4, True),
+    "count_is_robust": ([5.0, 4.0, 0.0099, 0.0090, 0.0085, 0.0080], 1e-3,
+                        False),
+    "values_clear_of_stop": ([5.0, 4.0, 1e-6], 1e-6, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WARN_CASES))
+def test_warn_near_stop_matches_jax(case):
+  w, res, expected = WARN_CASES[case]
+  jcfg = _icassp_cfg()
+  hits = []
+  for warn, cfg in ((pipeline._warn_near_stop,
+                     convert.pipeline_config_from(jcfg)),
+                    (j_pipeline._warn_near_stop, jcfg)):
+    with warnings.catch_warnings(record=True) as rec:
+      warnings.simplefilter("always")
+      hit = warn(np.array(w), res=res, wscale=5.0, cfg=cfg, where="test")
+    assert len(rec) == int(hit)
+    hits.append(hit)
+  assert hits == [expected, expected]
+
+
+def test_staged_pipeline_surfaces_the_warning(monkeypatch):
+  # The staged executor's dc route warns when the solver hands back values
+  # inside the uncertainty band (test_eigen_dc.py:576-595).
+  def fake_dc(m, t, generator, **kw):
+    w = torch.tensor([5.0, 0.01] + [1e-6] * 6)
+    return w, torch.eye(m.shape[0], 8), 1e-3, 5.0
+
+  monkeypatch.setattr(dc, "eigh_topk_dc", fake_dc)
+  cfg = convert.pipeline_config_from(_icassp_cfg(dc_max_block=64))
+  x = torch.as_tensor(np.random.RandomState(0).randn(128, 8).astype(
+      np.float32))
+  with warnings.catch_warnings(record=True) as rec:
+    warnings.simplefilter("always")
+    pipeline.spectral_cluster_fixed_k_staged(x, _gen(), cfg)
+  assert any("stop_eigenvalue" in str(r.message) for r in rec)
+
+
+def _staged_embeddings(n=96, d=16, k=3, seed=0):
+  rng = np.random.RandomState(seed)
+  centers = rng.randn(k, d) * 3
+  labels = np.repeat(np.arange(k), n // k)
+  return (centers[labels] + rng.randn(n, d) * 0.3).astype(np.float32)
+
+
+def _separated(n=120, d=128):
+  """The record-size regime of test_eigen_dc.py:357-390: three
+  well-separated speakers."""
+  rng = np.random.RandomState(7)
+  centers = rng.randn(3, d) * 3.0
+  labels = np.repeat(np.arange(3), n // 3)
+  return (centers[labels] + rng.randn(n, d) * 0.05).astype(np.float32)
+
+
+def _separated_cfg(**kw):
+  # A hard threshold and no blur collapse the operand's bulk to the
+  # float32 floor, as record-size inputs do, so both packages take the
+  # certified route (a decline sends the JAX package through its sign
+  # chain, minutes of compiles on a loaded CPU).
+  return _icassp_cfg(dc_max_block=48, **kw).replace(
+      refinement_options=j_configs.icassp2018_refinement_options().replace(
+          thresholding_soft_multiplier=0.0, gaussian_blur_sigma=0))
+
+
+def _laplacian_cfg():
+  return j_pipeline.PipelineConfig(
+      refinement_options=j_types.RefinementOptions(
+          thresholding_type=j_types.ThresholdType.Percentile,
+          p_percentile=0.9,
+          refinement_sequence=(j_types.RefinementName.RowWiseThreshold,
+                               j_types.RefinementName.Symmetrize)),
+      laplacian_type=j_types.LaplacianType.GraphCut,
+      eigengap_type=j_types.EigenGapType.NormalizedDiff,
+      min_clusters=1, max_clusters=5, row_wise_renorm=True, dc_max_block=48)
+
+
+def _record_routes(monkeypatch):
+  """Lists that receive the route each package's dc solver takes:
+  "certified", or its decline ("full_eigh"; the JAX package's sign chain)."""
+  routes, j_routes = [], []
+  solve, j_certified = dc.eigh_topk_dc, j_dc._certified_iterative_topt
+
+  def recording(*a, **kw):
+    info = {}
+    out = solve(*a, info=info, **kw)
+    routes.append(info["route"])
+    return out
+
+  def j_recording(*a, **kw):
+    out = j_certified(*a, **kw)
+    j_routes.append("full_eigh" if out is None else "certified")
+    return out
+
+  monkeypatch.setattr(dc, "eigh_topk_dc", recording)
+  monkeypatch.setattr(j_dc, "_certified_iterative_topt", j_recording)
+  return routes, j_routes
+
+
+@pytest.mark.parametrize("case", ["icassp2018", "padded", "laplacian_ascend"])
+def test_staged_dc_matches_jax(case, monkeypatch):
+  # test_eigen_dc.py:341-419: dc_max_block=48 puts N=96 and 120 (buckets
+  # 128) on the dc route.
+  n_valid = None
+  if case == "laplacian_ascend":
+    jcfg, x = _laplacian_cfg(), _staged_embeddings(seed=1)
+  else:
+    jcfg, x = _separated_cfg(), _separated()
+  if case == "padded":
+    x = np.concatenate([_separated(n=90), np.zeros((38, 128), np.float32)])
+    n_valid = 90
+  routes, j_routes = _record_routes(monkeypatch)
+  timings = StageTimings("cpu")
+  labels, n_c, w, _ = pipeline.spectral_cluster_fixed_k_staged(
+      torch.as_tensor(x), _gen(), convert.pipeline_config_from(jcfg),
+      n_valid=n_valid, timings=timings)
+  jlabels, jn_c, jw, _ = jax.device_get(
+      j_pipeline.spectral_cluster_fixed_k_staged(
+          jnp.asarray(x), jax.random.PRNGKey(0), jcfg,
+          n_valid=None if n_valid is None else jnp.int32(n_valid)))
+  assert routes == j_routes == ["certified"]
+  assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
+                                    "staged_finish"}
+  nv = x.shape[0] if n_valid is None else n_valid
+  assert int(n_c) == int(jn_c)
+  np.testing.assert_array_equal(utils.enforce_ordered_labels(labels[:nv]),
+                                utils.enforce_ordered_labels(jlabels[:nv]))
+  assert w.shape == jw.shape == (jcfg.max_clusters + 1,)
+  # The snapped eigenvalues (ClusterResult.eigenvalues on this route).
+  np.testing.assert_allclose(w.numpy(), jw,
+                             atol=2e-4 * float(np.max(np.abs(jw))))
+
+
+def test_eig_topk_staged_eigh_runs_dc(monkeypatch):
+  # Eigh past dc_max_block in eig_topk_staged takes the dc route too.
+  routes, j_routes = _record_routes(monkeypatch)
+  jcfg = _separated_cfg(eigensolver=j_types.EigenSolver.Eigh)
+  x = _separated()
+  cfg = convert.pipeline_config_from(jcfg)
+  aff = pipeline.prepare_affinity(torch.as_tensor(x), cfg)
+  w, _, n_c, delta = pipeline.eig_topk_staged(aff, cfg)
+  jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg)
+  jw, _, jn_c, jdelta = j_pipeline.eig_topk_staged(jaff, jcfg)
+  assert routes == j_routes == ["certified"]
+  assert int(n_c) == int(jn_c) == 3
+  np.testing.assert_allclose(w.numpy(), np.asarray(jw),
+                             atol=2e-4 * float(np.max(np.abs(jw))))
+  np.testing.assert_allclose(float(delta), float(jdelta), rtol=1e-3)
+
+
+@pytest.mark.parametrize("n,k", [(10240, 4), (10240, 7), (300, 7)])
+def test_make_embeddings_k_is_the_bench_fixture(n, k):
+  # benchmarks/bench_multispeaker.py's make_embeddings_k, read from the
+  # file (importing the bench would configure JAX's compile cache).
+  path = os.path.join(REPO, "benchmarks", "bench_multispeaker.py")
+  with open(path) as f:
+    tree = ast.parse(f.read())
+  fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef)
+            and node.name == "make_embeddings_k")
+  scope = {"np": np}
+  exec(compile(ast.Module(body=[fn], type_ignores=[]), path, "exec"), scope)
+  x, labels = make_embeddings_k(n, k)
+  want_x, want_labels = scope["make_embeddings_k"](n, k)
+  np.testing.assert_array_equal(x, want_x)
+  np.testing.assert_array_equal(labels, want_labels)

@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from spectralcluster_tpu_torch import configs, constraint, utils
+from spectralcluster_tpu_torch import configs, constraint, streaming, utils
+from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.constraint import ConstraintMatrix
-from spectralcluster_tpu_torch.fixtures import make_embeddings, make_t2d_fixture
+from spectralcluster_tpu_torch.fixtures import (make_embeddings, make_stream,
+                                                make_t2d_fixture)
 from spectralcluster_tpu_torch.kernels import fused
-from spectralcluster_tpu_torch.types import EigenSolver
+from spectralcluster_tpu_torch.ops import dc
+from spectralcluster_tpu_torch.types import Deflicker, EigenSolver
 
 pytestmark = pytest.mark.gpu
 
@@ -163,3 +166,61 @@ def test_e2cp_card_matches_cpu(cuda, alpha):
                                                    alpha, with_residual=True)
   torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
   assert float(got_res) <= 1e-6 and float(want_res) <= 1e-6
+
+
+@pytest.mark.parametrize("try_iterative_first", [None, False])
+def test_eigh_topk_dc_card_matches_cpu(cuda, try_iterative_first):
+  # A dominant spectrum over a quasi-degenerate bulk: the certified route
+  # (or, forced off, the full eigh) on the card and on the CPU, from the
+  # same CPU-drawn start panels. Eigenvalues within 2e-4·scale.
+  rng = np.random.RandomState(0)
+  n = 1024
+  q, _ = np.linalg.qr(rng.randn(n, n))
+  eigs = np.concatenate([[260.0, 250.0, 240.0, 230.0],
+                         1e-3 + rng.randn(n - 4) * 1e-4])
+  a = torch.as_tensor(((q * eigs[None, :]) @ q.T).astype(np.float32))
+  out = {}
+  for device in ("cpu", cuda):
+    info = {}
+    w, v, res, scale = dc.eigh_topk_dc(
+        a.to(device), 8, torch.Generator().manual_seed(17), max_block=128,
+        try_iterative_first=try_iterative_first, info=info)
+    out[str(device)] = (w.cpu().numpy(), res, scale, info["route"])
+  (w_cpu, res_cpu, scale_cpu, route_cpu), (w_gpu, res_gpu, _, route_gpu) = (
+      out.values())
+  assert route_cpu == route_gpu == ("full_eigh" if try_iterative_first is
+                                    False else "certified")
+  assert res_gpu <= 1e-5 and res_cpu <= 1e-5
+  np.testing.assert_allclose(w_gpu, w_cpu, atol=2e-4 * scale_cpu)
+
+
+def test_stream_card_matches_cpu(cuda):
+  # 200 steps at L=10, U1=20, U2=60 (four compressions): the card's label
+  # history equals the CPU's at every step, up to label ids. The blur is
+  # off: at these sizes GaussianBlur runs along stream order and mixes the
+  # speakers, which leaves K-Means near ties that a last-bit difference
+  # between the card's and the CPU's eigenvectors can tip (seen at step 89
+  # with the blur on); without it each predict separates the speakers.
+  stream, _ = make_stream(200)
+
+  def clusterer(device):
+    return streaming.MultiStageClusterer(
+        SpectralClusterer(
+            min_clusters=2, max_clusters=7,
+            refinement_options=configs.icassp2018_refinement_options(
+            ).replace(gaussian_blur_sigma=0),
+            device=device),
+        fallback_threshold=0.5, L=10, U1=20, U2=60,
+        deflicker=Deflicker.Hungarian)
+
+  on_card, on_cpu = clusterer("cuda"), clusterer("cpu")
+  fused.reset_launch_counts()
+  for step, e in enumerate(stream, start=1):
+    got, want = on_card.streaming_predict(e), on_cpu.streaming_predict(e)
+    np.testing.assert_array_equal(utils.enforce_ordered_labels(got),
+                                  utils.enforce_ordered_labels(want),
+                                  err_msg=f"step {step}")
+  np.testing.assert_array_equal(on_card.compression_labels,
+                                on_cpu.compression_labels)
+  assert all(fused.launch_counts()[k] > 0 for k in (
+      "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general"))

@@ -417,6 +417,35 @@ def test_kmeans_plusplus_picks_distinct_valid_rows():
   assert len({int(r[0]) % 3 for r in rows}) == 3   # one seed per blob
 
 
+@pytest.mark.parametrize("seed", [0, 17, 2**31 - 1])
+def test_prng_matches_jax_random(seed):
+  from spectralcluster_tpu_torch import prng
+  key = jax.random.PRNGKey(seed)
+  np.testing.assert_array_equal(prng.key(seed), np.asarray(key))
+  keys = prng.split(prng.key(seed), 5)
+  j_keys = jax.random.split(key, 5)
+  np.testing.assert_array_equal(keys, np.asarray(j_keys))
+  for shape in ((7,), (3, 130)):
+    # The uniform bits are equal; float32 log in numpy and in XLA may round
+    # the last bit apart (4 float32 ulps of the largest draws here).
+    np.testing.assert_allclose(
+        prng.gumbel(keys[2], shape),
+        np.asarray(jax.random.gumbel(j_keys[2], shape)), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_kmeans_plusplus_draws_match_jax(seed):
+  # Bucket-sized input (the JAX package clusters its bucket's rows), with
+  # padded rows of weight 0: the same starting centroids as JAX.
+  x = _blobs(n=64, d=4, seed=24, sep=2.0)
+  weight = (np.arange(64) < 50).astype(np.float32)
+  ours = t_kmeans.kmeans_plusplus(_t(x), 4, torch.Generator().manual_seed(
+      seed), _t(weight))
+  ref = j_kmeans.kmeans_plusplus(jnp.asarray(x), 4, jax.random.PRNGKey(seed),
+                                 jnp.asarray(weight))
+  np.testing.assert_array_equal(_np(ours), np.asarray(ref))
+
+
 @pytest.mark.parametrize("metric", ["cosine", None])
 def test_kmeans_fit_matches_up_to_permutation(metric):
   from spectralcluster_tpu_torch import utils
