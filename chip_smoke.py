@@ -48,7 +48,7 @@ result line):
          warm; then Auto at N=10240 with the dc route forced to decline:
          the same labels, eigenvalues within 2e-4·scale of the certified
          leg's;
-       * HostGeneral at N=4096 (one cold run, two warm): all five kernels;
+       * HostGeneral at N=4096 (one cold run, one warm): all five kernels;
          its host LAPACK eig is reported apart from the device stages. N is
          cut from 10240 because the float64 general eig is O(N^3) on the
          host;
@@ -74,9 +74,37 @@ result line):
      enforce_ordered_labels, as must the final compression chain; 2
      compressions; the history covers all 1500 steps; kernels 1-4 must
      launch. Prints steps/s per window and, from a torch.profiler trace of
-     ten more steps, the device's idle share.
-  Together about 5-7 minutes on one H100, most of it the host eig and the
-  host side of the streams.
+     ten more steps, the device's idle share. The AHC pre-clustering must
+     run the native C++ chain (``ahc.backend() == "native"``, built with
+     g++ at first use); each stream prints the host split of its steps past
+     U1 (AHC seconds against predict seconds), and the pre-cluster AHC of
+     600 stream rows is timed alone with each backend (labels equal).
+  7. batch — parallel/batch.py at the JAX batch bench's shape
+     (benchmarks/bench_batch.py: make_batch(16), N=1024, d=256, 2-4
+     block-ordered speakers; icassp2018, min 2 / max 7, cosine, max_iter
+     300, Auto): cluster_batch once cold and BATCH_WARM_RUNS warm, labels
+     held against tests/data/reference_batch.npz (the JAX package's
+     cluster_batch, recorded by tools/record_batch_reference.py) after
+     enforce_ordered_labels, with id-for-id equality and gt_match
+     reported; kernels 1-4 must launch 16/32/16/16 times per warm call.
+     Then the loop's stages alone per utterance (affinity and refinement,
+     eigh, K-Means), card synced around each. Then cluster_batch_streamed
+     over make_batch(STREAMED_BATCH) with chunk=64, window=4 in float32:
+     its first two chunks must equal cluster_batch on those chunks with
+     seed=lo, its first 16 the reference; gt_match, utterances/s and, from
+     a torch.profiler trace (card activity only) of one more full chunk,
+     the device's idle share, with the trace's stop and summary timed
+     apart; then one bf16-transfer pass
+     over the first STREAMED_BF16 utterances (gt_match printed beside the
+     float32 one, ungated). Then cluster_batch_autotuned with the Turn-to-Diarize
+     template on 4 x make_t2d_fixture(1024) with its constraints: labels
+     held against the reference file; kernel 4 (T2D form) must launch once
+     per AutoTune candidate per utterance; equality with
+     benchmarks/reference_labels_t2d.npz and with the port's
+     SpectralClusterer is printed, ungated.
+  Each phase prints the seconds elapsed at its end. Together about 8-9
+  minutes on one H100, most of it the host eig, the host side of the
+  streams and the streamed batch (Lloyd's rounds, each read on the host).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,10 +128,10 @@ N_RAGGED = 1000
 NV_RAGGED = 937
 P_ROWMAX = 0.95
 REPS = 20
-BATCH = 10
+EVENT_BATCH = 10
 WARM_RUNS = 5
 N_GENERAL = 4096
-GENERAL_WARM_RUNS = 2
+GENERAL_WARM_RUNS = 1
 API_WARM_RUNS = 2
 T2D_WARM_RUNS = 2
 N_BIG = 20480
@@ -114,6 +142,14 @@ STREAM_WINDOWS = ((1, 50), (51, 100), (101, 600), (601, 1100), (1101, 1500))
 STREAM_L, STREAM_U1, STREAM_U2 = 50, 100, 600
 PROFILED_STEPS = 10
 T2D_P = 0.785  # the p the JAX bench's AutoTune picked at every size
+N_BATCH = 1024                 # benchmarks/bench_batch.py's shape
+BATCH = 16
+BATCH_WARM_RUNS = 3
+STREAMED_BATCH = 1024          # BASELINE.md's 1024-utterance scale
+STREAMED_CHUNK, STREAMED_WINDOW = 64, 4
+STREAMED_BF16 = 256            # the bf16-transfer pass: its first utterances
+T2D_BATCH = 4
+AHC_ROWS = 600                 # the stream's U2: the largest pre-cluster
 
 # (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
 _PEAKS = (
@@ -137,7 +173,7 @@ def card_peaks(name: str):
   raise RuntimeError(f"no data-sheet peaks for card {name!r}")
 
 
-def time_ms(torch, fn, reps=REPS, batch=BATCH, warmup=3) -> float:
+def time_ms(torch, fn, reps=REPS, batch=EVENT_BATCH, warmup=3) -> float:
   """Median over `reps` of the mean card time of one call.
 
   Each rep is `batch` calls back to back between two CUDA events, after one
@@ -179,13 +215,18 @@ def main() -> int:
   sys.path.insert(0, HERE)
   import numpy as np
 
+  from spectralcluster_tpu_torch import ahc
   from spectralcluster_tpu_torch import clusterer as clusterer_lib
-  from spectralcluster_tpu_torch import (configs, constraint, pipeline,
-                                         streaming, utils)
-  from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+  from spectralcluster_tpu_torch import (configs, constraint, observability,
+                                         pipeline, streaming, utils)
+  from spectralcluster_tpu_torch.fixtures import (make_batch,
+                                                  make_embeddings,
                                                   make_embeddings_k,
                                                   make_stream,
                                                   make_t2d_fixture)
+  from spectralcluster_tpu_torch.native import ahc_native
+  from spectralcluster_tpu_torch.parallel import batch as batch_lib
+  from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
   from spectralcluster_tpu_torch.kernels import build
   from spectralcluster_tpu_torch.kernels import fused
   from spectralcluster_tpu_torch.ops import dc as dc_ops
@@ -193,10 +234,18 @@ def main() -> int:
   from spectralcluster_tpu_torch.ops.kmeans import run_kmeans
   from spectralcluster_tpu_torch.ops import quantile as quantile_ops
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
-  from spectralcluster_tpu_torch.types import Deflicker, EigenSolver
+  from spectralcluster_tpu_torch.types import (Deflicker, EigenSolver,
+                                               LaplacianType)
 
-  results = {}
+  results = {"elapsed_s": {}}
   dev = torch.device("cuda")
+  t_start_run = time.perf_counter()
+
+  def mark(phase):
+    """Seconds since the start of the run, at the end of each phase."""
+    results["elapsed_s"][phase] = time.perf_counter() - t_start_run
+    log(json.dumps({"phase": "elapsed", "after": phase,
+                    "s": results["elapsed_s"][phase]}))
 
   # 1. Device.
   smi = subprocess.run(
@@ -400,6 +449,7 @@ def main() -> int:
       results["breakdown_ms"][name] = time_ms(torch, fn, reps=3, batch=1,
                                               warmup=1)
   log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
+  mark("kernels")
   del crop_scratch, blurred, ragged, aff, sym
 
   # 3b. The exact top-k route's parts, each alone, on the Auto operand.
@@ -468,6 +518,7 @@ def main() -> int:
   results["dc_breakdown"].append(dc_breakdown(m, N_BIG, forced_decline=False))
   del m
   torch.cuda.empty_cache()
+  mark("dc_breakdown")
 
   # 4. Paths: each leg's launch counts are zeroed after its cold run and
   # read after its warm runs.
@@ -594,6 +645,8 @@ def main() -> int:
   if not err <= 2e-4 * scale:
     raise SystemExit(f"forced decline: eigenvalues differ from the Auto "
                      f"leg's by {err} (scale {scale})")
+
+  mark("paths")
 
   # 5. Turn-to-Diarize: its device stages alone at N_MAIN, then the leg.
   t2d_x, t2d_scores, _ = make_t2d_fixture(N_MAIN, D_MAIN)
@@ -732,12 +785,36 @@ def main() -> int:
           if launches[k] == 0]
   if idle:
     raise SystemExit(f"t2d: kernels not launched by predict: {idle}")
+  mark("t2d")
 
-  # 6. Streaming, against the JAX package's recorded histories.
+  # 6. Streaming, against the JAX package's recorded histories. The AHC
+  # pre-clustering must run the native chain: build it here, so that a
+  # failed build stops the run with g++'s message.
+  t0 = time.perf_counter()
+  ahc_native.build()
+  ahc_build_s = time.perf_counter() - t0
+  if ahc.backend() != "native":
+    raise SystemExit("streaming: the native AHC chain did not load")
   stream_ref = np.load(os.path.join(HERE, "tests", "data",
                                     "reference_streaming.npz"))
   stream, _ = make_stream(STREAM_STEPS)
   results["streaming"] = {}
+  # The host split of a step past U1: AHC and predict seconds, read by
+  # wrapping the AHC entry point and the main clusterer's predict.
+  split = {"on": False, "ahc_s": 0.0, "predict_s": 0.0}
+  ahc_labels = ahc.ahc_labels
+
+  def split_timer(key, fn):
+    def wrapper(*a, **kw):
+      t0 = time.perf_counter()
+      try:
+        return fn(*a, **kw)
+      finally:
+        if split["on"]:
+          split[key] += time.perf_counter() - t0
+    return wrapper
+
+  ahc.ahc_labels = split_timer("ahc_s", ahc_labels)
   for mode, deflicker in (("nodeflicker", Deflicker.NoDeflicker),
                           ("hungarian", Deflicker.Hungarian)):
     ms = streaming.MultiStageClusterer(
@@ -746,11 +823,14 @@ def main() -> int:
             refinement_options=configs.icassp2018_refinement_options()),
         fallback_threshold=0.5, L=STREAM_L, U1=STREAM_U1, U2=STREAM_U2,
         deflicker=deflicker)
+    ms.main.predict = split_timer("predict_s", ms.main.predict)
+    split.update(ahc_s=0.0, predict_s=0.0)
     fused.reset_launch_counts()
     checked, compressions, ends = {}, 0, {}
     t_start = time.perf_counter()
     for step, e in enumerate(stream, start=1):
       rows = 0 if ms.cache is None else np.atleast_2d(ms.cache).shape[0]
+      split["on"] = step > STREAM_U1
       out = ms.streaming_predict(e)
       if ms.cache.shape[0] <= rows:  # the cache was compressed
         compressions += 1
@@ -764,9 +844,12 @@ def main() -> int:
                 np.asarray(out).astype(np.int64),
                 stream_ref[key].astype(np.int64)))}
       ends[step] = time.perf_counter()
+    split["on"] = False
     torch.cuda.synchronize()
     launches = fused.launch_counts()
     past_l = STREAM_STEPS - STREAM_L + 1
+    past_u1 = STREAM_STEPS - STREAM_U1
+    step_s = (ends[STREAM_STEPS] - ends[STREAM_U1]) / past_u1
     rates = {}
     for lo, hi in STREAM_WINDOWS:
       begin = ends[lo - 1] if lo > 1 else t_start
@@ -784,6 +867,11 @@ def main() -> int:
         "checked_steps": checked, "launches": launches,
         "launches_per_step_past_L": {k: v / past_l
                                      for k, v in launches.items()},
+        "ahc_backend": ahc.backend(),
+        "host_split_per_step_past_U1_s": {
+            "step": step_s, "ahc": split["ahc_s"] / past_u1,
+            "predict": split["predict_s"] / past_u1,
+            "rest": step_s - (split["ahc_s"] + split["predict_s"]) / past_u1},
     }
     if mode == "nodeflicker":
       # The device's idle share over a few more steps past U1, traced.
@@ -817,6 +905,236 @@ def main() -> int:
     idle = [k for k in main_kernels if launches[k] == 0]
     if idle:
       raise SystemExit(f"streaming {mode}: kernels not launched: {idle}")
+  ahc.ahc_labels = ahc_labels
+
+  # The pre-cluster AHC alone, on the stream's first AHC_ROWS rows (the
+  # largest cache, U2), with each backend.
+  dist = ahc.cosine_distance_matrix(stream[:AHC_ROWS])
+  ahc_runs = {}
+  for backend, reps in (("native", 5), ("numpy", 3)):
+    native_ok = ahc._native_ok
+    if backend == "numpy":
+      ahc._native_ok = lambda: False
+    try:
+      assert ahc.backend() == backend
+      runs_s = []
+      for _ in range(reps):
+        t0 = time.perf_counter()
+        labels_ahc = ahc.ahc_labels(dist, "complete", n_clusters=STREAM_U1)
+        runs_s.append(time.perf_counter() - t0)
+    finally:
+      ahc._native_ok = native_ok
+    ahc_runs[backend] = (statistics.median(runs_s), labels_ahc)
+  results["ahc"] = {
+      "rows": AHC_ROWS, "n_clusters": STREAM_U1, "build_s": ahc_build_s,
+      "library": os.path.basename(ahc_native.library_path()),
+      "native_s": ahc_runs["native"][0], "numpy_s": ahc_runs["numpy"][0],
+      "labels_equal": bool(np.array_equal(ahc_runs["native"][1],
+                                          ahc_runs["numpy"][1]))}
+  log(json.dumps({"phase": "ahc", **results["ahc"]}))
+  if not results["ahc"]["labels_equal"]:
+    raise SystemExit("ahc: the native and numpy chains disagree")
+  mark("streaming")
+
+  # 7. Batch clustering (parallel/batch.py) at the JAX batch bench's shape.
+  batch_ref = np.load(os.path.join(HERE, "tests", "data",
+                                   "reference_batch.npz"))
+  mesh = mesh_lib.make_mesh()
+  bcfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300,
+      eigensolver=EigenSolver.Auto)
+
+  def ordered_equal(got, want):
+    return bool(np.array_equal(utils.enforce_ordered_labels(got),
+                               utils.enforce_ordered_labels(want)))
+
+  def gt_match(preds, truths):
+    return sum(ordered_equal(p, t) for p, t in zip(preds, truths))
+
+  def timed_call(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+  utts, truths = make_batch(BATCH, N_BATCH, D_MAIN)
+  cold, cold_s = timed_call(lambda: batch_lib.cluster_batch(utts, bcfg, mesh))
+  fused.reset_launch_counts()
+  warm_s = []
+  for _ in range(BATCH_WARM_RUNS):
+    labels_b, seconds = timed_call(
+        lambda: batch_lib.cluster_batch(utts, bcfg, mesh))
+    warm_s.append(seconds)
+  launches = fused.launch_counts()
+  want = {"affinity": BATCH, "row_max": 2 * BATCH, "crop_diagonal": BATCH,
+          "threshold_symmetrize_general": BATCH, "row_wise_normalize": 0}
+  per_call = {k: v / BATCH_WARM_RUNS for k, v in launches.items()}
+  ref_labels = list(batch_ref["batch_labels"])
+  run = {
+      "leg": "cluster_batch", "batch": BATCH, "n": N_BATCH, "d": D_MAIN,
+      "mesh": mesh.shape, "parity": all(ordered_equal(a, b) for a, b in
+                                        zip(labels_b, ref_labels)),
+      "parity_ids": all(np.array_equal(a, b.astype(a.dtype))
+                        for a, b in zip(labels_b, ref_labels)),
+      "warm_equal_cold": all(np.array_equal(a, b)
+                             for a, b in zip(labels_b, cold)),
+      "gt_match": gt_match(labels_b, truths),
+      "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
+      "warm_wall_s_runs": warm_s,
+      "utterances_per_s": BATCH / statistics.median(warm_s),
+      "launches": launches, "launches_per_call": per_call,
+  }
+
+  # The loop's stages alone, per utterance: the staged executor's split of
+  # the same pipeline (prep: affinity and refinement; eigh; finish: the
+  # eigengap and K-Means), the card synced around each stage. Its labels
+  # must be the batch's.
+  stage_timings = observability.StageTimings(dev)
+  split_labels = []
+  for i, u in enumerate(utts):
+    split_labels.append(pipeline.spectral_cluster_fixed_k_staged(
+        torch.as_tensor(u).to(dev), torch.Generator().manual_seed(i), bcfg,
+        n_valid=N_BATCH, timings=stage_timings)[0].cpu().numpy())
+  run["stage_split_s"] = stage_timings.as_dict()
+  run["stage_split_labels_equal"] = all(
+      np.array_equal(a, b) for a, b in zip(split_labels, labels_b))
+  results["batch"] = run
+  log(json.dumps({"phase": "batch", **run}))
+  if not run["parity"]:
+    raise SystemExit("cluster_batch: labels differ from the JAX package's")
+  if not run["stage_split_labels_equal"]:
+    raise SystemExit("cluster_batch: the staged split's labels differ")
+  if per_call != want:
+    raise SystemExit(f"cluster_batch: launches per call {per_call}, "
+                     f"expected {want}")
+  mark("batch")
+
+  # The streamed driver at the 1024-utterance scale.
+  s_utts, s_truths = make_batch(STREAMED_BATCH, N_BATCH, D_MAIN)
+  fused.reset_launch_counts()
+  streamed, streamed_s = timed_call(lambda: batch_lib.cluster_batch_streamed(
+      s_utts, bcfg, mesh, chunk=STREAMED_CHUNK, window=STREAMED_WINDOW))
+  launches = fused.launch_counts()
+  serial = []
+  for lo in (0, STREAMED_CHUNK):
+    serial.extend(batch_lib.cluster_batch(
+        s_utts[lo:lo + STREAMED_CHUNK], bcfg, mesh, seed=lo))
+  half, half_s = timed_call(lambda: batch_lib.cluster_batch_streamed(
+      s_utts[:STREAMED_BF16], bcfg, mesh, chunk=STREAMED_CHUNK,
+      window=STREAMED_WINDOW, transfer_dtype=torch.bfloat16))
+  # The device's idle share over one more full chunk, traced: the card's
+  # activity only, which keeps the trace small (Lloyd launches thousands of
+  # small kernels per utterance). The trace's stop and its summary are
+  # timed apart from the traced run.
+  from torch.profiler import ProfilerActivity, profile
+  prof = profile(activities=[ProfilerActivity.CUDA])
+  prof.start()
+  t0 = time.perf_counter()
+  batch_lib.cluster_batch_streamed(
+      s_utts[:STREAMED_CHUNK], bcfg, mesh, chunk=STREAMED_CHUNK,
+      window=STREAMED_WINDOW)
+  torch.cuda.synchronize()
+  wall_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  prof.stop()
+  trace_stop_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  busy_ms = sum(
+      getattr(e, "self_device_time_total",
+              getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+      for e in prof.key_averages()
+      if e.device_type == torch.autograd.DeviceType.CUDA)
+  trace_summary_s = time.perf_counter() - t0
+  run = {
+      "leg": "cluster_batch_streamed", "batch": STREAMED_BATCH,
+      "n": N_BATCH, "d": D_MAIN, "chunk": STREAMED_CHUNK,
+      "window": STREAMED_WINDOW, "seconds": streamed_s,
+      "utterances_per_s": STREAMED_BATCH / streamed_s,
+      "gt_match": gt_match(streamed, s_truths),
+      "first_two_chunks_equal_serial": all(
+          np.array_equal(a, b) for a, b in zip(streamed, serial)),
+      "first_batch_equal_reference": all(
+          ordered_equal(a, b) for a, b in zip(streamed, ref_labels)),
+      "launches": launches,
+      "launches_per_utterance": {k: v / STREAMED_BATCH
+                                 for k, v in launches.items()},
+      "bf16_transfer": {
+          "batch": STREAMED_BF16, "seconds": half_s,
+          "utterances_per_s": STREAMED_BF16 / half_s,
+          "gt_match": gt_match(half, s_truths),
+          "float32_gt_match_same_utterances": gt_match(
+              streamed[:STREAMED_BF16], s_truths),
+          "labels_equal_float32": sum(ordered_equal(a, b) for a, b in
+                                      zip(half, streamed))},
+      "profiled": {"utterances": STREAMED_CHUNK, "chunk": STREAMED_CHUNK,
+                   "window": STREAMED_WINDOW, "wall_ms": wall_ms,
+                   "device_busy_ms": busy_ms,
+                   "device_idle_share": 1.0 - busy_ms / wall_ms,
+                   "trace_stop_s": trace_stop_s,
+                   "trace_summary_s": trace_summary_s},
+  }
+  results["batch_streamed"] = run
+  log(json.dumps({"phase": "batch_streamed", **run}))
+  if not (run["first_two_chunks_equal_serial"]
+          and run["first_batch_equal_reference"]):
+    raise SystemExit("cluster_batch_streamed: labels differ from the serial "
+                     "chunked loop or the reference")
+  idle = [k for k in main_kernels if launches[k] != STREAMED_BATCH
+          * want[k] // BATCH]
+  if idle:
+    raise SystemExit(f"cluster_batch_streamed: launches {launches}")
+  mark("batch_streamed")
+
+  # A constrained, auto-tuned batch: the Turn-to-Diarize template.
+  t2d_b_x, t2d_b_scores, _ = make_t2d_fixture(N_BATCH, D_MAIN)
+  t2d_b_cm = constraint.ConstraintMatrix(
+      t2d_b_scores, threshold=1).compute_diagonals()
+  tcfg = pipeline.PipelineConfig(
+      refinement_options=configs.turntodiarize_refinement_options(),
+      constraint_options=configs.turntodiarize_constraint_options(),
+      laplacian_type=LaplacianType.GraphCut, min_clusters=2, max_clusters=7,
+      row_wise_renorm=True, custom_dist="cosine")
+  candidates = len(configs.make_turntodiarize_auto_tune().get_percentile_range())
+
+  def autotuned():
+    return batch_lib.cluster_batch_autotuned(
+        [t2d_b_x] * T2D_BATCH, tcfg, configs.make_turntodiarize_auto_tune(),
+        mesh, constraint_matrices=[t2d_b_cm] * T2D_BATCH)
+
+  _, t2d_cold_s = timed_call(autotuned)
+  fused.reset_launch_counts()
+  t2d_labels, t2d_warm_s = timed_call(autotuned)
+  launches = fused.launch_counts()
+  t2d_ref_b = list(batch_ref["t2d_labels"])
+  clusterer_labels = configs.make_turntodiarize_clusterer().predict(
+      t2d_b_x, t2d_b_cm)
+  run = {
+      "leg": "cluster_batch_autotuned", "batch": T2D_BATCH, "n": N_BATCH,
+      "d": D_MAIN, "candidates_per_utterance": candidates,
+      "parity": all(ordered_equal(a, b) for a, b in zip(t2d_labels,
+                                                        t2d_ref_b)),
+      "parity_ids": all(np.array_equal(a, b.astype(a.dtype))
+                        for a, b in zip(t2d_labels, t2d_ref_b)),
+      "equal_reference_labels_t2d": all(
+          ordered_equal(a, t2d_ref[f"labels_{N_BATCH}"]) for a in t2d_labels),
+      "equal_spectral_clusterer": all(
+          ordered_equal(a, clusterer_labels) for a in t2d_labels),
+      "cold_wall_s": t2d_cold_s, "warm_wall_s": t2d_warm_s,
+      "utterances_per_s": T2D_BATCH / t2d_warm_s, "launches": launches,
+  }
+  results["batch_autotuned"] = run
+  log(json.dumps({"phase": "batch_autotuned", **run}))
+  if not run["parity"]:
+    raise SystemExit("cluster_batch_autotuned: labels differ from the JAX "
+                     "package's")
+  if (launches["threshold_symmetrize_general"] != candidates * T2D_BATCH
+      or launches["affinity"] != T2D_BATCH):
+    raise SystemExit(f"cluster_batch_autotuned: launches {launches}")
+  mark("batch_autotuned")
+  batch_launches = {
+      "cluster_batch": results["batch"]["launches"],
+      "cluster_batch_streamed": results["batch_streamed"]["launches"],
+      "cluster_batch_autotuned": launches}
 
   sources = {
       "affinity": "fused.py:46-77 affinity_pallas",
@@ -837,9 +1155,14 @@ def main() -> int:
         "replaces": "spectralcluster_tpu/kernels/" + sources[name],
         "launches": (sum(r["launches"][name] for r in runs.values())
                      + sum(r["launches"][name]
-                           for r in results["streaming"].values())),
+                           for r in results["streaming"].values())
+                     + sum(r[name] for r in batch_launches.values())),
         "launches_per_predict":
             per_predict["launches"][name] / per_predict["warm_runs"],
+        "launches_per_batch_utterance":
+            results["batch"]["launches_per_call"][name] / BATCH,
+        "launches_per_autotuned_batch_utterance":
+            batch_launches["cluster_batch_autotuned"][name] / T2D_BATCH,
         "launches_auto_20480_predict": runs["Auto_20480"]["launches"][name],
         "launches_per_stream_step_past_L": results["streaming"][
             "nodeflicker"]["launches_per_step_past_L"][name],

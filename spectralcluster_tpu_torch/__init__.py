@@ -6,9 +6,10 @@ replaced by their plain PyTorch twins). Ported so far: the batch
 ``SpectralClusterer`` with every branch, both presets (icassp2018 and
 Turn-to-Diarize: constraints, Laplacians, AutoTune), the exact top-k route
 past ``dc_max_block`` (ops/dc.py), streaming (``MultiStageClusterer``), the
-fallback and AHC clusterers, K-Means, and all five Pallas kernels of the JAX
-package as CUDA kernels (kernels/fused.py, csrc/fused.cu). See ROADMAP.md
-for what is still to port.
+fallback and AHC clusterers (with the native C++ chain, native/), K-Means,
+the batch drivers (parallel/batch.py), and all five Pallas kernels of the
+JAX package as CUDA kernels (kernels/fused.py, csrc/fused.cu). See
+ROADMAP.md for what is still to port.
 """
 
 from spectralcluster_tpu_torch import configs
@@ -23,7 +24,7 @@ from spectralcluster_tpu_torch.convert import clusterer_from
 from spectralcluster_tpu_torch.fallback import (FallbackClusterer,
                                                 NaiveClusterer,
                                                 check_single_cluster)
-from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+from spectralcluster_tpu_torch.fixtures import (make_batch, make_embeddings,
                                                 make_embeddings_k, make_stream,
                                                 make_t2d_fixture)
 from spectralcluster_tpu_torch.ops.kmeans import CustomKMeans, run_kmeans
@@ -61,7 +62,8 @@ __all__ = [
     "SymmetrizeType", "ThresholdType", "CustomKMeans",
     "agglomerative_cluster", "chain_labels", "check_single_cluster",
     "clusterer_from", "configs", "convert", "run_kmeans",
-    "enforce_ordered_labels", "get_cluster_centroids", "make_embeddings",
+    "enforce_ordered_labels", "get_cluster_centroids", "make_batch",
+    "make_embeddings",
     "make_embeddings_k", "make_stream", "make_t2d_fixture", "match_labels",
     "pipeline", "spectral_cluster_fixed_k",
     "spectral_cluster_fixed_k_staged", "utils",

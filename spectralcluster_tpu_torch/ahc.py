@@ -1,6 +1,6 @@
 """Agglomerative hierarchical clustering (AHC), on the host.
 
-Port of the numpy path of ``spectralcluster_tpu/ahc.py``, which replaces
+Port of ``spectralcluster_tpu/ahc.py``, which replaces
 sklearn.cluster.AgglomerativeClustering as the reference uses it:
   * pre-clustering: metric="cosine", linkage="complete", fixed n_clusters
     (spectral_clusterer.py:184-188, multi_stage_clusterer.py:108-111)
@@ -9,8 +9,10 @@ sklearn.cluster.AgglomerativeClustering as the reference uses it:
 
 AHC's merge loop is sequential, so it runs on the host as the
 nearest-neighbor-chain algorithm: O(N²) in all, the same dendrogram as
-greedy agglomeration for the reducible linkages used here. The JAX
-package's optional native C++ chain loop is not ported (ROADMAP).
+greedy agglomeration for the reducible linkages used here. A C++ chain
+(``native/``, built with g++ at first use) answers when it is available,
+as in the JAX package; the numpy chain is the fallback, with the same
+merges and the same label ids. ``backend()`` says which one answers.
 """
 
 from __future__ import annotations
@@ -20,6 +22,22 @@ import typing
 import numpy as np
 
 _LINKAGES = ("complete", "average", "single")
+
+try:
+  from spectralcluster_tpu_torch.native import ahc_native
+except Exception:  # pragma: no cover - the native build is optional
+  ahc_native = None
+
+
+def _native_ok() -> bool:
+  """Lazily build and load the C++ chain (the first call may compile it)."""
+  return ahc_native is not None and ahc_native.available()
+
+
+def backend() -> str:
+  """The chain that answers ``nn_chain_linkage`` and ``ahc_labels``:
+  "native" (the C++ library) or "numpy"."""
+  return "native" if _native_ok() else "numpy"
 
 
 def cosine_distance_matrix(embeddings: np.ndarray) -> np.ndarray:
@@ -55,6 +73,8 @@ def nn_chain_linkage(dist: np.ndarray,
   if linkage not in _LINKAGES:
     raise ValueError(f"Unsupported linkage {linkage!r}")
   n = dist.shape[0]
+  if _native_ok():
+    return ahc_native.nn_chain_linkage(dist, linkage)
   d = np.array(dist, dtype=np.float64, copy=True)
   np.fill_diagonal(d, np.inf)
   size = np.ones(n, dtype=np.int64)
@@ -119,7 +139,8 @@ def _cut_labels(merges: np.ndarray, n: int,
       parent[find(b)] = next_id
     next_id += 1
   roots = np.array([find(i) for i in range(n)])
-  # First-appearance relabel, as the JAX package's backends both do.
+  # First-appearance relabel, as the C++ chain does (ahc.cc), so both
+  # backends return the same label ids, not just the same partition.
   remap: typing.Dict[int, int] = {}
   labels = np.empty(n, dtype=np.int64)
   for i, r in enumerate(roots):
@@ -146,6 +167,9 @@ def ahc_labels(dist: np.ndarray,
     return np.zeros(1, dtype=np.int64)
   if n_clusters is not None and n_clusters >= n:
     return np.arange(n, dtype=np.int64)
+  if _native_ok():
+    return ahc_native.ahc_labels(dist, linkage, n_clusters,
+                                 distance_threshold)
   merges = nn_chain_linkage(dist, linkage)
   # Stable sort by height = scipy/sklearn dendrogram order.
   order = np.argsort(merges[:, 2], kind="stable")

@@ -5,8 +5,9 @@ in the port so that it never imports the JAX package. ``tune`` replicates
 the reference loop exactly, including its memoization: a level with no
 un-searched candidates keeps the previous level's winner, and the winner
 index is taken within the full candidate range. ``tune_batched`` hands all
-un-searched candidates of a level to one callback; the clusterer evaluates
-them one after another on the card.
+un-searched candidates of a level to one callback; the clusterer and the
+batch driver (``parallel/batch.py``) evaluate them one after another on the
+card, and the winner's eigenvectors come back as the callback gave them.
 
 AutoTune keeps state: each level after the first halves ``search_step`` and
 narrows the range, so build a fresh one (``configs.make_turntodiarize_
@@ -76,7 +77,8 @@ class AutoTune:
 
     Returns:
       (eigenvectors, n_clusters, best_p_percentile), with the semantics of
-      reference AutoTune.tune.
+      reference AutoTune.tune; eigenvectors is the callback's own row
+      (a numpy array or a tensor).
     """
     p_range = self.get_percentile_range()
     searched: typing.Dict[float, float] = {}
@@ -93,7 +95,7 @@ class AutoTune:
         for p, r in zip(ps, ratios):
           searched[float(p)] = float(r)
         w = int(np.argmin(ratios))
-        eigenvectors = np.asarray(eigvecs_b[w])
+        eigenvectors = eigvecs_b[w]
         n_clusters = int(ncs_b[w])
         best_p = float(ps[w])
         best_index = new[w][0]

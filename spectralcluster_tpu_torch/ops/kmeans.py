@@ -224,10 +224,10 @@ class CustomKMeans:
       raise ValueError("n_samples=%d should be >= n_clusters=%d" %
                        (n_samples, self.n_clusters))
     if self.centroids is None:
-      # The reference draws unseeded; this draw is seeded.
-      idx = torch.randperm(n_samples, generator=torch.Generator().manual_seed(
-          self.seed))[:self.n_clusters]
-      centroids = x[idx.to(x.device)]
+      # The reference draws unseeded; this draw is seeded: the JAX
+      # package's jax.random.choice(PRNGKey(seed), n, (k,), replace=False).
+      idx = prng.permutation(prng.key(self.seed), n_samples)[:self.n_clusters]
+      centroids = x[torch.from_numpy(idx).to(x.device)]
     else:
       centroids = torch.as_tensor(np.asarray(self.centroids, np.float32)).to(
           x.device)

@@ -13,13 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from spectralcluster_tpu_torch import configs, constraint, streaming, utils
+from spectralcluster_tpu_torch import (configs, constraint, pipeline,
+                                       streaming, utils)
 from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.constraint import ConstraintMatrix
 from spectralcluster_tpu_torch.fixtures import (make_embeddings, make_stream,
                                                 make_t2d_fixture)
 from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import dc
+from spectralcluster_tpu_torch.parallel import batch
+from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
 from spectralcluster_tpu_torch.types import Deflicker, EigenSolver
 
 pytestmark = pytest.mark.gpu
@@ -224,3 +227,58 @@ def test_stream_card_matches_cpu(cuda):
                                 on_cpu.compression_labels)
   assert all(fused.launch_counts()[k] > 0 for k in (
       "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general"))
+
+
+def _batch_cfg():
+  return pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, max_iter=300)
+
+
+def _batch_utterances(lengths, seed=0, d=64):
+  # Block-ordered speakers, 2-4 per utterance, well separated.
+  rng = np.random.RandomState(seed)
+  out = []
+  for i, n in enumerate(lengths):
+    k = 2 + i % 3
+    labels = np.repeat(np.arange(k), -(-n // k))[:n]
+    out.append((rng.randn(k, d)[labels] * 3
+                + rng.randn(n, d) * 0.4).astype(np.float32))
+  return out
+
+
+def test_cluster_batch_card_matches_cpu(cuda):
+  # A ragged batch: the card's labels equal the CPU's, and each utterance
+  # launches kernels 1-4 (row_max twice).
+  utts = _batch_utterances((300, 512, 200, 450, 512, 64))
+  fused.reset_launch_counts()
+  got = batch.cluster_batch(utts, _batch_cfg(), mesh_lib.make_mesh())
+  counts = fused.launch_counts()
+  want = batch.cluster_batch(utts, _batch_cfg(), mesh_lib.make_mesh(
+      devices=[torch.device("cpu")]))
+  for a, b in zip(got, want):
+    np.testing.assert_array_equal(utils.enforce_ordered_labels(a),
+                                  utils.enforce_ordered_labels(b))
+  assert counts == {"affinity": 6, "row_max": 12, "crop_diagonal": 6,
+                    "threshold_symmetrize_general": 6,
+                    "row_wise_normalize": 0}
+
+
+def test_cluster_batch_streamed_card_matches_serial(cuda):
+  # The windowed driver (side-stream copies, pinned buffers) returns the
+  # serial chunked loop's labels id for id; a bf16 transfer keeps these
+  # separated speakers' labels.
+  utts = _batch_utterances((256, 200, 256, 100, 256, 180, 256), seed=1)
+  mesh = mesh_lib.make_mesh()
+  streamed = batch.cluster_batch_streamed(utts, _batch_cfg(), mesh, chunk=3,
+                                          window=2)
+  serial = []
+  for lo in range(0, len(utts), 3):
+    serial.extend(batch.cluster_batch(utts[lo:lo + 3], _batch_cfg(), mesh,
+                                      seed=lo))
+  half = batch.cluster_batch_streamed(utts, _batch_cfg(), mesh, chunk=3,
+                                      window=2, transfer_dtype=torch.bfloat16)
+  for s, r, h in zip(streamed, serial, half):
+    np.testing.assert_array_equal(s, r)
+    np.testing.assert_array_equal(utils.enforce_ordered_labels(s),
+                                  utils.enforce_ordered_labels(h))

@@ -433,6 +433,32 @@ def test_prng_matches_jax_random(seed):
         np.asarray(jax.random.gumbel(j_keys[2], shape)), rtol=0, atol=1e-6)
 
 
+# One sort round up to n=1625, two above (JAX's static round count).
+@pytest.mark.parametrize("n", [1, 2, 10, 257, 1625, 1626, 4000])
+@pytest.mark.parametrize("seed", [0, 2**31 - 1])
+def test_prng_permutation_matches_jax(n, seed):
+  from spectralcluster_tpu_torch import prng
+  ours = prng.permutation(prng.key(seed), n)
+  key = jax.random.PRNGKey(seed)
+  np.testing.assert_array_equal(ours,
+                                np.asarray(jax.random.permutation(key, n)))
+  k = min(n, 5)
+  np.testing.assert_array_equal(
+      ours[:k], np.asarray(jax.random.choice(key, n, (k,), replace=False)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 12])
+def test_custom_kmeans_random_start_matches_jax(seed):
+  # Overlapping blobs: the start decides which optimum Lloyd lands in, so
+  # label ids agree only if the starts do.
+  x = _blobs(n=2000, d=4, seed=26, sep=1.0)
+  ours = t_kmeans.CustomKMeans(n_clusters=4, max_iter=20, seed=seed,
+                               device="cpu").predict(x)
+  theirs = j_kmeans.CustomKMeans(n_clusters=4, max_iter=20,
+                                 seed=seed).predict(x)
+  np.testing.assert_array_equal(ours, np.asarray(theirs))
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_kmeans_plusplus_draws_match_jax(seed):
   # Bucket-sized input (the JAX package clusters its bucket's rows), with
@@ -475,8 +501,8 @@ def test_custom_kmeans_matches(given_centroids):
   from spectralcluster_tpu_torch import utils
   x = _blobs(n=90, d=4, seed=24, sep=6.0)
   init = x[[0, 1, 2]] if given_centroids else None
-  # Without centroids each package draws its own seeded start (torch's and
-  # jax.random's draws differ); seed 5 puts one start in each blob in both.
+  # Without centroids both packages draw jax.random.choice's start for the
+  # seed (prng.permutation): the same start either way.
   ours = t_kmeans.CustomKMeans(n_clusters=3, centroids=init, max_iter=50,
                                seed=5, device="cpu")
   ref = j_kmeans.CustomKMeans(n_clusters=3, centroids=init, max_iter=50,
@@ -484,10 +510,10 @@ def test_custom_kmeans_matches(given_centroids):
   labels, jlabels = ours.predict(x), ref.predict(x)
   np.testing.assert_array_equal(utils.enforce_ordered_labels(labels),
                                 utils.enforce_ordered_labels(jlabels))
-  if given_centroids:
-    # The same start: the same rounds, so the same centroids (float32 sums
-    # in another order: rtol 1e-5).
-    _close(ours.centroids, ref.centroids, rtol=1e-5, atol=1e-5)
+  np.testing.assert_array_equal(labels, np.asarray(jlabels))
+  # The same start: the same rounds, so the same centroids (float32 sums in
+  # another order: rtol 1e-5).
+  _close(ours.centroids, ref.centroids, rtol=1e-5, atol=1e-5)
   with pytest.raises(ValueError, match="should be >= n_clusters"):
     t_kmeans.CustomKMeans(n_clusters=200, device="cpu").predict(x)
 
