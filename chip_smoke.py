@@ -102,6 +102,22 @@ result line):
      per AutoTune candidate per utterance; equality with
      benchmarks/reference_labels_t2d.npz and with the port's
      SpectralClusterer is printed, ungated.
+  8. sharded — parallel/sharded.py's cluster_large_sharded on
+     make_embeddings(20480) with the icassp2018 PipelineConfig (min 2 /
+     max 7, cosine, max_iter 300): (a) initialize_distributed joins an NCCL
+     world of one rank, make_mesh() names it, one cold run and two warm;
+     (b) SHARDS=4 shards in one process on the card (NCCL refuses two
+     ranks on one card), the all-gather and the ring affinity, one cold
+     run and one warm each: labels equal (a)'s and labels_20480, Ritz
+     values within SHARDED_EIG_RTOL of (a)'s; (c) the 4 stripes of the
+     refinement operand against the single-device operand on N=20477 (3
+     pad rows): bit for bit before Diffuse, within OPERAND_RTOL after; then
+     cluster_large_sharded on those 20477 rows at P=4 and P=1: labels and
+     n_clusters equal; (d) check_ring_order and check_replica_consistency
+     on both meshes (a per-shard value must be caught), and debug_nans
+     around one run at N=2048; (e) no kernel launches in the phase. Each
+     run prints n_clusters, subspace iterations, the final residual, the
+     peak memory and the host seconds per stage, card synced.
   Each phase prints the seconds elapsed at its end. Together about 8-9
   minutes on one H100, most of it the host eig, the host side of the
   streams and the streamed batch (Lloyd's rounds, each read on the host).
@@ -150,6 +166,14 @@ STREAMED_CHUNK, STREAMED_WINDOW = 64, 4
 STREAMED_BF16 = 256            # the bf16-transfer pass: its first utterances
 T2D_BATCH = 4
 AHC_ROWS = 600                 # the stream's U2: the largest pre-cluster
+SHARDS = 4                     # in-process shards of the row-sharded phase
+N_SHARDED_PAD = 20477          # N_SHARDED_PAD % SHARDS == 1: 3 pad rows
+N_NAN_TRAP = 2048
+# Ritz values at P=4 against P=1, as a share of max|w|: the float32 bound
+# of an N-term dot product, N·2^-24 ~ 1.2e-3 at N=20480. The operands are
+# equal bit for bit; the panel products and Grams sum in another order.
+SHARDED_EIG_RTOL = 1e-3
+OPERAND_RTOL = 1e-5            # the stripes' operand after Diffuse, of max|m|
 
 # (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
 _PEAKS = (
@@ -197,6 +221,173 @@ def time_ms(torch, fn, reps=REPS, batch=EVENT_BATCH, warmup=3) -> float:
     end.synchronize()
     times.append(start.elapsed_time(end) / batch)
   return statistics.median(times)
+
+
+def sharded_phase(torch, np, dev, want_big, log) -> dict:
+  """8. The row-sharded path (parallel/sharded.py) at N_BIG, icassp2018.
+
+  (a) an NCCL world of one rank (initialize_distributed, make_mesh()):
+  one cold run, two warm; (b) SHARDS shards in one process on the card,
+  the all-gather and the ring affinity, one cold run and one warm each;
+  (c) N_SHARDED_PAD rows (3 pad rows at SHARDS) against the NCCL world's
+  one shard, after the refinement operand's SHARDS stripes are held
+  against the single-device operand on that input (``operand_check``);
+  (d) check_ring_order and check_replica_consistency on both meshes, and
+  debug_nans around one sharded run at N_NAN_TRAP. Labels must equal
+  ``want_big`` after enforce_ordered_labels, and (b)'s Ritz values (a)'s
+  within SHARDED_EIG_RTOL of max|w|. Raises SystemExit on a failed gate.
+  The caller reads the kernel launch counts around it.
+  """
+  import socket
+
+  import torch.distributed as dist
+
+  from spectralcluster_tpu_torch import configs, observability, pipeline
+  from spectralcluster_tpu_torch import utils
+  from spectralcluster_tpu_torch.fixtures import make_embeddings
+  from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+  from spectralcluster_tpu_torch.ops import refinement as refinement_ops
+  from spectralcluster_tpu_torch.parallel import collectives
+  from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
+  from spectralcluster_tpu_torch.parallel import sanity, sharded, stripes
+  from spectralcluster_tpu_torch.precision import fp32_precision
+
+  cfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300)
+
+  def ordered(labels):
+    return utils.enforce_ordered_labels(np.asarray(labels))
+
+  def run(x, mesh, use_ring=False):
+    timings = observability.StageTimings(dev)
+    info = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    labels, n_clusters = sharded.cluster_large_sharded(
+        x, cfg, mesh, use_ring_affinity=use_ring, timings=timings, info=info)
+    wall = time.perf_counter() - t0
+    return labels, {
+        "wall_s": wall, "stages_s": timings.as_dict(),
+        "n_clusters": n_clusters, "shards": info["shards"],
+        "n_pad": info["n_pad"], "subspace_iters": info["iters"],
+        "residual": info["residual"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "eigenvalues": info["eigenvalues"].tolist()}
+
+  def operand_check(x, mesh):
+    """The stripes of the refinement operand against the single-device
+    ``pipeline._symmetric_eig_operand`` on the same padded affinity: bit
+    for bit before Diffuse, within OPERAND_RTOL of max|m| after it."""
+    n = x.shape[0]
+    n_pad = -(-n // SHARDS) * SHARDS
+    xp = torch.zeros((n_pad, x.shape[1]), device=dev)
+    xp[:n] = torch.as_tensor(x).to(dev)
+    plain = cfg.replace(use_kernels=False)
+    seq = tuple(cfg.refinement_options.refinement_sequence)
+    layout = stripes.Layout(collectives.model_group(mesh), n_pad, n)
+    with fp32_precision():
+      aff = refinement_ops.mask_padding(
+          affinity_ops.compute_affinity_matrix(xp), n)
+      parts = list(torch.split(aff, n_pad // SHARDS))
+      want = refinement_ops.apply_refinement_sequence(
+          aff, cfg.refinement_options, sequence=seq[:4], n_valid=n)
+      got = stripes.apply_refinement_sequence(
+          layout, parts, cfg.refinement_options, seq[:4])
+      pre_equal = all(torch.equal(g, w) for g, w in zip(
+          got, torch.split(want, n_pad // SHARDS)))
+      del got, want
+      want_m, _ = pipeline._symmetric_eig_operand(
+          aff, plain, None, n, refinement_ops.ROWNORM_TAIL)
+      got_m, _ = stripes.symmetric_eig_operand(
+          layout, parts, plain, refinement_ops.ROWNORM_TAIL, True)
+      err = max(float(torch.max(torch.abs(g - w))) for g, w in zip(
+          got_m, torch.split(want_m, n_pad // SHARDS)))
+      err /= float(torch.max(torch.abs(want_m)))
+    del aff, parts, want_m, got_m
+    torch.cuda.empty_cache()
+    row = {"n": n, "shards": SHARDS, "pre_diffuse_bit_equal": pre_equal,
+           "operand_err_rel": err, "tolerance": OPERAND_RTOL}
+    if not (pre_equal and err <= OPERAND_RTOL):
+      raise SystemExit(f"sharded: the stripes differ from the "
+                       f"single-device operand: {row}")
+    return row
+
+  out = {}
+  with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+  mesh_lib.initialize_distributed(f"localhost:{port}", 1, 0)
+  try:
+    nccl = mesh_lib.make_mesh(dp=1, mp=1)
+    in_process = mesh_lib.make_mesh(dp=1, mp=SHARDS, devices=[dev] * SHARDS)
+    big = make_embeddings(N_BIG)
+    runs = []
+    for _ in range(3):
+      labels_a, row = run(big, nccl)
+      runs.append(row)
+      if not np.array_equal(ordered(labels_a), want_big):
+        raise SystemExit("sharded (NCCL, 1 rank): labels differ from the "
+                         f"reference at N={N_BIG}")
+    out["nccl_world_1"] = {"cold": runs[0], "warm": runs[1:]}
+    log(json.dumps({"phase": "sharded", "leg": "nccl_world_1",
+                    **out["nccl_world_1"]}))
+    w_a = np.asarray(runs[-1]["eigenvalues"])
+    for use_ring in (False, True):
+      leg = f"in_process_{SHARDS}_" + ("ring" if use_ring else "all_gather")
+      legs = []
+      for _ in range(2):
+        labels_b, row = run(big, in_process, use_ring)
+        row["labels_equal_nccl_world_1"] = bool(np.array_equal(labels_b,
+                                                               labels_a))
+        row["eig_err_rel"] = float(np.max(np.abs(
+            np.asarray(row["eigenvalues"]) - w_a)) / np.max(np.abs(w_a)))
+        legs.append(row)
+        if not np.array_equal(ordered(labels_b), want_big):
+          raise SystemExit(f"sharded ({leg}): labels differ from the "
+                           f"reference at N={N_BIG}")
+        if row["eig_err_rel"] > SHARDED_EIG_RTOL:
+          raise SystemExit(f"sharded ({leg}): Ritz values differ from one "
+                           f"shard's by {row['eig_err_rel']:.3g} of max|w|")
+      out[leg] = {"cold": legs[0], "warm": legs[1:]}
+      log(json.dumps({"phase": "sharded", "leg": leg, **out[leg]}))
+    padded = big[:N_SHARDED_PAD]
+    out["stripes_vs_single_device"] = operand_check(padded, in_process)
+    log(json.dumps({"phase": "sharded", "leg": "stripes_vs_single_device",
+                    **out["stripes_vs_single_device"]}))
+    labels_p4, row_p4 = run(padded, in_process)
+    labels_p1, row_p1 = run(padded, nccl)
+    out["padded"] = {"n": N_SHARDED_PAD, "p4": row_p4, "p1": row_p1,
+                     "labels_equal": bool(np.array_equal(
+                         ordered(labels_p4), ordered(labels_p1)))}
+    log(json.dumps({"phase": "sharded", "leg": "padded", **out["padded"]}))
+    if not (out["padded"]["labels_equal"]
+            and row_p4["n_clusters"] == row_p1["n_clusters"]):
+      raise SystemExit(f"sharded: P={SHARDS} and P=1 differ at "
+                       f"N={N_SHARDED_PAD}")
+    for mesh in (nccl, in_process):
+      sanity.check_ring_order(mesh, "model")
+      sanity.check_ring_order(mesh, "batch")
+      sanity.check_replica_consistency(mesh, torch.arange(16.0))
+    try:
+      sanity.check_replica_consistency(
+          in_process, [torch.arange(16.0) + r for r in range(SHARDS)])
+      raise SystemExit("sharded: a per-shard value passed the replica check")
+    except AssertionError:
+      pass
+    t0 = time.perf_counter()
+    with sanity.debug_nans():
+      labels_nan, n_nan = sharded.cluster_large_sharded(
+          make_embeddings(N_NAN_TRAP), cfg, in_process)
+    out["sanity"] = {"ring_order": True, "replica_consistency": True,
+                     "debug_nans_n": N_NAN_TRAP,
+                     "debug_nans_s": time.perf_counter() - t0,
+                     "debug_nans_n_clusters": n_nan}
+    log(json.dumps({"phase": "sharded", "leg": "sanity", **out["sanity"]}))
+  finally:
+    dist.destroy_process_group()
+  return out
 
 
 def main() -> int:
@@ -1131,6 +1322,17 @@ def main() -> int:
       or launches["affinity"] != T2D_BATCH):
     raise SystemExit(f"cluster_batch_autotuned: launches {launches}")
   mark("batch_autotuned")
+
+  # 8. The row-sharded path: no kernel may launch in it.
+  fused.reset_launch_counts()
+  results["sharded"] = sharded_phase(torch, np, dev, ref[f"labels_{N_BIG}"],
+                                     log)
+  sharded_launches = fused.launch_counts()
+  results["sharded"]["launches"] = sharded_launches
+  log(json.dumps({"phase": "sharded", "launches": sharded_launches}))
+  if any(sharded_launches.values()):
+    raise SystemExit(f"sharded: kernels launched {sharded_launches}")
+  mark("sharded")
   batch_launches = {
       "cluster_batch": results["batch"]["launches"],
       "cluster_batch_streamed": results["batch_streamed"]["launches"],
@@ -1166,6 +1368,7 @@ def main() -> int:
         "launches_auto_20480_predict": runs["Auto_20480"]["launches"][name],
         "launches_per_stream_step_past_L": results["streaming"][
             "nodeflicker"]["launches_per_step_past_L"][name],
+        "launches_sharded": sharded_launches[name],
         "max_abs_err": err, "kernel_ms": times[name]["ms"],
         **times[name],
     }

@@ -7,9 +7,12 @@ replaced by their plain PyTorch twins). Ported so far: the batch
 Turn-to-Diarize: constraints, Laplacians, AutoTune), the exact top-k route
 past ``dc_max_block`` (ops/dc.py), streaming (``MultiStageClusterer``), the
 fallback and AHC clusterers (with the native C++ chain, native/), K-Means,
-the batch drivers (parallel/batch.py), and all five Pallas kernels of the
-JAX package as CUDA kernels (kernels/fused.py, csrc/fused.cu). See
-ROADMAP.md for what is still to port.
+the batch drivers (parallel/batch.py), row-sharded clustering of one
+large recording over a mesh's ``model`` line, in one process or across
+``torch.distributed`` ranks (parallel/sharded.py, ring.py, sanity.py,
+collectives.py), and all five Pallas kernels of the JAX package as CUDA
+kernels (kernels/fused.py, csrc/fused.cu). See ROADMAP.md for what is
+still to port.
 """
 
 from spectralcluster_tpu_torch import configs
@@ -28,6 +31,9 @@ from spectralcluster_tpu_torch.fixtures import (make_batch, make_embeddings,
                                                 make_embeddings_k, make_stream,
                                                 make_t2d_fixture)
 from spectralcluster_tpu_torch.ops.kmeans import CustomKMeans, run_kmeans
+from spectralcluster_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                     make_mesh)
+from spectralcluster_tpu_torch.parallel.sharded import cluster_large_sharded
 from spectralcluster_tpu_torch.pipeline import (AutoTuneStatic,
                                                 PipelineConfig,
                                                 spectral_cluster_fixed_k,
@@ -61,7 +67,8 @@ __all__ = [
     "RefinementOptions", "SingleClusterCondition", "SpectralClusterer",
     "SymmetrizeType", "ThresholdType", "CustomKMeans",
     "agglomerative_cluster", "chain_labels", "check_single_cluster",
-    "clusterer_from", "configs", "convert", "run_kmeans",
+    "cluster_large_sharded", "clusterer_from", "configs", "convert",
+    "initialize_distributed", "make_mesh", "run_kmeans",
     "enforce_ordered_labels", "get_cluster_centroids", "make_batch",
     "make_embeddings",
     "make_embeddings_k", "make_stream", "make_t2d_fixture", "match_labels",

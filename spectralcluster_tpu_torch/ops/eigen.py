@@ -10,7 +10,9 @@ Port of ``spectralcluster_tpu/ops/eigen.py``:
     ``compute_number_of_clusters`` (reference utils.py:74-130 semantics);
   * ``apply_padding_sentinels`` for padded eigenproblems;
   * ``topk_eigh_subspace(_masked)`` — block power iteration with CholeskyQR2
-    for the top-k eigenpairs, with residual and drift escalation.
+    for the top-k eigenpairs, with residual and drift escalation;
+    ``topk_eigh_subspace_sharded`` — the masked form on a matrix held as
+    row stripes over a shard group (``parallel/collectives.py``).
 
 Differences from the JAX version, by design:
   * Start panels come from a ``torch.Generator`` drawn on the CPU and moved
@@ -394,4 +396,137 @@ def topk_eigh_subspace(
   if stats is not None:
     stats["iters"] = it
   w, v, _ = rayleigh_ritz(q)
+  return w, v
+
+
+def _cholqr2_sharded(group, ys):
+  """``cholqr2_shifted`` on a panel split by rows over ``group``: the
+  (b, b) Gram is all-reduced, its Cholesky factor computed once per
+  process, and each shard solves its own rows. The 1e-2 rescue is taken
+  when any shard's rows of the 1e-6 pass are not finite."""
+  b = ys[0].shape[1]
+
+  def one_pass(ys, delta_rel):
+    gram = group.all_reduce([torch.matmul(y.T, y) for y in ys])
+    eye = torch.eye(b, dtype=gram.dtype, device=gram.device)
+    delta = delta_rel * torch.clamp_min(torch.amax(torch.diagonal(gram)),
+                                        1e-30)
+    r, info = torch.linalg.cholesky_ex(gram + delta * eye)
+    return [torch.linalg.solve_triangular(r.to(y.device), y.T,
+                                          upper=False).T for y in ys], info
+
+  for _ in range(2):
+    y1, info = one_pass(ys, 1e-6)
+    bad = group.all_reduce(
+        [(~torch.all(torch.isfinite(y))).to(y.dtype) for y in y1], "max")
+    ok = (info == 0) & (bad == 0)
+    y2, _ = one_pass(ys, 1e-2)
+    ys = [torch.where(ok.to(a.device), a, c) for a, c in zip(y1, y2)]
+  return ys
+
+
+def topk_eigh_subspace_sharded(
+    group,
+    stripes: typing.List[torch.Tensor],
+    k: int,
+    generator: torch.Generator,
+    largest: bool,
+    n_valid=None,
+    num_iters: int = 24,
+    oversample: int = 8,
+    residual_tol: typing.Optional[float] = None,
+    max_iters: int = 384,
+    stats: typing.Optional[dict] = None,
+) -> typing.Tuple[torch.Tensor, typing.List[torch.Tensor]]:
+  """``topk_eigh_subspace_masked`` on an (N, N) matrix held as row stripes.
+
+  ``group`` is a shard group of ``parallel/collectives.py`` and
+  ``stripes`` this process's (N/P, N) stripes, shard r holding rows
+  [r·N/P, (r+1)·N/P). The pad block is rebuilt as exact zeros, and
+  ascending its diagonal is the valid Gershgorin bound + 1, as in the
+  masked solver. Each iteration multiplies every stripe by the
+  all-gathered (N, b) panel and orthonormalizes with an all-reduced Gram
+  (``_cholqr2_sharded``); the Rayleigh–Ritz matrix and the residual norms
+  are all-reduced too, and the residual is read on the host once per
+  chunk, as ``topk_eigh_subspace`` does. The start panel is the full
+  ``start_panel(N, b, generator)``, each shard taking its rows, so any
+  number of shards starts from the same panel. Returns (the k eigenvalues,
+  replicated; this process's stripes of the (N, k) eigenvectors). A
+  ``stats`` dict receives "iters" and the final "residual".
+  """
+  n = stripes[0].shape[1]
+  m = n // group.size
+  offsets = [s * m for s in group.shards]
+  dtype = stripes[0].dtype
+
+  def rows(i, dev):
+    return torch.arange(offsets[i], offsets[i] + m, device=dev)
+
+  def diagonal(i, x, values):
+    eye = rows(i, x.device)[:, None] == torch.arange(n, device=x.device)
+    return torch.where(eye, values[:, None], 0.0)
+
+  mats = stripes
+  if n_valid is not None:
+    cols = [torch.arange(n, device=x.device) < n_valid for x in stripes]
+    mats = [torch.where((rows(i, x.device) < n_valid)[:, None] & c[None, :],
+                        x, 0.0) for i, (x, c) in enumerate(zip(stripes,
+                                                                cols))]
+  shift = None
+  if not largest:
+    shift = group.all_reduce(
+        [torch.amax(torch.sum(torch.abs(x), dim=1)) for x in mats], "max")
+    if n_valid is not None:
+      shift = shift + 1.0
+      mats = [x + diagonal(i, x, torch.where(rows(i, x.device) < n_valid,
+                                             0.0, shift.to(x.device)))
+              for i, x in enumerate(mats)]
+
+  def matmul(q):
+    panel = group.all_gather(q)
+    return [torch.matmul(x, panel.to(x.device)) for x in mats]
+
+  def op(q):
+    mq = matmul(q)
+    if largest:
+      return mq
+    return [shift.to(a.device) * a - b for a, b in zip(q, mq)]
+
+  def iterate(q, steps):
+    for _ in range(steps):
+      q = _cholqr2_sharded(group, op(q))
+    return q
+
+  def rayleigh_ritz(q):
+    mq = matmul(q)
+    t = group.all_reduce([a.T @ b for a, b in zip(q, mq)])
+    t = 0.5 * (t + t.T)
+    # float64, as in topk_eigh_subspace.
+    w_small, u_small = torch.linalg.eigh(t.double())
+    w_small, u_small = w_small.to(t.dtype), u_small.to(t.dtype)
+    if largest:
+      w_small, u_small = torch.flip(w_small, (0,)), torch.flip(u_small, (1,))
+    v = [a @ u_small[:, :k].to(a.device) for a in q]
+    sq = group.all_reduce([
+        torch.sum((b @ u_small[:, :k].to(b.device)
+                   - a * w_small[None, :k].to(a.device)) ** 2, dim=0)
+        for a, b in zip(v, mq)])
+    scale = torch.clamp_min(torch.amax(torch.abs(w_small)), 1e-30)
+    return w_small[:k], v, torch.amax(torch.sqrt(sq)) / scale
+
+  b = min(n, k + oversample)
+  panel = start_panel(n, b, generator, dtype, "cpu")
+  q = [panel[o:o + m].to(x.device) for o, x in zip(offsets, stripes)]
+  q = iterate(_cholqr2_sharded(group, q), num_iters)
+  it = num_iters
+  if residual_tol is not None:
+    _, _, res = rayleigh_ritz(q)
+    while float(res) > residual_tol and it < max_iters:
+      q = iterate(q, num_iters)
+      _, _, res = rayleigh_ritz(q)
+      it += num_iters
+  w, v, res = rayleigh_ritz(q)
+  if stats is not None:
+    stats["iters"] = it
+    stats["residual"] = float(res)
   return w, v

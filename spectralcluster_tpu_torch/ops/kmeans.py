@@ -37,23 +37,28 @@ def kmeans_plusplus(
     k_max: int,
     generator: torch.Generator,
     sample_weight: typing.Optional[torch.Tensor] = None,
-    draw_rows: typing.Optional[int] = None) -> torch.Tensor:
+    draw_rows: typing.Optional[int] = None,
+    key: typing.Optional[np.ndarray] = None) -> torch.Tensor:
   """Greedy k-means++ seeding (sklearn-style local trials), seeded.
 
   Selection always uses squared-euclidean potentials, as in the reference,
   where sklearn's k-means++ initializes even custom-distance K-Means. The
   draws are the JAX package's for ``PRNGKey(generator.initial_seed())``
-  (the generator names the seed and is not advanced) over ``draw_rows``
-  rows, by default ``utils.pad_bucket(N)``: the rows of the array the JAX
-  package clusters, which pads to its shape bucket. Rows past N carry zero
-  weight there and are never drawn. Returns (k_max, d) centers.
+  (the generator names the seed and is not advanced), or for ``key``, a
+  raw ``prng`` key that takes its place (a key the JAX caller split off),
+  over ``draw_rows`` rows, by default ``utils.pad_bucket(N)``: the rows of
+  the array the JAX package clusters, which pads to its shape bucket. Rows
+  past N carry zero weight there and are never drawn. Returns (k_max, d)
+  centers.
   """
   n, d = x.shape
   w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
   valid = w > 0
   rows = utils.pad_bucket(n) if draw_rows is None else draw_rows
-  keys = prng.split(prng.key(generator.initial_seed()), k_max + 1)
+  if key is None:
+    key = prng.key(generator.initial_seed())
+  keys = prng.split(key, k_max + 1)
 
   def gumbel(j, shape):
     g = prng.gumbel(keys[j], shape + (rows,))[..., :n]
@@ -80,13 +85,16 @@ def kmeans_plusplus(
 
 
 def _update_centroids(x, labels, w, c):
-  """Weighted segment means; empty clusters keep their centroid."""
+  """Weighted segment means; empty clusters keep their centroid (and make
+  no 0/0 on the way, so ``sanity.debug_nans`` stays quiet)."""
   k_max = c.shape[0]
   onehot = (labels[:, None] == torch.arange(k_max, device=x.device)[None, :])
   onehot = onehot.to(x.dtype) * w[:, None]
   counts = torch.sum(onehot, dim=0)
   sums = torch.matmul(onehot.T, x)
-  return torch.where(counts[:, None] > 0, sums / counts[:, None], c)
+  filled = counts[:, None] > 0
+  return torch.where(filled, sums / torch.where(filled, counts[:, None], 1.0),
+                     c)
 
 
 def lloyd_iterations(
@@ -168,6 +176,7 @@ def kmeans_fit(
     k_max: typing.Optional[int] = None,
     sample_weight: typing.Optional[torch.Tensor] = None,
     draw_rows: typing.Optional[int] = None,
+    key: typing.Optional[np.ndarray] = None,
 ) -> torch.Tensor:
   """Full K-Means: seeded k-means++ init, then Lloyd with the chosen metric.
 
@@ -175,11 +184,13 @@ def kmeans_fit(
   ``custom_dist`` means plain euclidean K-Means with max_iter=300; otherwise
   k-means++ provides the initial centroids for the custom-distance loop.
   ``k_max`` is the centroid count when ``n_clusters`` is a tensor;
-  ``draw_rows`` goes to ``kmeans_plusplus``.
+  ``draw_rows`` and ``key`` go to ``kmeans_plusplus`` (with ``key``,
+  ``generator`` may be None).
   """
   if k_max is None:
     k_max = int(n_clusters)
-  centroids = kmeans_plusplus(x, k_max, generator, sample_weight, draw_rows)
+  centroids = kmeans_plusplus(x, k_max, generator, sample_weight, draw_rows,
+                              key)
   if not custom_dist:
     labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,
                                sample_weight=sample_weight)

@@ -17,8 +17,11 @@ for utterance:
     where the JAX package uses ``PRNGKey(seed + i)``; through ``prng.py``
     the draws are the JAX package's own;
   * the batch axis is padded to a multiple of the mesh's ``batch`` size and
-    shard k runs on ``mesh.devices[k, 0]``; the JAX package's padding
-    utterances are discarded there, so the port does not compute them;
+    shard k runs on ``mesh.devices[k, 0]`` (``mesh.batch_sharding``): the
+    drivers use column 0 only, as the JAX package's DP driver shards only
+    the ``batch`` axis (the row-sharded path, ``sharded.py``, uses the
+    ``model`` line); the JAX package's padding utterances are discarded
+    there, so the port does not compute them;
   * constraint matrices are zero-padded to (n_pad, n_pad) per utterance.
 
 Kernels 1-4 keep their 2-D wrappers, so each launches once per utterance
@@ -38,14 +41,6 @@ import torch
 from spectralcluster_tpu_torch import pipeline as pipeline_lib
 from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
 from spectralcluster_tpu_torch.precision import fp32_precision
-
-
-def _shard_devices(mesh: mesh_lib.Mesh, count: int) -> typing.List:
-  """The device of each of ``count`` utterances: the batch axis padded to a
-  multiple of dp, shard k on ``mesh.devices[k, 0]``."""
-  dp = mesh.shape["batch"]
-  per_shard = -(-count // dp)
-  return [mesh.devices[j // per_shard, 0] for j in range(count)]
 
 
 def _padded_constraint(cm, n_pad: int) -> np.ndarray:
@@ -162,7 +157,7 @@ def _drive(utterances, cfg, mesh, seed, chunk, window, constraint_matrices,
   fetch a chunk's labels ``window`` chunks after it was clustered."""
   b = len(utterances)
   lengths = [np.asarray(u).shape[0] for u in utterances]
-  devices = _shard_devices(mesh, chunk)
+  devices = mesh_lib.batch_sharding(mesh, chunk)
   copy_streams = {}
   staged, computed = collections.deque(), collections.deque()
   out: typing.List[np.ndarray] = []
@@ -305,7 +300,8 @@ def cluster_batch_autotuned(
   d = np.asarray(utterances[0]).shape[1]
   k_cap = max(cfg.max_clusters, cfg.min_clusters or 0)
   out = []
-  for i, (u, dev) in enumerate(zip(utterances, _shard_devices(mesh, b))):
+  devices = mesh_lib.batch_sharding(mesh, b)
+  for i, (u, dev) in enumerate(zip(utterances, devices)):
     x = np.zeros((n_pad, d), dtype=np.float32)
     x[:lengths[i]] = u
     x = torch.from_numpy(x).to(dev)

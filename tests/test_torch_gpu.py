@@ -23,6 +23,7 @@ from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import dc
 from spectralcluster_tpu_torch.parallel import batch
 from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
+from spectralcluster_tpu_torch.parallel import sharded
 from spectralcluster_tpu_torch.types import Deflicker, EigenSolver
 
 pytestmark = pytest.mark.gpu
@@ -282,3 +283,28 @@ def test_cluster_batch_streamed_card_matches_serial(cuda):
     np.testing.assert_array_equal(s, r)
     np.testing.assert_array_equal(utils.enforce_ordered_labels(s),
                                   utils.enforce_ordered_labels(h))
+
+
+@pytest.mark.parametrize("n,use_ring", [(512, False), (509, True)])
+def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
+  # Four in-process shards on the card against four on the CPU (509: 3 pad
+  # rows): the same labels, the reference's at 512, and no kernel launch.
+  cfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300)
+  x = make_embeddings(512)[:n]
+  fused.reset_launch_counts()
+  got, got_n = sharded.cluster_large_sharded(
+      x, cfg, mesh_lib.make_mesh(dp=1, mp=4, devices=[cuda] * 4),
+      use_ring_affinity=use_ring)
+  assert not any(fused.launch_counts().values())
+  want, want_n = sharded.cluster_large_sharded(
+      x, cfg, mesh_lib.make_mesh(dp=1, mp=4,
+                                 devices=[torch.device("cpu")] * 4),
+      use_ring_affinity=use_ring)
+  assert got_n == want_n == 2
+  ref = np.load(os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), "benchmarks", "reference_labels.npz"))
+  for labels in (got, want):
+    np.testing.assert_array_equal(utils.enforce_ordered_labels(labels),
+                                  ref["labels_512"][:n])
