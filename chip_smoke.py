@@ -29,9 +29,15 @@ result line):
   3b. the exact top-k route's parts, each alone, on the icassp2018 Auto
      operand at N=10240 and 20480: the certified route (accepted or
      declined, its iterations, res, scale, est_next against w_t), the
-     completeness probe, the full eigh, and at 10240 the forced decline
-     (try_iterative_first=False: full eigh + residual), whose eigenvalues
-     must be within 2e-4·scale of the certified route's;
+     completeness probe, the full eigh (the yardstick), and the sign-chain
+     split: at 10240 forced (try_iterative_first=False) at "highest" (IEEE
+     float32) and at "high" (3×TF32), its eigenvalues within 2e-4·scale of
+     the certified route's; at 20480 the natural decline, its eigenvalues
+     within 2e-4·scale of the full eigh's top t. Each split prints its
+     levels (branch, k_f, k_pad, k_eff, residuals), the host seconds of
+     prep, each sign step (with its TFLOP/s against the card's float32 and
+     TF32 peaks), projection, Ritz and remainder, and its peak memory
+     beside the predicted one;
   4. paths — make_icassp2018_clusterer(...).predict on make_embeddings(N),
      labels held against benchmarks/reference_labels.npz at N=512, 2048 and
      the leg's N, with launch counts zeroed after the cold run and read
@@ -42,12 +48,13 @@ result line):
          similarity transform there). Auto runs the exact top-k route
          (ops/dc.py, stage staged_dc); each Auto leg prints the route its
          dc solve took and fails on a certified residual above 1e-5;
-       * Auto at N=20480 (labels_20480), and at N=10240 on
-         make_embeddings_k(N, k) for k=4 and k=7
+       * Auto at N=20480 (labels_20480; its dc route must decline to the
+         split), and at N=10240 on make_embeddings_k(N, k) for k=4 and k=7
          (benchmarks/reference_labels_multi.npz), one cold run and one
-         warm; then Auto at N=10240 with the dc route forced to decline:
-         the same labels, eigenvalues within 2e-4·scale of the certified
-         leg's;
+         warm; then Auto at N=10240 with the dc route forced to decline,
+         on make_embeddings(N) and make_embeddings_k(N, 4): the split
+         only, the same labels, eigenvalues within 2e-4·scale of the
+         certified legs';
        * HostGeneral at N=4096 (one cold run, one warm): all five kernels;
          its host LAPACK eig is reported apart from the device stages. N is
          cut from 10240 because the float64 general eig is O(N^3) on the
@@ -118,7 +125,7 @@ result line):
      around one run at N=2048; (e) no kernel launches in the phase. Each
      run prints n_clusters, subspace iterations, the final residual, the
      peak memory and the host seconds per stage, card synced.
-  Each phase prints the seconds elapsed at its end. Together about 8-9
+  Each phase prints the seconds elapsed at its end. Together about 10
   minutes on one H100, most of it the host eig, the host side of the
   streams and the streamed batch (Lloyd's rounds, each read on the host).
 
@@ -175,12 +182,13 @@ N_NAN_TRAP = 2048
 SHARDED_EIG_RTOL = 1e-3
 OPERAND_RTOL = 1e-5            # the stripes' operand after Diffuse, of max|m|
 
-# (HBM bytes/s, float32 FLOP/s on the CUDA cores), NVIDIA data sheets.
+# (HBM bytes/s, float32 FLOP/s on the CUDA cores, dense TF32 FLOP/s on the
+# tensor cores), NVIDIA data sheets.
 _PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H200", 4.8e12, 67e12),
-    ("H100", 3.35e12, 67e12),   # SXM: "NVIDIA H100 80GB HBM3"
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 418e12),
+    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100", 3.35e12, 67e12, 495e12),   # SXM: "NVIDIA H100 80GB HBM3"
 )
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -191,9 +199,9 @@ def log(*a):
 
 
 def card_peaks(name: str):
-  for key, bw, flops in _PEAKS:
+  for key, *peaks in _PEAKS:
     if key in name:
-      return bw, flops
+      return peaks
   raise RuntimeError(f"no data-sheet peaks for card {name!r}")
 
 
@@ -444,10 +452,11 @@ def main() -> int:
       capture_output=True, text=True, check=True).stdout.strip().splitlines()
   kind = torch.cuda.get_device_name(0)
   count = torch.cuda.device_count()
-  bw, fp32 = card_peaks(kind)
+  bw, fp32, tf32 = card_peaks(kind)
   results["device"] = {"nvidia_smi": smi, "kind": kind, "count": count,
                        "torch": torch.__version__, "cuda": torch.version.cuda,
-                       "peak_bytes_per_s": bw, "peak_fp32_flops": fp32}
+                       "peak_bytes_per_s": bw, "peak_fp32_flops": fp32,
+                       "peak_tf32_flops": tf32}
   log(json.dumps({"phase": "device", **results["device"]}))
 
   # 2. Build.
@@ -657,7 +666,52 @@ def main() -> int:
   def dc_generator():
     return torch.Generator().manual_seed(pipeline._DC_SEED)
 
-  def dc_breakdown(m, n, forced_decline):
+  # Float32 (N, N) buffers the split holds at its peak, the operand m
+  # included: at "high" the quintic step's product x·poly (x, poly, the
+  # product and both operands' TF32 halves); else the symmetrization of a
+  # step's product (x, the product, its sum with its transpose, the half).
+  def split_buffers(precision):
+    return 8 if precision == "high" else 5
+
+  def split_row(info, n, precision, seconds, res, scale):
+    """The split's levels: branch, sizes, residuals, host seconds per stage
+    and each sign step's ms and TFLOP/s (3 products of 2n³ per quintic
+    step, 2 per cubic one; "high" runs each as three TF32 products)."""
+    levels = []
+    for lv in info["levels"]:
+      steps = []
+      for kind, s in zip(lv.get("sign_steps", ()),
+                         lv["seconds"].get("sign_steps", ())):
+        flops = (3 if kind == "quintic" else 2) * 2.0 * lv["n"] ** 3
+        step = {"kind": kind, "ms": s * 1e3, "tflops": flops / s / 1e12}
+        if precision == "highest":
+          step["share_of_fp32_peak"] = flops / s / fp32
+        else:
+          passes = 3 if precision == "high" else 1
+          step["tf32_tflops"] = passes * flops / s / 1e12
+          step["share_of_tf32_peak"] = passes * flops / s / tf32
+        steps.append(step)
+      stages = {k: v for k, v in lv["seconds"].items() if k != "sign_steps"}
+      stages["sign_chain"] = sum(lv["seconds"].get("sign_steps", ()))
+      levels.append({**{k: v for k, v in lv.items() if k != "seconds"},
+                     "seconds": stages, "steps": steps})
+    return {"precision": precision, "seconds": seconds, "res": res,
+            "scale": scale, "levels": levels,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "predicted_peak_mem_gb": split_buffers(precision) * n * n * 4 / 1e9}
+
+  def run_split(m, n, **kw):
+    torch.cuda.reset_peak_memory_stats()
+    info = {}
+    seconds, (w, _, res, scale) = host_s(lambda: dc_ops.eigh_topk_dc(
+        m, t_dc, dc_generator(), max_block=cfg.dc_max_block, info=info,
+        _n_bucket=utils.pad_bucket(n), **kw))
+    if info["route"] != "split":
+      raise SystemExit(f"dc at N={n} {kw}: took {info['route']}, not the "
+                       "split")
+    return w, split_row(info, n, info["sign_precision"], seconds, res, scale)
+
+  def dc_breakdown(m, n, forced_split):
     row = {"phase": "dc_breakdown", "n": n}
     runs = []
     for _ in range(DC_REPS):
@@ -683,30 +737,44 @@ def main() -> int:
     row["probe"] = {"seconds": statistics.median(p[0] for p in probe_runs),
                     "est_next": probe_runs[-1][1][0],
                     "norm_lo": probe_runs[-1][1][1]}
-    if forced_decline:
-      info = {}
-      seconds, (w, _, res, scale) = host_s(lambda: dc_ops.eigh_topk_dc(
-          m, t_dc, dc_generator(), max_block=0, try_iterative_first=False,
-          info=info))
-      row["forced_decline"] = {"route": info["route"], "res": res,
-                               "scale": scale, "seconds": seconds}
-      if out is not None:
-        err = float(torch.max(torch.abs(w - out[0])))
-        row["forced_decline"]["max_abs_diff_vs_certified"] = err
+    if forced_split:
+      # The split alone at both precisions, held to the certified route.
+      if out is None:
+        raise SystemExit(f"dc route at N={n}: the certified route declined")
+      row["split"] = []
+      for precision in ("highest", "high"):
+        w, split = run_split(m, n, try_iterative_first=False,
+                             sign_precision=precision)
+        split["max_abs_diff_vs_certified"] = err = float(
+            torch.max(torch.abs(w - out[0])))
+        row["split"].append(split)
+        log(json.dumps({"phase": "dc_split", "n": n, **split}))
         if not err <= 2e-4 * out[3]:
-          raise SystemExit(f"forced decline at N={n}: eigenvalues differ "
+          raise SystemExit(f"split at N={n}, {precision}: eigenvalues differ "
                            f"from the certified route's by {err}")
-    log(json.dumps(row))
+    else:
+      # The natural decline (the certified route declines first), held to
+      # the full eigh's top t.
+      w, split = run_split(m, n)
+      split["max_abs_diff_vs_eigh"] = err = float(
+          torch.max(torch.abs(w - w_top)))
+      row["split"] = [split]
+      log(json.dumps({"phase": "dc_split", "n": n, **split}))
+      if not err <= 2e-4 * split["scale"]:
+        raise SystemExit(f"split at N={n}: eigenvalues differ from the "
+                         f"full eigh's by {err}")
+    del w_top, u_top
+    log(json.dumps({k: v for k, v in row.items() if k != "split"}))
     return row
 
-  results["dc_breakdown"] = [dc_breakdown(m, N_MAIN, forced_decline=True)]
+  results["dc_breakdown"] = [dc_breakdown(m, N_MAIN, forced_split=True)]
   del m
   aff = fused.affinity(torch.as_tensor(make_embeddings(N_BIG, D_MAIN)).to(dev))
   m, _ = pipeline._symmetric_eig_operand(aff, cfg, None, None,
                                          ref_ops.ROWNORM_TAIL,
                                          consume_input=True)
   del aff
-  results["dc_breakdown"].append(dc_breakdown(m, N_BIG, forced_decline=False))
+  results["dc_breakdown"].append(dc_breakdown(m, N_BIG, forced_split=False))
   del m
   torch.cuda.empty_cache()
   mark("dc_breakdown")
@@ -825,17 +893,27 @@ def main() -> int:
   runs["Auto_forced_decline"] = drive(
       "Auto_forced_decline", auto, N_MAIN, 1, main_kernels, small_sizes=(),
       solver="Auto", forced="try_iterative_first=False")
+  emb, _ = make_embeddings_k(N_MAIN, 4, D_MAIN)
+  runs["Auto_k4_forced_decline"] = drive(
+      "Auto_k4_forced_decline", auto, N_MAIN, 1, main_kernels, emb=emb,
+      want=ref_multi[f"labels_{N_MAIN}_k4"], small_sizes=(), solver="Auto",
+      fixture="make_embeddings_k(N, k=4)", forced="try_iterative_first=False")
   dc_force["decline"] = False
-  forced = runs["Auto_forced_decline"]
-  if set(forced["dc_routes"]) != {"full_eigh"}:
-    raise SystemExit(f"forced decline took {forced['dc_routes']}")
-  scale = runs["Auto"]["dc"]["scale"]
-  err = float(np.max(np.abs(np.subtract(forced["eigenvalues"],
-                                        runs["Auto"]["eigenvalues"]))))
-  forced["max_abs_diff_vs_auto"] = err
-  if not err <= 2e-4 * scale:
-    raise SystemExit(f"forced decline: eigenvalues differ from the Auto "
-                     f"leg's by {err} (scale {scale})")
+  if set(runs["Auto_20480"]["dc_routes"]) != {"split"}:
+    raise SystemExit(f"Auto_20480 took {runs['Auto_20480']['dc_routes']}, "
+                     "not the split")
+  for leg, certified in (("Auto_forced_decline", "Auto"),
+                         ("Auto_k4_forced_decline", "Auto_k4")):
+    forced = runs[leg]
+    if set(forced["dc_routes"]) != {"split"}:
+      raise SystemExit(f"{leg} took {forced['dc_routes']}")
+    scale = runs[certified]["dc"]["scale"]
+    err = float(np.max(np.abs(np.subtract(forced["eigenvalues"],
+                                          runs[certified]["eigenvalues"]))))
+    forced["max_abs_diff_vs_certified_leg"] = err
+    if not err <= 2e-4 * scale:
+      raise SystemExit(f"{leg}: eigenvalues differ from the {certified} "
+                       f"leg's by {err} (scale {scale})")
 
   mark("paths")
 

@@ -123,9 +123,10 @@ class PipelineConfig:
 
   ``use_kernels`` is the JAX ``use_pallas``: route the refinement hot path
   (all five kernels of kernels/fused.py) through the wrappers.
-  ``dc_sign_precision`` is the JAX sign chain's precision; the port's
-  ``ops/dc.py`` has no sign chain and reads it nowhere. ``matmul_precision``
-  must stay "highest": the port runs every product in IEEE float32.
+  ``dc_sign_precision`` is the precision of ``ops/dc.py``'s sign-chain
+  products ("highest", "high" or "default"; None: its default, "high").
+  ``matmul_precision`` must stay "highest": every other product runs in
+  IEEE float32.
   """
   refinement_options: RefinementOptions = RefinementOptions()
   constraint_options: typing.Optional[ConstraintOptions] = None
@@ -284,14 +285,16 @@ def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
   eigenpairs, then ``_warn_near_stop`` on a descending scan. Returns (w, u,
   wscale), wscale being the solver's norm estimate as a 0-dim tensor.
 
-  The JAX executor hands the solver its bucket-padded m, which is past
-  dc_max_block here; the port's m is unpadded and may not be, so the
-  solver's dense branch is closed (max_block=0).
+  The JAX executor hands the solver its bucket-padded m; the port's m is
+  unpadded, so the solver is told the bucket (``_n_bucket``), which decides
+  its dense branch and its sign chain's schedule as JAX's size does, while
+  ``dc_max_block`` bounds its recursion's blocks.
   """
   w, u, res, wscale = dc_ops.eigh_topk_dc(
       m, cfg.max_clusters + 1, torch.Generator().manual_seed(_DC_SEED),
       descend=descend, n_valid=None if n_valid is None else int(n_valid),
-      max_block=0, sign_precision=cfg.dc_sign_precision)
+      max_block=cfg.dc_max_block, sign_precision=cfg.dc_sign_precision,
+      _n_bucket=pad_bucket(m.shape[0]))
   if descend:
     _warn_near_stop(w.cpu().numpy(), res, wscale, cfg, "spectral D&C top-k")
   return w, u, torch.tensor(wscale, dtype=m.dtype, device=m.device)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from spectralcluster_tpu_torch import (configs, constraint, pipeline,
-                                       streaming, utils)
+                                       precision, streaming, utils)
 from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.constraint import ConstraintMatrix
 from spectralcluster_tpu_torch.fixtures import (make_embeddings, make_stream,
@@ -175,8 +175,8 @@ def test_e2cp_card_matches_cpu(cuda, alpha):
 @pytest.mark.parametrize("try_iterative_first", [None, False])
 def test_eigh_topk_dc_card_matches_cpu(cuda, try_iterative_first):
   # A dominant spectrum over a quasi-degenerate bulk: the certified route
-  # (or, forced off, the full eigh) on the card and on the CPU, from the
-  # same CPU-drawn start panels. Eigenvalues within 2e-4·scale.
+  # (or, forced off, the sign-chain split) on the card and on the CPU, from
+  # the same CPU-drawn start panels. Eigenvalues within 2e-4·scale.
   rng = np.random.RandomState(0)
   n = 1024
   q, _ = np.linalg.qr(rng.randn(n, n))
@@ -192,9 +192,64 @@ def test_eigh_topk_dc_card_matches_cpu(cuda, try_iterative_first):
     out[str(device)] = (w.cpu().numpy(), res, scale, info["route"])
   (w_cpu, res_cpu, scale_cpu, route_cpu), (w_gpu, res_gpu, _, route_gpu) = (
       out.values())
-  assert route_cpu == route_gpu == ("full_eigh" if try_iterative_first is
+  assert route_cpu == route_gpu == ("split" if try_iterative_first is
                                     False else "certified")
   assert res_gpu <= 1e-5 and res_cpu <= 1e-5
+  np.testing.assert_allclose(w_gpu, w_cpu, atol=2e-4 * scale_cpu)
+
+
+def _rel_err(c, exact):
+  return float(torch.amax(torch.abs(c.double() - exact))
+               / torch.amax(torch.abs(exact)))
+
+
+def test_three_tf32_products_are_float32_accurate(cuda):
+  # precision.matmul's "high" (3×TF32, the card's counterpart of XLA's
+  # 3-pass bf16) against float64, as max error over max|C|: within a few
+  # times IEEE float32's own (itself far inside the K·2^-24 ≈ 1.2e-4 bound
+  # of K=2048 terms), and well below one TF32 product's ("default", ~2^-11
+  # per operand).
+  gen = torch.Generator(cuda).manual_seed(0)
+  a = torch.randn((2048, 2048), generator=gen, device=cuda)
+  b = torch.randn((2048, 2048), generator=gen, device=cuda)
+  exact = a.double() @ b.double()
+  err = {p: _rel_err(precision.matmul(a, b, p), exact)
+         for p in precision.PRECISIONS}
+  assert err["highest"] < 1e-5, err
+  assert err["high"] < 5 * err["highest"], err
+  assert err["high"] * 20 < err["default"], err
+  assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _split_operand(n=1024):
+  rng = np.random.RandomState(0)
+  q, _ = np.linalg.qr(rng.randn(n, n))
+  eigs = np.concatenate([[260.0, 250.0], rng.randn(n - 2) * 0.5])
+  return torch.as_tensor(((q * eigs[None, :]) @ q.T).astype(np.float32))
+
+
+def test_split_card_matches_cpu(cuda):
+  # The sign-chain split at N=1024, max_block=128 (so its blocks recurse),
+  # at its default precision ("high": 3×TF32 on the card, IEEE float32 on
+  # the CPU): the same branch at every level, eigenvalues within
+  # 2e-4·scale, and the caller's TF32 flags as they were.
+  a = _split_operand()
+  flags = (torch.backends.cuda.matmul.allow_tf32,
+           torch.get_float32_matmul_precision())
+  out = {}
+  for device in ("cpu", cuda):
+    info = {}
+    w, _, res, scale = dc.eigh_topk_dc(
+        a.to(device), 8, torch.Generator().manual_seed(17), max_block=128,
+        try_iterative_first=False, info=info)
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision()) == flags
+    out[str(device)] = (w.cpu().numpy(), res, scale,
+                        [(lv["depth"], lv["branch"]) for lv in info["levels"]])
+  (w_cpu, res_cpu, scale_cpu, br_cpu), (w_gpu, res_gpu, _, br_gpu) = (
+      out.values())
+  assert br_cpu == br_gpu and br_cpu
+  assert res_gpu <= 1e-3 and res_cpu <= 1e-3
   np.testing.assert_allclose(w_gpu, w_cpu, atol=2e-4 * scale_cpu)
 
 
