@@ -18,7 +18,11 @@ result line):
      N=1000 with n_valid=937 on a matrix with negative entries; kernels 2-5
      must agree bit for bit, the affinity within rtol=1e-5, atol=1e-6 (its
      float32 sums run in another order) and equal to its transpose bit for
-     bit. Then times (CUDA events around 10 calls back to back behind one
+     bit. The batched forms of kernels 1-4 (the batched step's vmap) the
+     same way at the batch path's B=16, N=1024 (d=256) and on a ragged
+     batch of five N=1000 matrices with n_valid (1000, 937, 1, 500, 1000)
+     read on the card; each affinity of a batch must also equal the 2-D
+     kernel's bit for bit. Then times (CUDA events around 10 calls back to back behind one
      untimed call, median of 20 such means after warm-up) of each kernel,
      its twin and a one-call library yardstick where one exists (the
      affinity's `addmm` timed with the row normalization, as the kernel's
@@ -89,26 +93,32 @@ result line):
   7. batch — parallel/batch.py at the JAX batch bench's shape
      (benchmarks/bench_batch.py: make_batch(16), N=1024, d=256, 2-4
      block-ordered speakers; icassp2018, min 2 / max 7, cosine, max_iter
-     300, Auto): cluster_batch once cold and BATCH_WARM_RUNS warm, labels
-     held against tests/data/reference_batch.npz (the JAX package's
-     cluster_batch, recorded by tools/record_batch_reference.py) after
-     enforce_ordered_labels, with id-for-id equality and gt_match
-     reported; kernels 1-4 must launch 16/32/16/16 times per warm call.
-     Then the loop's stages alone per utterance (affinity and refinement,
-     eigh, K-Means), card synced around each. Then cluster_batch_streamed
-     over make_batch(STREAMED_BATCH) with chunk=64, window=4 in float32:
-     its first two chunks must equal cluster_batch on those chunks with
-     seed=lo, its first 16 the reference; gt_match, utterances/s and, from
-     a torch.profiler trace (card activity only) of one more full chunk,
-     the device's idle share, with the trace's stop and summary timed
-     apart; then one bf16-transfer pass
-     over the first STREAMED_BF16 utterances (gt_match printed beside the
-     float32 one, ungated). Then cluster_batch_autotuned with the Turn-to-Diarize
+     300, Auto), one batched step per chunk: cluster_batch once cold and
+     BATCH_WARM_RUNS warm, labels held id for id against
+     tests/data/reference_batch.npz (the JAX package's cluster_batch,
+     recorded by tools/record_batch_reference.py), gt_match reported; the
+     batched kernels 1-4 must launch 1/2/1/1 times per chunk and the 2-D
+     ones not at all; peak memory beside PEAK_BUFFERS (B, N, N) buffers.
+     Then the batched step's stages alone (prep: affinity, refinement,
+     operand; the batched eigh; finish: eigengap and K-Means), card
+     synced around each, labels equal to the batch's; its Lloyd loop once
+     more under torch.cuda.set_sync_debug_mode("error") with no stop check
+     (no host read in any round), equal to the checked loop, and each
+     utterance's rounds. Then cluster_batch_streamed over
+     make_batch(STREAMED_BATCH) with chunk=64, window=4 in float32: its
+     first two chunks must equal cluster_batch on those chunks with
+     seed=lo, its first 16 the reference id for id; launches 1/2/1/1 per
+     chunk; gt_match, utterances/s, peak memory and, from a
+     torch.profiler trace (card activity only) of one more full chunk,
+     the device's idle share and its largest kernels, with the trace's
+     stop and summary timed apart; then one bf16-transfer pass over the
+     first STREAMED_BF16 utterances (gt_match printed beside the float32
+     one, ungated). Then cluster_batch_autotuned with the Turn-to-Diarize
      template on 4 x make_t2d_fixture(1024) with its constraints: labels
-     held against the reference file; kernel 4 (T2D form) must launch once
-     per AutoTune candidate per utterance; equality with
-     benchmarks/reference_labels_t2d.npz and with the port's
-     SpectralClusterer is printed, ungated.
+     held id for id against the reference file; each AutoTune level is one
+     (4, 11) batched call, so the affinity and kernel 4 (T2D form) launch
+     once per level; equality with benchmarks/reference_labels_t2d.npz
+     and with the port's SpectralClusterer is printed, ungated.
   8. sharded — parallel/sharded.py's cluster_large_sharded on
      make_embeddings(20480) with the icassp2018 PipelineConfig (min 2 /
      max 7, cosine, max_iter 300): (a) initialize_distributed joins an NCCL
@@ -126,8 +136,8 @@ result line):
      run prints n_clusters, subspace iterations, the final residual, the
      peak memory and the host seconds per stage, card synced.
   Each phase prints the seconds elapsed at its end. Together about 10
-  minutes on one H100, most of it the host eig, the host side of the
-  streams and the streamed batch (Lloyd's rounds, each read on the host).
+  minutes on one H100, most of it the host eig and the host side of the
+  streams.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -171,6 +181,12 @@ BATCH_WARM_RUNS = 3
 STREAMED_BATCH = 1024          # BASELINE.md's 1024-utterance scale
 STREAMED_CHUNK, STREAMED_WINDOW = 64, 4
 STREAMED_BF16 = 256            # the bf16-transfer pass: its first utterances
+NV_BATCH_RAGGED = (1000, 937, 1, 500, 1000)   # the ragged batch's n_valid
+# The batched step's predicted peak memory, in (B, N, N) float32 buffers
+# alive at once: the affinity, the blur's two sums and the gather it adds
+# to, the thresholded matrix, the Diffuse product, the eigen operand and
+# eigh's eigenvectors and workspace.
+PEAK_BUFFERS = 8
 T2D_BATCH = 4
 AHC_ROWS = 600                 # the stream's U2: the largest pre-cluster
 SHARDS = 4                     # in-process shards of the row-sharded phase
@@ -417,7 +433,7 @@ def main() -> int:
   from spectralcluster_tpu_torch import ahc
   from spectralcluster_tpu_torch import clusterer as clusterer_lib
   from spectralcluster_tpu_torch import (configs, constraint, observability,
-                                         pipeline, streaming, utils)
+                                         pipeline, prng, streaming, utils)
   from spectralcluster_tpu_torch.fixtures import (make_batch,
                                                   make_embeddings,
                                                   make_embeddings_k,
@@ -428,8 +444,11 @@ def main() -> int:
   from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
   from spectralcluster_tpu_torch.kernels import build
   from spectralcluster_tpu_torch.kernels import fused
+  from spectralcluster_tpu_torch.ops import affinity as affinity_ops
   from spectralcluster_tpu_torch.ops import dc as dc_ops
   from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+  from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
+  from spectralcluster_tpu_torch.precision import fp32_precision
   from spectralcluster_tpu_torch.ops.kmeans import run_kmeans
   from spectralcluster_tpu_torch.ops import quantile as quantile_ops
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
@@ -496,15 +515,16 @@ def main() -> int:
       rng.randn(N_RAGGED, 100).astype(np.float32)).to(dev)
 
   def t2d_thresholds(mat, n_valid=None, p=0.85):
-    """The T2D path's Percentile thresholds (preserve_diagonal)."""
-    eye = torch.eye(mat.shape[0], dtype=torch.bool, device=dev)
+    """The T2D path's Percentile thresholds (preserve_diagonal), of a
+    matrix or a batch."""
+    eye = torch.eye(mat.shape[-1], dtype=torch.bool, device=dev)
     a = torch.where(eye, 0.0, mat)
     if n_valid is None:
       q = quantile_ops.quantile_from_sorted(quantile_ops.sort_rows(a), p)
     else:
       q = quantile_ops.quantile_from_sorted_masked(
           quantile_ops.sort_rows_masked(a, n_valid), p, n_valid)
-    return q[:, None].contiguous()
+    return q[..., None].contiguous()
 
   checks = []
 
@@ -564,6 +584,59 @@ def main() -> int:
   check("row_wise_normalize", f"N={N_RAGGED},n_valid={NV_RAGGED}",
         fused.row_wise_normalize(ragged, NV_RAGGED),
         fused.row_wise_normalize_plain(ragged, NV_RAGGED), True)
+  # The batched forms (kernels 1-4 under the batched step's vmap), at the
+  # batch path's (BATCH, N_BATCH) on its own inputs, and on a ragged batch
+  # whose n_valid the kernels read on the card.
+  x_b = torch.as_tensor(np.stack(make_batch(BATCH, N_BATCH, D_MAIN)[0])).to(
+      dev)
+  aff_b = fused.affinity_batched(x_b)
+  blurred_b = ref_ops.gaussian_blur(fused.crop_diagonal_plain(aff_b),
+                                    1.0).contiguous()
+  ragged_b = torch.as_tensor(rng.randn(len(NV_BATCH_RAGGED), N_RAGGED,
+                                       N_RAGGED).astype(np.float32)
+                             - 0.5).to(dev)
+  nv_b = torch.tensor(NV_BATCH_RAGGED, dtype=torch.int32, device=dev)
+  x_b_ragged = torch.as_tensor(rng.randn(len(NV_BATCH_RAGGED), N_RAGGED,
+                                         100).astype(np.float32)).to(dev)
+  batch_case = f"B={BATCH},N={N_BATCH}"
+  ragged_case = (f"B={len(NV_BATCH_RAGGED)},N={N_RAGGED},"
+                 f"n_valid={NV_BATCH_RAGGED}")
+  check("affinity_batched", f"{batch_case},d={D_MAIN}", aff_b,
+        fused.affinity_plain(x_b), False)
+  check("affinity_batched", f"{batch_case},against its transpose", aff_b,
+        aff_b.transpose(1, 2), True)
+  aff_b_ragged = fused.affinity_batched(x_b_ragged)
+  check("affinity_batched", f"B={len(NV_BATCH_RAGGED)},N={N_RAGGED},d=100",
+        aff_b_ragged, fused.affinity_plain(x_b_ragged), False)
+  check("affinity_batched", "each utterance against the 2-D kernel",
+        aff_b_ragged, torch.stack([fused.affinity(u) for u in x_b_ragged]),
+        True)
+  del aff_b_ragged
+  check("row_max_batched", batch_case, fused.row_max_batched(blurred_b),
+        fused.row_max_plain(blurred_b), True)
+  for excl in (False, True):
+    check("row_max_batched", f"{ragged_case},exclude={excl}",
+          fused.row_max_batched(ragged_b, excl, nv_b),
+          fused.row_max_plain(ragged_b, excl, nv_b), True)
+  check("crop_diagonal_batched", f"{batch_case},in_place",
+        fused.crop_diagonal_batched(aff_b.clone(), inplace=True),
+        fused.crop_diagonal_plain(aff_b), True)
+  for inplace in (False, True):
+    check("crop_diagonal_batched", f"{ragged_case},in_place={inplace}",
+          fused.crop_diagonal_batched(ragged_b.clone(), nv_b, inplace),
+          fused.crop_diagonal_plain(ragged_b, nv_b), True)
+  thr_b = fused.row_max_batched(blurred_b) * P_ROWMAX
+  thr_b_ragged = fused.row_max_batched(ragged_b, n_valid=nv_b) * P_ROWMAX
+  for case, mat, thr, flags in (
+      (f"{batch_case},RowMax/Max", blurred_b, thr_b, {}),
+      (f"{batch_case},T2D", blurred_b, t2d_thresholds(blurred_b), t2d),
+      (f"{ragged_case},RowMax/Max", ragged_b, thr_b_ragged, {}),
+      (f"{ragged_case},T2D", ragged_b, t2d_thresholds(ragged_b, nv_b), t2d)):
+    check("threshold_symmetrize_general_batched", case,
+          fused.threshold_symmetrize_general_batched(mat, thr, 0.01, **flags),
+          fused.threshold_symmetrize_general_plain(mat, thr, 0.01, **flags),
+          True)
+  del ragged_b, x_b_ragged
   failed = [c for c in checks if not c["ok"]]
   if failed:
     raise SystemExit(f"kernel disagrees with its twin: {failed}")
@@ -578,6 +651,13 @@ def main() -> int:
     # The same footing as fused.affinity: the row normalization included.
     xn = fused.normalize_rows(x)
     return torch.addmm(half, xn, xn.T, beta=1.0, alpha=0.5)
+
+  bb, nb = BATCH, N_BATCH
+  crop_scratch_b = aff_b.clone()
+
+  def baddbmm_affinity():
+    xn = fused.normalize_rows(x_b)
+    return torch.baddbmm(half, xn, xn.transpose(1, 2), beta=1.0, alpha=0.5)
 
   timed = {
       # The output is symmetric: the least work is N(N+1)/2 dot products.
@@ -600,6 +680,27 @@ def main() -> int:
           lambda: fused.row_wise_normalize(diffused),
           lambda: fused.row_wise_normalize_plain(diffused), None,
           2 * n * n * 4, 2 * n * n),
+      # The batched forms at the batch path's (BATCH, N_BATCH), per launch.
+      "affinity_batched": (
+          lambda: fused.affinity_batched(x_b),
+          lambda: fused.affinity_plain(x_b), baddbmm_affinity,
+          (bb * nb * D_MAIN + bb * nb * nb) * 4,
+          bb * nb * (nb + 1) * D_MAIN),
+      "row_max_batched": (
+          lambda: fused.row_max_batched(blurred_b),
+          lambda: fused.row_max_plain(blurred_b),
+          lambda: torch.amax(blurred_b, dim=-1, keepdim=True),
+          bb * (nb * nb + nb) * 4, bb * nb * nb),
+      "crop_diagonal_batched": (
+          lambda: fused.crop_diagonal_batched(crop_scratch_b, inplace=True),
+          lambda: fused.crop_diagonal_plain(aff_b), None,
+          bb * (nb * nb + nb) * 4, bb * nb * nb),
+      "threshold_symmetrize_general_batched": (
+          lambda: fused.threshold_symmetrize_general_batched(blurred_b, thr_b,
+                                                             0.01),
+          lambda: fused.threshold_symmetrize_general_plain(blurred_b, thr_b,
+                                                           0.01),
+          None, bb * (2 * nb * nb + nb) * 4, bb * 4 * nb * nb),
   }
   # Why a kernel has no one-call library yardstick.
   no_library = {
@@ -608,6 +709,11 @@ def main() -> int:
       "threshold_symmetrize_general": "no single PyTorch call: thresholding "
                                       "and the symmetrize are several calls",
       "row_wise_normalize": "no single PyTorch call: amax, then a division",
+      "crop_diagonal_batched": "no single PyTorch call: a row max, then a "
+                               "diagonal write",
+      "threshold_symmetrize_general_batched": "no single PyTorch call: "
+                                              "thresholding and the "
+                                              "symmetrize are several calls",
   }
   times = {}
   with torch.no_grad():
@@ -651,6 +757,7 @@ def main() -> int:
   log(json.dumps({"phase": "breakdown_ms", **results["breakdown_ms"]}))
   mark("kernels")
   del crop_scratch, blurred, ragged, aff, sym
+  del x_b, aff_b, blurred_b, crop_scratch_b, thr_b, thr_b_ragged, nv_b
 
   # 3b. The exact top-k route's parts, each alone, on the Auto operand.
   t_dc = cfg.max_clusters + 1
@@ -979,7 +1086,7 @@ def main() -> int:
     host_s[name] = time.perf_counter() - t0
   results["t2d_host_s"] = host_s
   results["e2cp"] = {"alpha": alpha, "rel_residual": float(e2cp_res),
-                     "steps_left_right": list(e2cp_steps),
+                     "steps_left_right": [int(s) for s in e2cp_steps],
                      "step_cap": constraint._neumann_cap(alpha)}
   log(json.dumps({"phase": "t2d_stages", "n": N_MAIN, "e2cp": results["e2cp"],
                   "breakdown_ms": results["t2d_breakdown_ms"],
@@ -1205,7 +1312,8 @@ def main() -> int:
     raise SystemExit("ahc: the native and numpy chains disagree")
   mark("streaming")
 
-  # 7. Batch clustering (parallel/batch.py) at the JAX batch bench's shape.
+  # 7. Batch clustering (parallel/batch.py) at the JAX batch bench's shape:
+  # one batched step per chunk on the card.
   batch_ref = np.load(os.path.join(HERE, "tests", "data",
                                    "reference_batch.npz"))
   mesh = mesh_lib.make_mesh()
@@ -1213,6 +1321,16 @@ def main() -> int:
       refinement_options=configs.icassp2018_refinement_options(),
       min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300,
       eigensolver=EigenSolver.Auto)
+  # Launches of one chunk on one card: each batched kernel once, row_max
+  # twice (CropDiagonal's statistic is in crop_diagonal; the RowMax
+  # threshold and the ROWNORM_TAIL scale are the two row_max launches).
+  per_chunk = {"affinity_batched": 1, "row_max_batched": 2,
+               "crop_diagonal_batched": 1,
+               "threshold_symmetrize_general_batched": 1}
+
+  def expected(chunks, per=None):
+    return {k: (per or per_chunk).get(k, 0) * chunks
+            for k in fused.launch_counts()}
 
   def ordered_equal(got, want):
     return bool(np.array_equal(utils.enforce_ordered_labels(got),
@@ -1222,27 +1340,31 @@ def main() -> int:
     return sum(ordered_equal(p, t) for p, t in zip(preds, truths))
 
   def timed_call(fn):
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0
 
+  def predicted_peak_gb(b):
+    return PEAK_BUFFERS * b * N_BATCH * N_BATCH * 4 / 1e9
+
   utts, truths = make_batch(BATCH, N_BATCH, D_MAIN)
   cold, cold_s = timed_call(lambda: batch_lib.cluster_batch(utts, bcfg, mesh))
   fused.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
   warm_s = []
   for _ in range(BATCH_WARM_RUNS):
     labels_b, seconds = timed_call(
         lambda: batch_lib.cluster_batch(utts, bcfg, mesh))
     warm_s.append(seconds)
   launches = fused.launch_counts()
-  want = {"affinity": BATCH, "row_max": 2 * BATCH, "crop_diagonal": BATCH,
-          "threshold_symmetrize_general": BATCH, "row_wise_normalize": 0}
   per_call = {k: v / BATCH_WARM_RUNS for k, v in launches.items()}
   ref_labels = list(batch_ref["batch_labels"])
   run = {
       "leg": "cluster_batch", "batch": BATCH, "n": N_BATCH, "d": D_MAIN,
-      "mesh": mesh.shape, "parity": all(ordered_equal(a, b) for a, b in
-                                        zip(labels_b, ref_labels)),
+      "mesh": mesh.shape, "chunks_per_call": 1,
+      "parity": all(ordered_equal(a, b) for a, b in
+                    zip(labels_b, ref_labels)),
       "parity_ids": all(np.array_equal(a, b.astype(a.dtype))
                         for a, b in zip(labels_b, ref_labels)),
       "warm_equal_cold": all(np.array_equal(a, b)
@@ -1251,39 +1373,80 @@ def main() -> int:
       "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
       "warm_wall_s_runs": warm_s,
       "utterances_per_s": BATCH / statistics.median(warm_s),
-      "launches": launches, "launches_per_call": per_call,
+      "launches": launches, "launches_per_chunk": per_call,
+      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+      "predicted_peak_mem_gb": predicted_peak_gb(BATCH),
   }
 
-  # The loop's stages alone, per utterance: the staged executor's split of
-  # the same pipeline (prep: affinity and refinement; eigh; finish: the
-  # eigengap and K-Means), the card synced around each stage. Its labels
-  # must be the batch's.
-  stage_timings = observability.StageTimings(dev)
-  split_labels = []
-  for i, u in enumerate(utts):
-    split_labels.append(pipeline.spectral_cluster_fixed_k_staged(
-        torch.as_tensor(u).to(dev), torch.Generator().manual_seed(i), bcfg,
-        n_valid=N_BATCH, timings=stage_timings)[0].cpu().numpy())
+  # The batched step's stages, each card-synced: prep (affinity,
+  # refinement, eigen operand), the batched eigh, finish (snap, eigengap,
+  # K-Means); its labels must be the batch's. Then its Lloyd loop alone
+  # with every host read forbidden between the stop checks, and the
+  # rounds each utterance ran.
+  x_b = torch.as_tensor(np.stack(utts)).to(dev)
+  nv_b = torch.full((BATCH,), N_BATCH, dtype=torch.int32, device=dev)
+  keys_b = np.stack([prng.key(i) for i in range(BATCH)])
+  for _ in range(2):  # a cold pass, then the timed one
+    stage_timings = observability.StageTimings(dev)
+    with fp32_precision():
+      with stage_timings.stage("batched_prep"):
+        m_b, scale_b = pipeline._symmetric_eig_operand(
+            pipeline.prepare_affinity(x_b, bcfg, nv_b), bcfg, None, nv_b,
+            ref_ops.ROWNORM_TAIL, consume_input=True)
+      with stage_timings.stage("batched_eigh"):
+        w_b, u_b = eigen_ops.sorted_eigh(m_b)
+      del m_b
+      with stage_timings.stage("batched_finish"):
+        v_b = eigen_ops.recover_similarity_eigenvectors(u_b, scale_b, nv_b)
+        _, n_gap_b, _ = pipeline._gap(w_b, bcfg, True, nv_b)
+        split_labels, n_cl_b = pipeline._cluster_from_eigs_batched(
+            v_b, n_gap_b, bcfg, keys_b, nv_b, 0.001)
   run["stage_split_s"] = stage_timings.as_dict()
   run["stage_split_labels_equal"] = all(
-      np.array_equal(a, b) for a, b in zip(split_labels, labels_b))
+      np.array_equal(a, b) for a, b in zip(split_labels.cpu().numpy(),
+                                           labels_b))
+  with fp32_precision():
+    emb_b = pipeline.spectral_embeddings_from_eigs(v_b, n_cl_b, 7, False,
+                                                   nv_b)
+    weight_b = torch.ones((BATCH, N_BATCH), device=dev)
+    cents_b = kmeans_ops.kmeans_plusplus_batched(emb_b, 7, keys_b, weight_b)
+    dist_b = affinity_ops.get_batched_distance_fn("cosine")
+    want_lloyd = kmeans_ops.lloyd_iterations_batched(
+        emb_b, cents_b, n_cl_b, dist_b, 300, 0.001, weight_b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+      got_lloyd = kmeans_ops._lloyd(emb_b, cents_b, n_cl_b, dist_b, 300,
+                                    0.001, weight_b, check_every=10 ** 9)
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  run["lloyd_rounds"] = want_lloyd[2].cpu().tolist()
+  run["lloyd_stop_check_rounds"] = kmeans_ops.STOP_CHECK_ROUNDS
+  run["lloyd_without_host_reads_equal"] = all(
+      torch.equal(a, b) for a, b in zip(got_lloyd, want_lloyd))
+  del x_b, u_b, v_b, emb_b, cents_b
   results["batch"] = run
   log(json.dumps({"phase": "batch", **run}))
-  if not run["parity"]:
+  if not run["parity_ids"]:
     raise SystemExit("cluster_batch: labels differ from the JAX package's")
   if not run["stage_split_labels_equal"]:
     raise SystemExit("cluster_batch: the staged split's labels differ")
-  if per_call != want:
-    raise SystemExit(f"cluster_batch: launches per call {per_call}, "
-                     f"expected {want}")
+  if not run["lloyd_without_host_reads_equal"]:
+    raise SystemExit("cluster_batch: Lloyd without host reads differs")
+  if launches != expected(BATCH_WARM_RUNS):
+    raise SystemExit(f"cluster_batch: launches per chunk {per_call}, "
+                     f"expected {per_chunk}")
   mark("batch")
 
   # The streamed driver at the 1024-utterance scale.
   s_utts, s_truths = make_batch(STREAMED_BATCH, N_BATCH, D_MAIN)
   fused.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
   streamed, streamed_s = timed_call(lambda: batch_lib.cluster_batch_streamed(
       s_utts, bcfg, mesh, chunk=STREAMED_CHUNK, window=STREAMED_WINDOW))
   launches = fused.launch_counts()
+  streamed_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+  chunks = -(-STREAMED_BATCH // STREAMED_CHUNK)
   serial = []
   for lo in (0, STREAMED_CHUNK):
     serial.extend(batch_lib.cluster_batch(
@@ -1292,11 +1455,11 @@ def main() -> int:
       s_utts[:STREAMED_BF16], bcfg, mesh, chunk=STREAMED_CHUNK,
       window=STREAMED_WINDOW, transfer_dtype=torch.bfloat16))
   # The device's idle share over one more full chunk, traced: the card's
-  # activity only, which keeps the trace small (Lloyd launches thousands of
-  # small kernels per utterance). The trace's stop and its summary are
-  # timed apart from the traced run.
+  # activity only. The trace's stop and its summary are timed apart from
+  # the traced run.
   from torch.profiler import ProfilerActivity, profile
   prof = profile(activities=[ProfilerActivity.CUDA])
+  torch.cuda.synchronize()
   prof.start()
   t0 = time.perf_counter()
   batch_lib.cluster_batch_streamed(
@@ -1308,25 +1471,31 @@ def main() -> int:
   prof.stop()
   trace_stop_s = time.perf_counter() - t0
   t0 = time.perf_counter()
-  busy_ms = sum(
-      getattr(e, "self_device_time_total",
-              getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-      for e in prof.key_averages()
-      if e.device_type == torch.autograd.DeviceType.CUDA)
+  averages = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+  def device_ms(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+  busy_ms = sum(device_ms(e) for e in averages)
+  top = sorted(averages, key=device_ms, reverse=True)[:8]
   trace_summary_s = time.perf_counter() - t0
   run = {
       "leg": "cluster_batch_streamed", "batch": STREAMED_BATCH,
       "n": N_BATCH, "d": D_MAIN, "chunk": STREAMED_CHUNK,
-      "window": STREAMED_WINDOW, "seconds": streamed_s,
+      "window": STREAMED_WINDOW, "chunks": chunks, "seconds": streamed_s,
       "utterances_per_s": STREAMED_BATCH / streamed_s,
       "gt_match": gt_match(streamed, s_truths),
       "first_two_chunks_equal_serial": all(
           np.array_equal(a, b) for a, b in zip(streamed, serial)),
       "first_batch_equal_reference": all(
-          ordered_equal(a, b) for a, b in zip(streamed, ref_labels)),
+          np.array_equal(a, b.astype(a.dtype))
+          for a, b in zip(streamed, ref_labels)),
       "launches": launches,
-      "launches_per_utterance": {k: v / STREAMED_BATCH
-                                 for k, v in launches.items()},
+      "launches_per_chunk": {k: v / chunks for k, v in launches.items()},
+      "peak_mem_gb": streamed_peak_gb,
+      "predicted_peak_mem_gb": predicted_peak_gb(STREAMED_CHUNK),
       "bf16_transfer": {
           "batch": STREAMED_BF16, "seconds": half_s,
           "utterances_per_s": STREAMED_BF16 / half_s,
@@ -1339,6 +1508,7 @@ def main() -> int:
                    "window": STREAMED_WINDOW, "wall_ms": wall_ms,
                    "device_busy_ms": busy_ms,
                    "device_idle_share": 1.0 - busy_ms / wall_ms,
+                   "top_device_ms": {e.key[:80]: device_ms(e) for e in top},
                    "trace_stop_s": trace_stop_s,
                    "trace_summary_s": trace_summary_s},
   }
@@ -1348,13 +1518,14 @@ def main() -> int:
           and run["first_batch_equal_reference"]):
     raise SystemExit("cluster_batch_streamed: labels differ from the serial "
                      "chunked loop or the reference")
-  idle = [k for k in main_kernels if launches[k] != STREAMED_BATCH
-          * want[k] // BATCH]
-  if idle:
-    raise SystemExit(f"cluster_batch_streamed: launches {launches}")
+  if launches != expected(chunks):
+    raise SystemExit(f"cluster_batch_streamed: launches {launches}, "
+                     f"expected {expected(chunks)}")
   mark("batch_streamed")
 
-  # A constrained, auto-tuned batch: the Turn-to-Diarize template.
+  # A constrained, auto-tuned batch: the Turn-to-Diarize template. Each
+  # AutoTune level is one (B, C) batched step: the affinity and kernel 4
+  # launch once per level (Percentile thresholds: no row_max).
   t2d_b_x, t2d_b_scores, _ = make_t2d_fixture(N_BATCH, D_MAIN)
   t2d_b_cm = constraint.ConstraintMatrix(
       t2d_b_scores, threshold=1).compute_diagonals()
@@ -1363,7 +1534,9 @@ def main() -> int:
       constraint_options=configs.turntodiarize_constraint_options(),
       laplacian_type=LaplacianType.GraphCut, min_clusters=2, max_clusters=7,
       row_wise_renorm=True, custom_dist="cosine")
-  candidates = len(configs.make_turntodiarize_auto_tune().get_percentile_range())
+  t2d_tune = configs.make_turntodiarize_auto_tune()
+  candidates = len(t2d_tune.get_percentile_range())
+  levels = t2d_tune.search_level
 
   def autotuned():
     return batch_lib.cluster_batch_autotuned(
@@ -1372,14 +1545,18 @@ def main() -> int:
 
   _, t2d_cold_s = timed_call(autotuned)
   fused.reset_launch_counts()
+  torch.cuda.reset_peak_memory_stats()
   t2d_labels, t2d_warm_s = timed_call(autotuned)
   launches = fused.launch_counts()
   t2d_ref_b = list(batch_ref["t2d_labels"])
   clusterer_labels = configs.make_turntodiarize_clusterer().predict(
       t2d_b_x, t2d_b_cm)
+  per_level = {"affinity_batched": 1,
+               "threshold_symmetrize_general_batched": 1}
   run = {
       "leg": "cluster_batch_autotuned", "batch": T2D_BATCH, "n": N_BATCH,
       "d": D_MAIN, "candidates_per_utterance": candidates,
+      "levels": levels,
       "parity": all(ordered_equal(a, b) for a, b in zip(t2d_labels,
                                                         t2d_ref_b)),
       "parity_ids": all(np.array_equal(a, b.astype(a.dtype))
@@ -1390,15 +1567,16 @@ def main() -> int:
           ordered_equal(a, clusterer_labels) for a in t2d_labels),
       "cold_wall_s": t2d_cold_s, "warm_wall_s": t2d_warm_s,
       "utterances_per_s": T2D_BATCH / t2d_warm_s, "launches": launches,
+      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
   }
   results["batch_autotuned"] = run
   log(json.dumps({"phase": "batch_autotuned", **run}))
-  if not run["parity"]:
+  if not run["parity_ids"]:
     raise SystemExit("cluster_batch_autotuned: labels differ from the JAX "
                      "package's")
-  if (launches["threshold_symmetrize_general"] != candidates * T2D_BATCH
-      or launches["affinity"] != T2D_BATCH):
-    raise SystemExit(f"cluster_batch_autotuned: launches {launches}")
+  if launches != expected(levels, per_level):
+    raise SystemExit(f"cluster_batch_autotuned: launches {launches}, "
+                     f"expected {expected(levels, per_level)}")
   mark("batch_autotuned")
 
   # 8. The row-sharded path: no kernel may launch in it.
@@ -1414,7 +1592,7 @@ def main() -> int:
   batch_launches = {
       "cluster_batch": results["batch"]["launches"],
       "cluster_batch_streamed": results["batch_streamed"]["launches"],
-      "cluster_batch_autotuned": launches}
+      "cluster_batch_autotuned": results["batch_autotuned"]["launches"]}
 
   sources = {
       "affinity": "fused.py:46-77 affinity_pallas",
@@ -1427,29 +1605,36 @@ def main() -> int:
   kernels = []
   for name in timed:
     err = max(c["max_abs_err"] for c in checks if c["kernel"] == name)
-    per_predict = runs["HostGeneral" if name == "row_wise_normalize"
-                       else "Auto"]
+    base = name[:-len("_batched")] if name.endswith("_batched") else name
     kernel = {
         "name": name, "route": "cuda",
         "source": "spectralcluster_tpu_torch/csrc/fused.cu",
-        "replaces": "spectralcluster_tpu/kernels/" + sources[name],
+        "replaces": "spectralcluster_tpu/kernels/" + sources[base] + (
+            " under vmap (parallel/batch.py:38-122)" if base != name else ""),
         "launches": (sum(r["launches"][name] for r in runs.values())
                      + sum(r["launches"][name]
                            for r in results["streaming"].values())
                      + sum(r[name] for r in batch_launches.values())),
-        "launches_per_predict":
-            per_predict["launches"][name] / per_predict["warm_runs"],
-        "launches_per_batch_utterance":
-            results["batch"]["launches_per_call"][name] / BATCH,
-        "launches_per_autotuned_batch_utterance":
-            batch_launches["cluster_batch_autotuned"][name] / T2D_BATCH,
-        "launches_auto_20480_predict": runs["Auto_20480"]["launches"][name],
-        "launches_per_stream_step_past_L": results["streaming"][
-            "nodeflicker"]["launches_per_step_past_L"][name],
+        "launches_per_batch_chunk":
+            results["batch"]["launches_per_chunk"][name],
+        "launches_autotuned_batch":
+            batch_launches["cluster_batch_autotuned"][name],
         "launches_sharded": sharded_launches[name],
         "max_abs_err": err, "kernel_ms": times[name]["ms"],
         **times[name],
     }
+    if base == name:
+      per_predict = runs["HostGeneral" if name == "row_wise_normalize"
+                         else "Auto"]
+      kernel.update({
+          "launches_per_predict":
+              per_predict["launches"][name] / per_predict["warm_runs"],
+          "launches_auto_20480_predict":
+              runs["Auto_20480"]["launches"][name],
+          "launches_per_stream_step_past_L": results["streaming"][
+              "nodeflicker"]["launches_per_step_past_L"][name]})
+    else:
+      kernel["shape"] = f"B={BATCH},N={N_BATCH},d={D_MAIN}"
     if name in no_library:
       kernel["library_note"] = no_library[name]
     if name == "threshold_symmetrize_general":

@@ -7,7 +7,9 @@ replaced by their plain PyTorch twins). Ported so far: the batch
 Turn-to-Diarize: constraints, Laplacians, AutoTune), the exact top-k route
 past ``dc_max_block`` (ops/dc.py), streaming (``MultiStageClusterer``), the
 fallback and AHC clusterers (with the native C++ chain, native/), K-Means,
-the batch drivers (parallel/batch.py), row-sharded clustering of one
+the batched data-parallel step and batch drivers (parallel/batch.py, one
+batched program per chunk, in one process or across ranks), the profiler
+helpers (observability.py), row-sharded clustering of one
 large recording over a mesh's ``model`` line, in one process or across
 ``torch.distributed`` ranks (parallel/sharded.py, ring.py, sanity.py,
 collectives.py), and all five Pallas kernels of the JAX package as CUDA

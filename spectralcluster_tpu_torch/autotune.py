@@ -5,9 +5,11 @@ in the port so that it never imports the JAX package. ``tune`` replicates
 the reference loop exactly, including its memoization: a level with no
 un-searched candidates keeps the previous level's winner, and the winner
 index is taken within the full candidate range. ``tune_batched`` hands all
-un-searched candidates of a level to one callback; the clusterer and the
-batch driver (``parallel/batch.py``) evaluate them one after another on the
-card, and the winner's eigenvectors come back as the callback gave them.
+un-searched candidates of a level to one callback, which the clusterer
+evaluates one after another on the card; the winner's eigenvectors come
+back as the callback gave them. ``search`` is the same search as a
+generator of levels, which the batch driver (``parallel/batch.py``) runs
+for every utterance of a batch in lockstep, one batched call per level.
 
 AutoTune keeps state: each level after the first halves ``search_step`` and
 narrows the range, so build a fresh one (``configs.make_turntodiarize_
@@ -68,17 +70,17 @@ class AutoTune:
       return np.float64(1 - p_percentile) / max_delta_norm
     raise ValueError("Unsupported value of AutoTuneProxy")
 
-  def tune_batched(self, batch_eval: typing.Callable):
-    """Hierarchical search with one ``batch_eval`` call per level.
+  def search(self) -> typing.Generator:
+    """The hierarchical search as a generator, one level per step.
 
-    Args:
-      batch_eval: callable taking a float array of candidate p_percentiles
-        and returning (ratios (B,), eigenvectors (B, N, K), n_clusters (B,)).
-
-    Returns:
-      (eigenvectors, n_clusters, best_p_percentile), with the semantics of
-      reference AutoTune.tune; eigenvectors is the callback's own row
-      (a numpy array or a tensor).
+    Each level yields the float array of its un-searched candidate
+    p_percentiles (empty when memoization covers the whole level) and
+    expects ``send`` of (ratios (C,), eigenvectors (C, ...), n_clusters
+    (C,)) for them, or of None for an empty level. It returns (as
+    ``StopIteration.value``) (eigenvectors, n_clusters, best_p) with the
+    semantics of reference AutoTune.tune. ``tune_batched`` drives one
+    search; ``parallel/batch.py`` drives one per utterance in lockstep,
+    evaluating a whole batch's level at once.
     """
     p_range = self.get_percentile_range()
     searched: typing.Dict[float, float] = {}
@@ -88,9 +90,10 @@ class AutoTune:
     best_index = None
     for _ in range(self.search_level):
       new = [(i, p) for i, p in enumerate(p_range) if p not in searched]
+      ps = np.array([p for _, p in new], dtype=np.float64)
+      evaluated = yield ps
       if new:
-        ps = np.array([p for _, p in new], dtype=np.float64)
-        ratios, eigvecs_b, ncs_b = batch_eval(ps)
+        ratios, eigvecs_b, ncs_b = evaluated
         ratios = np.asarray(ratios)
         for p, r in zip(ps, ratios):
           searched[float(p)] = float(r)
@@ -112,6 +115,26 @@ class AutoTune:
       raise ValueError("AutoTune search range is empty; check "
                        "p_percentile_min/max/init_search_step.")
     return eigenvectors, n_clusters, best_p
+
+  def tune_batched(self, batch_eval: typing.Callable):
+    """Hierarchical search with one ``batch_eval`` call per level.
+
+    Args:
+      batch_eval: callable taking a float array of candidate p_percentiles
+        and returning (ratios (B,), eigenvectors (B, N, K), n_clusters (B,)).
+
+    Returns:
+      (eigenvectors, n_clusters, best_p_percentile), with the semantics of
+      reference AutoTune.tune; eigenvectors is the callback's own row
+      (a numpy array or a tensor).
+    """
+    search = self.search()
+    try:
+      ps = next(search)
+      while True:
+        ps = search.send(batch_eval(ps) if len(ps) else None)
+    except StopIteration as done:
+      return done.value
 
   def tune(self, p_percentile_to_ratio: typing.Callable):
     """Sequential-callback API, for parity with reference autotune.py:76-132.

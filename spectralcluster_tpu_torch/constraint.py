@@ -9,11 +9,15 @@ Port of ``spectralcluster_tpu/constraint.py`` (reference constraint.py):
     it; α ≥ 0.95 takes the dense LU solve (``torch.linalg.solve``) there.
     The JAX package chose the fixed point to avoid a TPU compile wall; the
     port keeps it because parity with that package is the gate. The loop
-    is a Python loop that reads the residual on the host once per step.
+    is a Python loop that reads one stop flag on the host per step.
   * ``ConstraintMatrix`` from speaker-turn scores (constraint.py:167-201),
     built on the host as a tri-diagonal ±1 numpy matrix.
 
 Every product runs under ``precision.fp32_precision()`` (TF32 off).
+``adjust_affinity`` also takes a (B, N, N) batch of affinities and
+constraints with a (B,) ``n_valid``, for the batched step: batched
+products, and the same fixed point, which freezes each matrix at its own
+stop, as the JAX package's vmap of its while_loop does.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from spectralcluster_tpu_torch.precision import fp32_precision
 from spectralcluster_tpu_torch.types import (EPS, ConstraintName,
                                              ConstraintOptions,
                                              IntegrationType)
+from spectralcluster_tpu_torch.utils import valid_mask
 
 # Relative fixed-point tolerance of the E2CP solves (the JAX package's).
 _NEUMANN_TOL = 1e-6
@@ -61,18 +66,29 @@ def _fixed_point_solve(q: torch.Tensor, mul: typing.Callable, alpha: float,
   """Solve (I − α·Op) X = Q by the fixed-point iteration X ← Q + α·Op(X).
 
   The step X_{k+1} − X_k is minus the linear-system residual of X_k, so
-  the gate costs no extra product. Steps until rel_res ≤ 1e-6 or
-  ``max_steps``. Returns (X, rel_res, steps), rel_res a 0-dim tensor.
+  the gate costs no extra product. Each matrix steps until its rel_res ≤
+  1e-6 or ``max_steps``. Over a batch of matrices (any leading shape) it
+  runs as the JAX package's vmap of its while_loop: every step computes
+  the whole batch, and a matrix that has met its own stop rule keeps its
+  X, residual and step count from then on. One host read per step, of
+  whether any matrix still steps. Returns (X, rel_res, steps), rel_res
+  and steps tensors shaped like the batch (0-dim for one matrix).
   """
-  qn = torch.clamp_min(torch.linalg.norm(q), EPS)
+  batch = q.shape[:-2]
+  qn = torch.clamp_min(torch.linalg.vector_norm(q, dim=(-2, -1)), EPS)
   x = q
-  res = torch.full((), torch.inf, dtype=q.dtype, device=q.device)
-  steps = 0
-  while float(res) > _NEUMANN_TOL and steps < max_steps:
+  res = torch.full(batch, torch.inf, dtype=q.dtype, device=q.device)
+  steps = torch.zeros(batch, dtype=torch.int64, device=q.device)
+  live = torch.ones(batch, dtype=torch.bool, device=q.device)
+  while max_steps > 0:
     x_next = q + alpha * mul(x)
-    res = torch.linalg.norm(x_next - x) / qn
-    x = x_next
-    steps += 1
+    step_res = torch.linalg.vector_norm(x_next - x, dim=(-2, -1)) / qn
+    x = torch.where(live[..., None, None], x_next, x)
+    res = torch.where(live, step_res, res)
+    steps = steps + live.to(steps.dtype)
+    live = live & (res > _NEUMANN_TOL) & (steps < max_steps)
+    if not bool(live.any()):
+      break
   return x, res, steps
 
 
@@ -84,28 +100,32 @@ def propagate(affinity: torch.Tensor,
 
   Ā = D^{-1/2} A D^{-1/2} with the reference's 1/(sqrt(d)+eps). Returns
   (F*, rel_res, steps): the worse relative residual of the two solves (a
-  0-dim tensor, 0 on the LU route) and the steps of each solve ((0, 0) on
-  the LU route).
+  0-dim tensor, 0 on the LU route) and the steps of each solve (two 0-dim
+  tensors; (0, 0) on the LU route). A (B, N, N) batch with a (B,)
+  ``n_valid`` solves each matrix as alone (the products batched); rel_res
+  and the steps are then (B,) tensors.
   """
-  n = affinity.shape[0]
+  n = affinity.shape[-1]
+  batch = affinity.shape[:-2]
   if n_valid is None:
-    d = torch.sum(affinity, dim=1)
+    d = torch.sum(affinity, dim=-1)
   else:
-    v = torch.arange(n, device=affinity.device) < n_valid
-    d = torch.sum(torch.where(v[None, :], affinity, 0.0), dim=1)
+    v = valid_mask(n, n_valid, affinity.device)
+    d = torch.sum(torch.where(v[..., None, :], affinity, 0.0), dim=-1)
   inv_sqrt = 1.0 / (torch.sqrt(d) + EPS)
-  a_norm = inv_sqrt[:, None] * affinity * inv_sqrt[None, :]
+  a_norm = inv_sqrt[..., :, None] * affinity * inv_sqrt[..., None, :]
   if n_valid is not None:
     # Padded coordinates: Ā = 0 there, so I − αĀ acts as the identity.
-    a_norm = torch.where(v[:, None] & v[None, :], a_norm, 0.0)
+    a_norm = torch.where(v[..., :, None] & v[..., None, :], a_norm, 0.0)
   alpha = float(alpha)
   with fp32_precision():
     if alpha >= _NEUMANN_ALPHA_MAX:
       m = torch.eye(n, dtype=affinity.dtype, device=affinity.device) - (
           alpha * a_norm)
       b = torch.linalg.solve(m, constraint_matrix)
-      f = (1.0 - alpha) ** 2 * torch.linalg.solve(m.T, b.T).T
-      return f, torch.zeros((), dtype=affinity.dtype,
+      f = (1.0 - alpha) ** 2 * torch.linalg.solve(
+          m.transpose(-1, -2), b.transpose(-1, -2)).transpose(-1, -2)
+      return f, torch.zeros(batch, dtype=affinity.dtype,
                             device=affinity.device), (0, 0)
     cap = _neumann_cap(alpha)
     b, res_l, steps_l = _fixed_point_solve(
@@ -145,10 +165,10 @@ def adjust_affinity(affinity: torch.Tensor,
                     n_valid=None) -> torch.Tensor:
   """Dispatch on the constraint method (reference constraint.py:44-49),
   with the reference's shape checks (constraint.py:52-76)."""
-  if affinity.dim() != 2 or affinity.shape[0] != affinity.shape[1]:
+  if affinity.dim() not in (2, 3) or affinity.shape[-1] != affinity.shape[-2]:
     raise ValueError("affinity must be a 2-D square matrix")
-  if (constraint_matrix.dim() != 2
-      or constraint_matrix.shape[0] != constraint_matrix.shape[1]):
+  if (constraint_matrix.dim() != affinity.dim()
+      or constraint_matrix.shape[-1] != constraint_matrix.shape[-2]):
     raise ValueError("constraint matrix must be a 2-D square matrix")
   if affinity.shape != constraint_matrix.shape:
     raise ValueError(
@@ -162,8 +182,8 @@ def adjust_affinity(affinity: torch.Tensor,
   else:
     raise ValueError(f"Unsupported constraint: {options.constraint_name}")
   if n_valid is not None:
-    v = torch.arange(affinity.shape[0], device=affinity.device) < n_valid
-    out = torch.where(v[:, None] & v[None, :], out, 0.0)
+    v = valid_mask(affinity.shape[-1], n_valid, affinity.device)
+    out = torch.where(v[..., :, None] & v[..., None, :], out, 0.0)
   return out
 
 

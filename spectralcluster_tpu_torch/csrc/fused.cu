@@ -16,6 +16,19 @@
 // synchronize, allocates nothing, and returns cudaGetLastError() so the
 // caller sees a refused launch.
 //
+// Batched forms (sct_*_batched). The JAX package's batched step runs each
+// Pallas kernel under vmap, which adds a leading grid axis over the
+// utterances of a chunk. Kernels 1-4 here take that axis the same way: one
+// launch covers B contiguous (N, N) matrices, the affinity and
+// threshold_symmetrize with the utterance as a grid index (blockIdx.y,
+// blockIdx.z), row_max and crop_diagonal by treating the batch as B·N rows
+// (utterance r / N, diagonal column r % N). Each utterance's n_valid is read
+// from a (B,) int32 array in device memory, so a chunk of ragged utterances
+// needs no host value per utterance. Each of these kernels is a template
+// on kBatched; the 2-D entry points launch its one-matrix instance, which
+// compiles to the code it had before the batch axis, with n_valid as an
+// argument.
+//
 // Card figures used below (H100 SXM data sheet): 3.35 TB/s HBM3,
 // 67 TFLOP/s float32 on the CUDA cores. N = 10240, d = 256 on the main path.
 
@@ -136,10 +149,18 @@ __device__ __forceinline__ void store4(float* row, int c, int n, bool vec,
   if (c + 3 < n) row[c + 3] = v3;
 }
 
+// kBatched: utterance blockIdx.y of a batch, its operand and its output
+// matrix. A template argument, as for the row kernels below, so that the
+// one-matrix form compiles to the code it had before the batch axis.
+template <bool kBatched>
 __global__ void __launch_bounds__(kAffThreads, 2)
 affinity_kernel(const float* __restrict__ xt, float* __restrict__ out, int n,
                 int ld, int k_slices) {
   extern __shared__ __align__(16) float smem[];
+  if (kBatched) {
+    xt += (size_t)blockIdx.y * k_slices * kAffDepth * ld;
+    out += (size_t)blockIdx.y * n * n;
+  }
   int bi, bj;
   triangle_pair(blockIdx.x, bi, bj);
   const int row0 = bi * kAffTile;
@@ -234,12 +255,18 @@ affinity_kernel(const float* __restrict__ xt, float* __restrict__ out, int n,
   }
 }
 
-// Lets the affinity kernel take kAffSmemBytes of dynamic shared memory; set
-// once per process.
+// Lets both forms of the affinity kernel take kAffSmemBytes of dynamic
+// shared memory; set once per process.
 cudaError_t affinity_smem_opt_in() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      affinity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kAffSmemBytes);
+  static const cudaError_t err = [] {
+    const cudaError_t one = cudaFuncSetAttribute(
+        affinity_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kAffSmemBytes);
+    if (one != cudaSuccess) return one;
+    return cudaFuncSetAttribute(affinity_kernel<true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kAffSmemBytes);
+  }();
   return err;
 }
 
@@ -337,29 +364,56 @@ __device__ __forceinline__ float row_max_value(const float* __restrict__ row,
   return warp_max(m);
 }
 
-template <bool kExclude>
-__global__ void __launch_bounds__(kRowThreads)
-row_max_kernel(const float* __restrict__ a, float* __restrict__ out, int n,
-               int n_valid, int vec) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * kRowWarps;
-  for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < n;
-       i += warps) {
-    const float m = row_max_value<kExclude>(a + (size_t)i * n, i, n_valid,
-                                            vec != 0, lane);
-    if (lane == 0) out[i] = m;
+// Row r of a kernel's `rows`: its diagonal column i and its n_valid. One
+// matrix (kBatched false): rows = n, i = r, n_valid the argument. A batch
+// of (n, n) matrices: rows = B·n, utterance r / n, i = r % n and that
+// utterance's entry of `n_valids` clamped to [0, n]. A template argument,
+// so that the one-matrix forms compile to the code they had before the
+// batch axis (the batch's extra live values made ptxas spill there).
+template <bool kBatched>
+__device__ __forceinline__ void row_position(int r, int n, int n_valid,
+                                             const int* __restrict__ n_valids,
+                                             int& i, int& nv) {
+  if (kBatched) {
+    const int utterance = r / n;
+    i = r - utterance * n;
+    nv = min(max(n_valids[utterance], 0), n);
+  } else {
+    i = r;
+    nv = n_valid;
   }
 }
 
+// `rows` rows of length n: one matrix (rows = n) or a batch (rows = B·n).
+template <bool kExclude, bool kBatched>
 __global__ void __launch_bounds__(kRowThreads)
-crop_diagonal_kernel(const float* a, float* out, int n, int n_valid,
-                     int vec) {
+row_max_kernel(const float* __restrict__ a, float* __restrict__ out, int rows,
+               int n, int n_valid, const int* __restrict__ n_valids,
+               int vec) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * kRowWarps;
-  for (int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5); i < n;
-       i += warps) {
-    const float* row = a + (size_t)i * n;
-    float* orow = out + (size_t)i * n;
+  for (int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5); r < rows;
+       r += warps) {
+    int i, nv;
+    row_position<kBatched>(r, n, n_valid, n_valids, i, nv);
+    const float m = row_max_value<kExclude>(a + (size_t)r * n, i, nv,
+                                            vec != 0, lane);
+    if (lane == 0) out[r] = m;
+  }
+}
+
+template <bool kBatched>
+__global__ void __launch_bounds__(kRowThreads)
+crop_diagonal_kernel(const float* a, float* out, int rows, int n, int n_valid,
+                     const int* __restrict__ n_valids, int vec) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * kRowWarps;
+  for (int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5); r < rows;
+       r += warps) {
+    int i, nv;
+    row_position<kBatched>(r, n, n_valid, n_valids, i, nv);
+    const float* row = a + (size_t)r * n;
+    float* orow = out + (size_t)r * n;
     if (out != a) {
       int start = lane;
       if (vec) {
@@ -373,7 +427,7 @@ crop_diagonal_kernel(const float* a, float* out, int n, int n_valid,
     // The row max never reads column i, and row i is only this warp's, so
     // the in-place write races with nothing; __syncwarp orders the copy of
     // column i before lane 0 overwrites it.
-    const float m = row_max_value<true>(row, i, n_valid, vec != 0, lane);
+    const float m = row_max_value<true>(row, i, nv, vec != 0, lane);
     __syncwarp();
     if (lane == 0) orow[i] = m;
   }
@@ -402,15 +456,15 @@ int row_resident_blocks() {
   return blocks;
 }
 
-// Blocks of a warp-per-row kernel: the card's resident warps, cut so that
-// every warp takes the same number of rows (one warp per row if the
-// occupancy query failed; the launch then reports its error).
+// Blocks of a warp-per-row kernel over `rows` rows: the card's resident
+// warps, cut so that every warp takes the same number of rows (one warp per
+// row if the occupancy query failed; the launch then reports its error).
 template <auto kKernel>
-int row_blocks(int n) {
+int row_blocks(int rows) {
   const int resident = sm_count() * row_resident_blocks<kKernel>() * kRowWarps;
-  if (n <= 0 || resident <= 0) return cdiv(n > 0 ? n : 1, kRowWarps);
-  const int rows_per_warp = cdiv(n, resident);
-  return cdiv(cdiv(n, rows_per_warp), kRowWarps);
+  if (rows <= 0 || resident <= 0) return cdiv(rows > 0 ? rows : 1, kRowWarps);
+  const int rows_per_warp = cdiv(rows, resident);
+  return cdiv(cdiv(rows, rows_per_warp), kRowWarps);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,6 +504,9 @@ __device__ __forceinline__ float sym_value(float x, float thr_x, float y,
   return average ? 0.5f * (tx + ty) : fmaxf(tx, ty);
 }
 
+// kBatched: utterance blockIdx.z of a batch, its matrix, thresholds and
+// output (a template argument, as for the affinity).
+template <bool kBatched>
 __global__ void __launch_bounds__(kTsTile * kTsRows)
 threshold_symmetrize_kernel(const float* __restrict__ a,
                             const float* __restrict__ thr,
@@ -458,6 +515,11 @@ threshold_symmetrize_kernel(const float* __restrict__ a,
   const int bi = blockIdx.y;
   const int bj = blockIdx.x;
   if (bi > bj) return;
+  if (kBatched) {
+    a += (size_t)blockIdx.z * n * n;
+    thr += (size_t)blockIdx.z * n;
+    out += (size_t)blockIdx.z * n * n;
+  }
   __shared__ float s1[kTsTile][kTsTile + 1];  // A[bi rows, bj cols]
   __shared__ float s2[kTsTile][kTsTile + 1];  // A[bj rows, bi cols]
   const int tx = threadIdx.x;
@@ -550,6 +612,82 @@ row_wise_normalize_kernel(const float* __restrict__ a, float* __restrict__ out,
   for (int c = start; c < n; c += kRowThreads) orow[c] = row[c] / m;
 }
 
+// The grid's y and z dimensions, which carry a batch's utterance index.
+constexpr int kMaxGridYZ = 65535;
+
+cudaError_t launch_affinity(const float* xt, float* out, int b, int n, int ld,
+                            int d_pad, cudaStream_t stream) {
+  // xt is xnᵀ zero-padded to (d_pad, ld) per utterance: whole k slices,
+  // whole tiles.
+  if (ld % kAffTile != 0 || ld < n || d_pad % kAffDepth != 0 || b < 1 ||
+      b > kMaxGridYZ) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t attr = affinity_smem_opt_in();
+  if (attr != cudaSuccess) return attr;
+  const int tiles = cdiv(n, kAffTile);
+  const dim3 grid(tiles * (tiles + 1) / 2, b);
+  if (b == 1) {
+    affinity_kernel<false><<<grid, kAffThreads, kAffSmemBytes, stream>>>(
+        xt, out, n, ld, d_pad / kAffDepth);
+  } else {
+    affinity_kernel<true><<<grid, kAffThreads, kAffSmemBytes, stream>>>(
+        xt, out, n, ld, d_pad / kAffDepth);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kBatched>
+cudaError_t launch_row_max(const float* a, float* out, int rows, int n,
+                           int n_valid, const int* n_valids,
+                           int exclude_diagonal, int vec,
+                           cudaStream_t stream) {
+  if (exclude_diagonal) {
+    const int grid = row_blocks<row_max_kernel<true, kBatched>>(rows);
+    row_max_kernel<true, kBatched><<<grid, kRowThreads, 0, stream>>>(
+        a, out, rows, n, n_valid, n_valids, vec);
+  } else {
+    const int grid = row_blocks<row_max_kernel<false, kBatched>>(rows);
+    row_max_kernel<false, kBatched><<<grid, kRowThreads, 0, stream>>>(
+        a, out, rows, n, n_valid, n_valids, vec);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kBatched>
+cudaError_t launch_crop_diagonal(const float* a, float* out, int rows, int n,
+                                 int n_valid, const int* n_valids, int vec,
+                                 cudaStream_t stream) {
+  const int grid = row_blocks<crop_diagonal_kernel<kBatched>>(rows);
+  crop_diagonal_kernel<kBatched><<<grid, kRowThreads, 0, stream>>>(
+      a, out, rows, n, n_valid, n_valids, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_threshold_symmetrize(const float* a, const float* thr,
+                                        float* out, int b, int n,
+                                        float multiplier, int binarize,
+                                        int preserve_diagonal, int average,
+                                        cudaStream_t stream) {
+  if (b < 1 || b > kMaxGridYZ) return cudaErrorInvalidValue;
+  const int tiles = cdiv(n, kTsTile);
+  const dim3 grid(tiles, tiles, b);
+  const dim3 block(kTsTile, kTsRows);
+  if (b == 1) {
+    threshold_symmetrize_kernel<false><<<grid, block, 0, stream>>>(
+        a, thr, out, n, multiplier, binarize, preserve_diagonal, average);
+  } else {
+    threshold_symmetrize_kernel<true><<<grid, block, 0, stream>>>(
+        a, thr, out, n, multiplier, binarize, preserve_diagonal, average);
+  }
+  return cudaGetLastError();
+}
+
+// B·n rows must fit the kernels' int row index.
+bool rows_fit(int b, int n) {
+  return b >= 1 && (long long)b * n <= 2147483647LL;
+}
+
 }  // namespace
 
 extern "C" {
@@ -560,38 +698,50 @@ const char* sct_error_string(int code) {
 
 int sct_affinity(const float* xt, float* out, int n, int ld, int d_pad,
                  void* stream) {
-  // xt is xnᵀ zero-padded to (d_pad, ld): whole k slices, whole tiles.
-  if (ld % kAffTile != 0 || ld < n || d_pad % kAffDepth != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t attr = affinity_smem_opt_in();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int tiles = cdiv(n, kAffTile);
-  affinity_kernel<<<tiles * (tiles + 1) / 2, kAffThreads, kAffSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(xt, out, n, ld,
-                                                         d_pad / kAffDepth);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_affinity(
+      xt, out, 1, n, ld, d_pad, static_cast<cudaStream_t>(stream)));
+}
+
+// xt: B operands of (d_pad, ld), out: B matrices of (n, n), contiguous.
+int sct_affinity_batched(const float* xt, float* out, int b, int n, int ld,
+                         int d_pad, void* stream) {
+  return static_cast<int>(launch_affinity(
+      xt, out, b, n, ld, d_pad, static_cast<cudaStream_t>(stream)));
 }
 
 int sct_row_max(const float* a, float* out, int n, int n_valid,
                 int exclude_diagonal, int vec, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (exclude_diagonal) {
-    row_max_kernel<true><<<row_blocks<row_max_kernel<true>>(n), kRowThreads,
-                           0, s>>>(a, out, n, n_valid, vec);
-  } else {
-    row_max_kernel<false><<<row_blocks<row_max_kernel<false>>(n),
-                            kRowThreads, 0, s>>>(a, out, n, n_valid, vec);
+  return static_cast<int>(
+      launch_row_max<false>(a, out, n, n, n_valid, nullptr, exclude_diagonal,
+                            vec, static_cast<cudaStream_t>(stream)));
+}
+
+// a: B matrices of (n, n); out: B·n maxima; n_valids: B int32 on the card.
+int sct_row_max_batched(const float* a, float* out, int b, int n,
+                        const int* n_valids, int exclude_diagonal, int vec,
+                        void* stream) {
+  if (!rows_fit(b, n) || n_valids == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_row_max<true>(a, out, b * n, n, n, n_valids, exclude_diagonal,
+                           vec, static_cast<cudaStream_t>(stream)));
 }
 
 int sct_crop_diagonal(const float* a, float* out, int n, int n_valid, int vec,
                       void* stream) {
-  crop_diagonal_kernel<<<row_blocks<crop_diagonal_kernel>(n), kRowThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a, out, n,
-                                                              n_valid, vec);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_crop_diagonal<false>(
+      a, out, n, n, n_valid, nullptr, vec, static_cast<cudaStream_t>(stream)));
+}
+
+int sct_crop_diagonal_batched(const float* a, float* out, int b, int n,
+                              const int* n_valids, int vec, void* stream) {
+  if (!rows_fit(b, n) || n_valids == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      launch_crop_diagonal<true>(a, out, b * n, n, n, n_valids, vec,
+                                 static_cast<cudaStream_t>(stream)));
 }
 
 // Blocks resident on one SM, for reports: kernel 0 is the affinity, 1
@@ -602,12 +752,12 @@ int sct_resident_blocks(int kernel, int* blocks) {
     err = affinity_smem_opt_in();
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, affinity_kernel, kAffThreads, kAffSmemBytes);
+          blocks, affinity_kernel<false>, kAffThreads, kAffSmemBytes);
     }
   } else if (kernel == 1) {
-    *blocks = row_resident_blocks<row_max_kernel<false>>();
+    *blocks = row_resident_blocks<row_max_kernel<false, false>>();
   } else if (kernel == 2) {
-    *blocks = row_resident_blocks<crop_diagonal_kernel>();
+    *blocks = row_resident_blocks<crop_diagonal_kernel<false>>();
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -618,13 +768,20 @@ int sct_threshold_symmetrize(const float* a, const float* thr, float* out,
                              int n, float multiplier, int binarize,
                              int preserve_diagonal, int average,
                              void* stream) {
-  const int tiles = cdiv(n, kTsTile);
-  const dim3 grid(tiles, tiles);
-  const dim3 block(kTsTile, kTsRows);
-  threshold_symmetrize_kernel<<<grid, block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      a, thr, out, n, multiplier, binarize, preserve_diagonal, average);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_threshold_symmetrize(
+      a, thr, out, 1, n, multiplier, binarize, preserve_diagonal, average,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// a, out: B matrices of (n, n); thr: B·n row thresholds.
+int sct_threshold_symmetrize_batched(const float* a, const float* thr,
+                                     float* out, int b, int n,
+                                     float multiplier, int binarize,
+                                     int preserve_diagonal, int average,
+                                     void* stream) {
+  return static_cast<int>(launch_threshold_symmetrize(
+      a, thr, out, b, n, multiplier, binarize, preserve_diagonal, average,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int sct_row_wise_normalize(const float* a, float* out, int n, int n_valid,

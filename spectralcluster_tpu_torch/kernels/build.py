@@ -34,9 +34,14 @@ _F = ctypes.c_float
 # passed as a 32-bit int and cut the pointer.
 _SIGNATURES = {
     "sct_affinity": (_P, _P, _I, _I, _I, _P),
+    "sct_affinity_batched": (_P, _P, _I, _I, _I, _I, _P),
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
+    "sct_row_max_batched": (_P, _P, _I, _I, _P, _I, _I, _P),
     "sct_crop_diagonal": (_P, _P, _I, _I, _I, _P),
+    "sct_crop_diagonal_batched": (_P, _P, _I, _I, _P, _I, _P),
     "sct_threshold_symmetrize": (_P, _P, _P, _I, _F, _I, _I, _I, _P),
+    "sct_threshold_symmetrize_batched": (_P, _P, _P, _I, _I, _F, _I, _I, _I,
+                                         _P),
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
     "sct_resident_blocks": (_I, _P),
 }
@@ -97,8 +102,8 @@ def ptxas_report(lib_path: str) -> typing.Dict[str, typing.Dict[str, int]]:
   """Registers, static shared memory and spill bytes per kernel.
 
   Read from the ``-Xptxas -v`` lines that ``build`` keeps in
-  ``<library>.log``; kernels are keyed by their unmangled names, a bool
-  template argument included (``row_max_kernel<true>``).
+  ``<library>.log``; kernels are keyed by their unmangled names, bool
+  template arguments included (``row_max_kernel<true,false>``).
   """
   report: typing.Dict[str, typing.Dict[str, int]] = {}
   current = None
@@ -107,13 +112,16 @@ def ptxas_report(lib_path: str) -> typing.Dict[str, typing.Dict[str, int]]:
       entry = re.search(r"(?:entry function '|properties for )(\S+?)'?$",
                         line.strip())
       if entry:
-        # e.g. ..._14row_max_kernelILb1EEEv... -> row_max_kernel<true>
-        name = re.search(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?E",
+        # e.g. ..._14row_max_kernelILb1ELb0EEEv... ->
+        # row_max_kernel<true,false>
+        name = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?E",
                          entry.group(1))
         key = entry.group(1)
         if name:
-          key = name.group(1) + ({"0": "<false>", "1": "<true>"}.get(
-              name.group(2), ""))
+          flags = re.findall(r"Lb([01])E", name.group(2) or "")
+          key = name.group(1) + (
+              "<" + ",".join("true" if f == "1" else "false" for f in flags)
+              + ">" if flags else "")
         current = report.setdefault(key, {})
         continue
       if current is None:

@@ -15,9 +15,19 @@ Five wrappers, one per Pallas kernel of the JAX package
     symmetry structure reaches it (EigenSolver.HostGeneral, or a sequence
     that the symmetric eigensolvers cannot absorb).
 
+Kernels 1-4 also have batched wrappers (``affinity_batched``,
+``row_max_batched``, ``crop_diagonal_batched``,
+``threshold_symmetrize_general_batched``): the JAX package's ``vmap`` of
+each ``pallas_call`` in its batched step, one launch for a (B, N, ·) chunk,
+with ``n_valid`` a (B,) integer tensor that the kernel reads on the device.
+Kernel 5 has no batched form (ROADMAP): only the GENERAL structure reaches
+it, and that route eigendecomposes on the host one utterance at a time.
+
 The kernels are in ``csrc/fused.cu``, whose comments give each one's bound on
 the H100 and what its design does about it. Each wrapper has a plain
-PyTorch twin (``*_plain``) in this module that defines its semantics. A
+PyTorch twin (``*_plain``) in this module that defines its semantics; the
+twins take an optional leading batch axis, with ``n_valid`` then one entry
+per matrix, and serve the 2-D and the batched wrappers alike. A
 wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises, and never falls back. Each wrapper carries a
 plain integer ``launches`` that it increments where it launches its kernel
@@ -66,6 +76,38 @@ def _n_valid(n: int, n_valid) -> int:
   return n if n_valid is None else max(0, min(n, int(n_valid)))
 
 
+def _column_limit(n: int, n_valid):
+  """The twins' column bound: an int for one matrix, or for a batch (B,)
+  entries clamped to [0, n] and shaped (B, 1, 1) to broadcast over rows
+  and columns."""
+  if isinstance(n_valid, torch.Tensor) and n_valid.dim() > 0:
+    return torch.clamp(n_valid, 0, n)[:, None, None]
+  return _n_valid(n, n_valid)
+
+
+def _batch_of_squares(name: str, mat: torch.Tensor) -> typing.Tuple[int, int]:
+  if mat.dim() != 3 or mat.shape[1] != mat.shape[2]:
+    raise ValueError(f"{name}: expected a (B, N, N) batch, got "
+                     f"{tuple(mat.shape)}")
+  b, n, _ = mat.shape
+  _check_f32(name, mat, (b, n, n))
+  return b, n
+
+
+def _device_n_valid(name: str, b: int, n: int, n_valid,
+                    device: torch.device) -> torch.Tensor:
+  """(B,) int32 n_valid on ``device``, as the batched kernels read it;
+  None means every row and column is valid. No value is read on the
+  host."""
+  if n_valid is None:
+    return torch.full((b,), n, dtype=torch.int32, device=device)
+  if not isinstance(n_valid, torch.Tensor) or tuple(n_valid.shape) != (b,):
+    raise ValueError(f"{name}: n_valid must be a ({b},) tensor")
+  if n_valid.dtype not in (torch.int32, torch.int64):
+    raise TypeError(f"{name}: n_valid must be an integer tensor")
+  return n_valid.to(device=device, dtype=torch.int32).contiguous()
+
+
 def _vec(mat: torch.Tensor) -> int:
   """Whether rows can be read as float4: 16-byte aligned row starts."""
   return int(mat.shape[1] % 4 == 0 and mat.data_ptr() % 16 == 0)
@@ -89,35 +131,37 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def normalize_rows(embeddings: torch.Tensor) -> torch.Tensor:
-  return embeddings / torch.linalg.norm(embeddings, dim=1, keepdim=True)
+  return embeddings / torch.linalg.norm(embeddings, dim=-1, keepdim=True)
 
 
 def affinity_plain(embeddings: torch.Tensor) -> torch.Tensor:
+  """(N, d) -> (N, N), or (B, N, d) -> (B, N, N)."""
   xn = normalize_rows(embeddings)
-  return (torch.matmul(xn, xn.T) + 1.0) * 0.5
+  return (torch.matmul(xn, xn.transpose(-1, -2)) + 1.0) * 0.5
 
 
 def row_max_plain(mat: torch.Tensor, exclude_diagonal: bool = False,
                   n_valid=None) -> torch.Tensor:
-  """(N, 1) row maxima over columns < n_valid.
+  """(N, 1) row maxima over columns < n_valid; (B, N, 1) for a (B, N, N)
+  batch, with n_valid None or (B,).
 
   With ``exclude_diagonal`` the diagonal counts as 0 — set after the column
   mask, so rows >= n_valid get max(0, their valid-column max), exactly as
   row_max_pallas computes it. Callers re-mask padded rows.
   """
-  n = mat.shape[0]
+  n = mat.shape[-1]
   idx = torch.arange(n, device=mat.device)
-  a = torch.where(idx[None, :] < _n_valid(n, n_valid), mat, -torch.inf)
+  a = torch.where(idx < _column_limit(n, n_valid), mat, -torch.inf)
   if exclude_diagonal:
     a = torch.where(idx[:, None] == idx[None, :], 0.0, a)
-  return torch.amax(a, dim=1, keepdim=True)
+  return torch.amax(a, dim=-1, keepdim=True)
 
 
 def crop_diagonal_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """diag <- off-diagonal row max (diagonal counted as 0); rest copied."""
   rmax = row_max_plain(mat, exclude_diagonal=True, n_valid=n_valid)
   out = mat.clone()
-  out.diagonal().copy_(rmax[:, 0])
+  out.diagonal(dim1=-2, dim2=-1).copy_(rmax[..., 0])
   return out
 
 
@@ -125,10 +169,11 @@ def threshold_symmetrize_general_plain(
     mat: torch.Tensor, thresholds: torch.Tensor, multiplier: float = 0.01,
     binarize: bool = False, preserve_diagonal: bool = False,
     average: bool = False) -> torch.Tensor:
-  """Sym(T(A), T(A)ᵀ) with T the per-row soft threshold."""
-  a, at = mat, mat.T
+  """Sym(T(A), T(A)ᵀ) with T the per-row soft threshold; ``thresholds``
+  is (N, 1), or (B, N, 1) for a (B, N, N) batch."""
+  a, at = mat, mat.transpose(-1, -2)
   if preserve_diagonal:
-    eye = torch.eye(mat.shape[0], dtype=torch.bool, device=mat.device)
+    eye = torch.eye(mat.shape[-1], dtype=torch.bool, device=mat.device)
     a = torch.where(eye, 0.0, a)
     at = torch.where(eye, 0.0, at)
 
@@ -136,7 +181,7 @@ def threshold_symmetrize_general_plain(
     return torch.where(x < m, x * multiplier, 1.0 if binarize else x)
 
   ta = thresh(a, thresholds)
-  tat = thresh(at, thresholds.T)
+  tat = thresh(at, thresholds.transpose(-1, -2))
   out = 0.5 * (ta + tat) if average else torch.maximum(ta, tat)
   if preserve_diagonal:
     out = torch.where(eye, 1.0, out)
@@ -166,18 +211,19 @@ AFFINITY_DEPTH = 16
 
 
 def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
-  """xnᵀ, (d_pad, n_pad), zero-padded to the kernel's tile and k-slice units.
+  """xnᵀ, (d_pad, n_pad), zero-padded to the kernel's tile and k-slice units
+  ((B, d_pad, n_pad) for a (B, N, d) batch).
 
   The padding adds exact zeros to each dot product, and rows past N are
   never stored, so the kernel needs no masks on its loads.
   """
-  n, d = xn.shape
+  n, d = xn.shape[-2:]
   n_pad = -(-n // AFFINITY_TILE) * AFFINITY_TILE
   d_pad = -(-d // AFFINITY_DEPTH) * AFFINITY_DEPTH
   if (n_pad, d_pad) == (n, d):
-    return xn.T.contiguous()
-  xt = xn.new_zeros((d_pad, n_pad))
-  xt[:d, :n] = xn.T
+    return xn.transpose(-1, -2).contiguous()
+  xt = xn.new_zeros(xn.shape[:-2] + (d_pad, n_pad))
+  xt[..., :d, :n] = xn.transpose(-1, -2)
   return xt
 
 
@@ -272,8 +318,83 @@ def row_wise_normalize(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   return out
 
 
+def affinity_batched(embeddings: torch.Tensor) -> torch.Tensor:
+  """Cosine affinities of a (B, N, d) float32 batch -> (B, N, N): kernel 1
+  with the utterance as a grid index, one launch for the batch."""
+  if _is_cpu(embeddings):
+    return affinity_plain(embeddings)
+  if embeddings.dim() != 3:
+    raise ValueError("affinity_batched: expected (B, N, d) embeddings")
+  b, n, d = embeddings.shape
+  _check_f32("affinity_batched", embeddings, (b, n, d))
+  xt = affinity_operand(normalize_rows(embeddings))
+  out = torch.empty((b, n, n), dtype=torch.float32, device=embeddings.device)
+  if b and n:
+    _launch("sct_affinity_batched", xt.data_ptr(), out.data_ptr(), b, n,
+            xt.shape[2], xt.shape[1], _stream(embeddings))
+    affinity_batched.launches += 1
+  return out
+
+
+def row_max_batched(mat: torch.Tensor, exclude_diagonal: bool = False,
+                    n_valid=None) -> torch.Tensor:
+  """(B, N, 1) row maxima of a (B, N, N) batch, each matrix over its first
+  ``n_valid[b]`` columns; ``n_valid`` is None or a (B,) integer tensor."""
+  if _is_cpu(mat):
+    return row_max_plain(mat, exclude_diagonal, n_valid)
+  b, n = _batch_of_squares("row_max_batched", mat)
+  nv = _device_n_valid("row_max_batched", b, n, n_valid, mat.device)
+  out = torch.empty((b, n, 1), dtype=torch.float32, device=mat.device)
+  if b and n:
+    _launch("sct_row_max_batched", mat.data_ptr(), out.data_ptr(), b, n,
+            nv.data_ptr(), int(exclude_diagonal), _vec(mat), _stream(mat))
+    row_max_batched.launches += 1
+  return out
+
+
+def crop_diagonal_batched(mat: torch.Tensor, n_valid=None,
+                          inplace: bool = False) -> torch.Tensor:
+  """CropDiagonal of each matrix of a (B, N, N) batch (see
+  ``crop_diagonal``; ``n_valid`` None or (B,))."""
+  if _is_cpu(mat):
+    return crop_diagonal_plain(mat, n_valid)
+  b, n = _batch_of_squares("crop_diagonal_batched", mat)
+  nv = _device_n_valid("crop_diagonal_batched", b, n, n_valid, mat.device)
+  out = mat if inplace else torch.empty_like(mat)
+  if b and n:
+    _launch("sct_crop_diagonal_batched", mat.data_ptr(), out.data_ptr(), b,
+            n, nv.data_ptr(), _vec(mat) & _vec(out), _stream(mat))
+    crop_diagonal_batched.launches += 1
+  return out
+
+
+def threshold_symmetrize_general_batched(
+    mat: torch.Tensor, thresholds: torch.Tensor, multiplier: float = 0.01,
+    binarize: bool = False, preserve_diagonal: bool = False,
+    average: bool = False) -> torch.Tensor:
+  """RowWiseThreshold + Symmetrize of each matrix of a (B, N, N) batch;
+  ``thresholds`` is (B, N, 1)."""
+  if _is_cpu(mat):
+    return threshold_symmetrize_general_plain(
+        mat, thresholds, multiplier, binarize, preserve_diagonal, average)
+  b, n = _batch_of_squares("threshold_symmetrize_general_batched", mat)
+  _check_f32("threshold_symmetrize_general_batched thresholds", thresholds,
+             (b, n, 1))
+  if thresholds.device != mat.device:
+    raise ValueError("threshold_symmetrize_general_batched: thresholds on "
+                     f"{thresholds.device}, matrix on {mat.device}")
+  out = torch.empty_like(mat)
+  if b and n:
+    _launch("sct_threshold_symmetrize_batched", mat.data_ptr(),
+            thresholds.data_ptr(), out.data_ptr(), b, n, float(multiplier),
+            int(binarize), int(preserve_diagonal), int(average), _stream(mat))
+    threshold_symmetrize_general_batched.launches += 1
+  return out
+
+
 WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
-            row_wise_normalize)
+            row_wise_normalize, affinity_batched, row_max_batched,
+            crop_diagonal_batched, threshold_symmetrize_general_batched)
 
 
 def reset_launch_counts():

@@ -3,7 +3,8 @@
 Port of ``spectralcluster_tpu/ops/affinity.py``: cosine affinity, and the
 scipy ``cdist`` metrics that K-Means reads (reference
 custom_distance_kmeans.py:123-125). Each distance maps (N, d), (K, d) ->
-(N, K) on the inputs' device.
+(N, K) on the inputs' device, and all but mahalanobis map a batch (B, N, d),
+(B, K, d) -> (B, N, K) too (``get_batched_distance_fn``).
 """
 
 from __future__ import annotations
@@ -13,27 +14,32 @@ import typing
 import torch
 
 
+def _t(y: torch.Tensor) -> torch.Tensor:
+  return y.transpose(-1, -2)
+
+
 def compute_affinity_matrix(embeddings: torch.Tensor) -> torch.Tensor:
   """Cosine affinity in [0, 1]: ((x·y)/(|x||y|) + 1) / 2.
 
-  Matches reference utils.py:20-41. Input (N, d) -> output (N, N).
+  Matches reference utils.py:20-41. Input (N, d) -> output (N, N), or
+  (B, N, d) -> (B, N, N).
   """
-  norms = torch.linalg.norm(embeddings, dim=1, keepdim=True)
+  norms = torch.linalg.norm(embeddings, dim=-1, keepdim=True)
   normalized = embeddings / norms
-  cosine = torch.matmul(normalized, normalized.T)
+  cosine = torch.matmul(normalized, _t(normalized))
   return (cosine + 1.0) / 2.0
 
 
 def cdist_cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-  xn = torch.linalg.norm(x, dim=1, keepdim=True)
-  yn = torch.linalg.norm(y, dim=1, keepdim=True)
-  return 1.0 - torch.matmul(x, y.T) / (xn * yn.T)
+  xn = torch.linalg.norm(x, dim=-1, keepdim=True)
+  yn = torch.linalg.norm(y, dim=-1, keepdim=True)
+  return 1.0 - torch.matmul(x, _t(y)) / (xn * _t(yn))
 
 
 def cdist_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-  x2 = torch.sum(x * x, dim=1, keepdim=True)
-  y2 = torch.sum(y * y, dim=1, keepdim=True)
-  d2 = x2 + y2.T - 2.0 * torch.matmul(x, y.T)
+  x2 = torch.sum(x * x, dim=-1, keepdim=True)
+  y2 = torch.sum(y * y, dim=-1, keepdim=True)
+  d2 = x2 + _t(y2) - 2.0 * torch.matmul(x, _t(y))
   return torch.clamp_min(d2, 0.0)
 
 
@@ -42,7 +48,7 @@ def cdist_euclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _abs_diff(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-  return torch.abs(x[:, None, :] - y[None, :, :])
+  return torch.abs(x[..., :, None, :] - y[..., None, :, :])
 
 
 def cdist_cityblock(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -54,19 +60,20 @@ def cdist_chebyshev(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def cdist_correlation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-  return cdist_cosine(x - torch.mean(x, dim=1, keepdim=True),
-                      y - torch.mean(y, dim=1, keepdim=True))
+  return cdist_cosine(x - torch.mean(x, dim=-1, keepdim=True),
+                      y - torch.mean(y, dim=-1, keepdim=True))
 
 
 def cdist_braycurtis(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   diff = torch.sum(_abs_diff(x, y), dim=-1)
-  summ = torch.sum(torch.abs(x[:, None, :] + y[None, :, :]), dim=-1)
+  summ = torch.sum(torch.abs(x[..., :, None, :] + y[..., None, :, :]),
+                   dim=-1)
   return diff / summ
 
 
 def cdist_canberra(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   num = _abs_diff(x, y)
-  den = torch.abs(x)[:, None, :] + torch.abs(y)[None, :, :]
+  den = torch.abs(x)[..., :, None, :] + torch.abs(y)[..., None, :, :]
   # scipy convention: terms with 0/0 contribute 0.
   terms = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), 0.0)
   return torch.sum(terms, dim=-1)
@@ -133,3 +140,18 @@ def get_distance_fn(
         f"Unsupported distance {custom_dist!r}; supported: "
         f"{supported_distances()} or a callable f(u, v) -> float.")
   raise TypeError("custom_dist must be a string or callable")
+
+
+def get_batched_distance_fn(
+    custom_dist: typing.Union[str, typing.Callable],
+) -> typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+  """``get_distance_fn`` over a batch: (B, N, d), (B, K, d) -> (B, N, K).
+
+  The named metrics broadcast over the batch axis. Mahalanobis estimates
+  its covariance from each utterance's own rows, and a callable sees
+  single vectors: both run utterance by utterance.
+  """
+  fn = get_distance_fn(custom_dist)
+  if callable(custom_dist) or custom_dist.lower() == "mahalanobis":
+    return lambda x, y: torch.stack([fn(xi, yi) for xi, yi in zip(x, y)])
+  return fn

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from spectralcluster_tpu_torch.types import EPS, EigenGapType
+from spectralcluster_tpu_torch.utils import per_matrix, valid_mask
 
 
 def _sort_eigs(w: torch.Tensor, v: torch.Tensor,
@@ -45,7 +46,7 @@ def sorted_eigh(mat: torch.Tensor,
   """Symmetric eigendecomposition with eigenvalues sorted as requested."""
   w, v = torch.linalg.eigh(mat)
   if descend:
-    return torch.flip(w, (0,)), torch.flip(v, (1,))
+    return torch.flip(w, (-1,)), torch.flip(v, (-1,))
   return w, v
 
 
@@ -75,12 +76,13 @@ def recover_similarity_eigenvectors(
   """
   if vec_scale is None:
     return u
-  v = vec_scale[:, None] * u
+  v = vec_scale[..., :, None] * u
   if n_valid is None:
-    norms = torch.linalg.norm(v, dim=0)
+    norms = torch.linalg.norm(v, dim=-2, keepdim=True)
   else:
-    valid = (torch.arange(v.shape[0], device=v.device) < n_valid)[:, None]
-    norms = torch.linalg.norm(torch.where(valid, v, 0.0), dim=0)
+    valid = valid_mask(v.shape[-2], n_valid, v.device)[..., :, None]
+    norms = torch.linalg.norm(torch.where(valid, v, 0.0), dim=-2,
+                              keepdim=True)
   return v / torch.where(norms > 0, norms, 1.0)
 
 
@@ -118,9 +120,12 @@ def snap_small_eigenvalues(w: torch.Tensor, n_valid=None,
   if n_valid is None:
     valid = torch.ones(w.shape, dtype=torch.bool, device=w.device)
   else:
-    valid = torch.arange(w.shape[0], device=w.device) < n_valid
+    valid = valid_mask(w.shape[-1], n_valid, w.device)
   if wmax is None:
-    wmax = torch.amax(torch.where(valid, torch.abs(w), 0.0))
+    wmax = torch.amax(torch.where(valid, torch.abs(w), 0.0), dim=-1,
+                      keepdim=True)
+  else:
+    wmax = per_matrix(wmax, 2)
   snap = valid & (torch.abs(w) < tol * wmax)
   return torch.where(snap, 0.0, w)
 
@@ -155,29 +160,31 @@ def compute_number_of_clusters(
   if not isinstance(eigengap_type, EigenGapType):
     raise TypeError("eigengap_type must be a EigenGapType")
   dev = eigenvalues.device
-  n = eigenvalues.shape[0]
+  n = eigenvalues.shape[-1]
+  batch = eigenvalues.shape[:-1]
   range_end = n
   if max_clusters and max_clusters + 1 < range_end:
     range_end = max_clusters + 1
-  zero = (torch.zeros((), dtype=torch.int32, device=dev),
-          torch.zeros((), dtype=eigenvalues.dtype, device=dev))
+  zero = (torch.zeros(batch, dtype=torch.int32, device=dev),
+          torch.zeros(batch, dtype=eigenvalues.dtype, device=dev))
 
   idx = torch.arange(n, device=dev)
-  n_valid_arr = torch.as_tensor(n if n_valid is None else n_valid,
-                                dtype=torch.int32, device=dev)
+  n_valid_arr = per_matrix(torch.as_tensor(n if n_valid is None else n_valid,
+                                           dtype=torch.int32, device=dev), 2)
 
   def norm_max():
     if wmax is not None:
-      return wmax
-    return torch.amax(torch.where(idx < n_valid_arr, eigenvalues, -torch.inf))
+      return per_matrix(wmax, 2)
+    return torch.amax(torch.where(idx < n_valid_arr, eigenvalues, -torch.inf),
+                      dim=-1, keepdim=True)
 
   if descend:
     if n < 2:
       return zero
-    lead = eigenvalues[:-1]      # w[i-1] for i = 1..n-1
-    lag = eigenvalues[1:]        # w[i]
+    lead = eigenvalues[..., :-1]      # w[i-1] for i = 1..n-1
+    lag = eigenvalues[..., 1:]        # w[i]
     # Break: iteration i runs only while all previous w[j-1] >= stop.
-    alive = torch.cumprod((lead >= stop_eigenvalue).to(torch.int32), 0) > 0
+    alive = torch.cumprod((lead >= stop_eigenvalue).to(torch.int32), -1) > 0
     pos = idx[:-1] + 1           # the loop variable i
     in_range = (pos < range_end) & (pos < n_valid_arr)
     if eigengap_type == EigenGapType.Ratio:
@@ -189,8 +196,8 @@ def compute_number_of_clusters(
   else:
     if n < 3:
       return zero
-    cur = eigenvalues[1:-1]      # w[i] for i = 1..n-2
-    nxt = eigenvalues[2:]        # w[i+1]
+    cur = eigenvalues[..., 1:-1]      # w[i] for i = 1..n-2
+    nxt = eigenvalues[..., 2:]        # w[i+1]
     pos = idx[1:-1]              # the loop variable i
     in_range = (pos < range_end - 1) & (pos + 1 < n_valid_arr)
     if eigengap_type == EigenGapType.Ratio:
@@ -199,9 +206,9 @@ def compute_number_of_clusters(
       delta = (nxt - cur) / norm_max()
     masked = torch.where(in_range, delta, -torch.inf)
     offset = 2                   # index i means i+1 clusters
-  best = torch.amax(masked)
+  best = torch.amax(masked, dim=-1)
   # torch.argmax returns the first maximal index, as jnp.argmax does.
-  best_i = torch.argmax(masked) + offset
+  best_i = torch.argmax(masked, dim=-1) + offset
   n_clusters = torch.where(best > 0, best_i, 0).to(torch.int32)
   return n_clusters, torch.clamp_min(best, 0.0)
 
@@ -222,19 +229,20 @@ def apply_padding_sentinels(mat: torch.Tensor, n_valid,
   backward error is relative to ‖A‖, so fixed huge sentinels would inject
   error into the valid eigenvalues.
   """
-  n = mat.shape[0]
+  n = mat.shape[-1]
   idx = torch.arange(n, device=mat.device)
-  v = idx < n_valid
-  keep = v[:, None] & v[None, :]
+  v = valid_mask(n, n_valid, mat.device)
+  keep = v[..., :, None] & v[..., None, :]
   out = torch.where(keep, mat, 0.0)
-  bound = torch.amax(torch.sum(torch.where(keep, torch.abs(out), 0.0), dim=1))
+  bound = torch.amax(torch.sum(torch.where(keep, torch.abs(out), 0.0),
+                               dim=-1), dim=-1, keepdim=True)
   base = 1.25 * bound + 1.0
   step = 0.01 * bound + 0.01
   sign = -1.0 if descend else 1.0
   sentinels = sign * (base + idx.to(mat.dtype) * step)
-  diag = torch.diagonal(out)
+  diag = torch.diagonal(out, dim1=-2, dim2=-1)
   diag_vals = torch.where(v, diag, sentinels)
-  return out - torch.diag(diag) + torch.diag(diag_vals)
+  return out - torch.diag_embed(diag) + torch.diag_embed(diag_vals)
 
 
 # ---------------------------------------------------------------------------

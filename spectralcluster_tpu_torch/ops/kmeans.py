@@ -7,16 +7,25 @@ Port of ``spectralcluster_tpu/ops/kmeans.py``, with the host-facing
     own stream (``prng.py``, threefry2x32 in numpy) for
     ``PRNGKey(generator.initial_seed())``, over the rows of the JAX
     package's shape bucket, made on the host and moved to the data's
-    device: a CPU run, a card run and the JAX package pick the same
-    starting centroids for the same seed (up to a last-ulp difference of
-    float32 ``log`` between numpy and XLA).
+    device in one copy: a CPU run, a card run and the JAX package pick the
+    same starting centroids for the same seed (up to a last-ulp difference
+    of float32 ``log`` between numpy and XLA).
   * Lloyd iterations with the reference's exact convergence rule
-    (custom_distance_kmeans.py:120-133), as a Python loop that reads one
-    scalar per round: stop when the mean assigned distance is within
-    (1 - tol) of the previous round's, or after max_iter + 1 rounds, and
-    return that round's labels.
+    (custom_distance_kmeans.py:120-133), evaluated on the device as the
+    JAX package's ``lax.while_loop`` does: stop when the mean assigned
+    distance is within (1 - tol) of the previous round's, or after
+    max_iter + 1 rounds, and return that round's labels. Once stopped the
+    centroids are frozen (``torch.where``), so the host reads the stop flag
+    only every ``STOP_CHECK_ROUNDS`` rounds; the rounds run past the stop
+    change nothing.
   * Fully masked: a number of clusters below the centroid count (surplus
     centroid columns get +inf distance) and weight-0 (padded) rows.
+  * Batched (``kmeans_plusplus_batched``, ``lloyd_iterations_batched``,
+    ``kmeans_fit_batched``): B utterances at once, (B, N, k) points, one
+    key, cluster count, weight row and stop flag each, as the JAX
+    package's vmap of ``kmeans_fit``. The Lloyd loop runs while any
+    utterance is live, and a finished one is frozen. The single-utterance
+    functions run the same code with no batch axis.
 """
 
 from __future__ import annotations
@@ -30,6 +39,59 @@ import torch
 from spectralcluster_tpu_torch import prng
 from spectralcluster_tpu_torch import utils
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+
+# Lloyd rounds between two host reads of the stop flags. It bounds the
+# rounds run after every utterance has stopped (at most this many less
+# one); a frozen state makes them change nothing, so it cannot change a
+# label.
+STOP_CHECK_ROUNDS = 16
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """x[..., idx, :] per batch: (..., N, d) and (..., t) -> (..., t, d)."""
+  return torch.take_along_dim(x, idx[..., :, None], dim=-2)
+
+
+def _plusplus(x: torch.Tensor, k_max: int, keys: np.ndarray, w: torch.Tensor,
+              rows: int) -> torch.Tensor:
+  """Greedy k-means++ over x (N, d) or (B, N, d), one raw ``prng`` key per
+  utterance in ``keys`` ((1, 2) or (B, 2)). Every Gumbel draw of every
+  utterance is made on the host and moved to the device in one copy."""
+  n, d = x.shape[-2:]
+  batch = x.shape[:-2]
+  trials = 2 + int(math.log(max(k_max, 1)))
+  draws = []
+  for key in keys:
+    sub = prng.split(key, k_max + 1)
+    draws.append(np.concatenate(
+        [prng.gumbel(sub[0], (1, rows))[:, :n]]
+        + [prng.gumbel(sub[j], (trials, rows))[:, :n]
+           for j in range(1, k_max)]))
+  g = torch.from_numpy(np.stack(draws)).to(x.device, x.dtype)
+  g = g.reshape(batch + g.shape[1:])          # (..., 1 + (k_max-1)·trials, n)
+  valid = w > 0
+
+  c0 = torch.argmax(torch.log(w + 1e-30) + g[..., 0, :], dim=-1)
+  centers = torch.zeros(batch + (k_max, d), dtype=x.dtype, device=x.device)
+  first = _take_rows(x, c0[..., None])                     # (..., 1, d)
+  centers[..., 0, :] = first[..., 0, :]
+  closest = affinity_ops.cdist_sqeuclidean(x, first)[..., 0]
+  closest = torch.where(valid, closest, 0.0)
+
+  for j in range(1, k_max):
+    logits = torch.where(valid, torch.log(closest + 1e-30), -torch.inf)
+    gj = g[..., 1 + (j - 1) * trials:1 + j * trials, :]
+    cand = torch.argmax(logits[..., None, :] + gj, dim=-1)  # (..., trials)
+    picked = _take_rows(x, cand)                            # (..., trials, d)
+    d_cand = affinity_ops.cdist_sqeuclidean(x, picked)      # (..., N, trials)
+    new_closest = torch.minimum(closest[..., :, None], d_cand)
+    new_closest = torch.where(valid[..., :, None], new_closest, 0.0)
+    pots = torch.sum(new_closest * w[..., :, None], dim=-2)
+    best = torch.argmin(pots, dim=-1)
+    centers[..., j, :] = _take_rows(picked, best[..., None])[..., 0, :]
+    closest = torch.take_along_dim(new_closest, best[..., None, None],
+                                   dim=-1)[..., 0]
+  return centers
 
 
 def kmeans_plusplus(
@@ -51,50 +113,100 @@ def kmeans_plusplus(
   past N carry zero weight there and are never drawn. Returns (k_max, d)
   centers.
   """
-  n, d = x.shape
+  n = x.shape[0]
   w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
-  valid = w > 0
-  rows = utils.pad_bucket(n) if draw_rows is None else draw_rows
   if key is None:
     key = prng.key(generator.initial_seed())
-  keys = prng.split(key, k_max + 1)
+  rows = utils.pad_bucket(n) if draw_rows is None else draw_rows
+  return _plusplus(x, k_max, np.asarray(key, np.uint32)[None], w, rows)
 
-  def gumbel(j, shape):
-    g = prng.gumbel(keys[j], shape + (rows,))[..., :n]
-    return torch.from_numpy(g).to(x.device, x.dtype)
 
-  c0 = torch.argmax(torch.log(w + 1e-30) + gumbel(0, ()))
-  centers = torch.zeros((k_max, d), dtype=x.dtype, device=x.device)
-  centers[0] = x[c0]
-  closest = affinity_ops.cdist_sqeuclidean(x, x[c0][None, :])[:, 0]
-  closest = torch.where(valid, closest, 0.0)
-  trials = 2 + int(math.log(max(k_max, 1)))
+def kmeans_plusplus_batched(
+    x: torch.Tensor,
+    k_max: int,
+    keys,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+    draw_rows: typing.Optional[int] = None) -> torch.Tensor:
+  """k-means++ of B utterances, (B, N, d) -> (B, k_max, d).
 
-  for j in range(1, k_max):
-    logits = torch.where(valid, torch.log(closest + 1e-30), -torch.inf)
-    cand = torch.argmax(logits[None, :] + gumbel(j, (trials,)), dim=1)
-    d_cand = affinity_ops.cdist_sqeuclidean(x, x[cand])     # (N, trials)
-    new_closest = torch.minimum(closest[:, None], d_cand)
-    new_closest = torch.where(valid[:, None], new_closest, 0.0)
-    pots = torch.sum(new_closest * w[:, None], dim=0)
-    best = torch.argmin(pots)
-    centers[j] = x[cand[best]]
-    closest = new_closest[:, best]
-  return centers
+  ``keys`` is (B, 2) uint32 JAX key data (``prng.key(seed + i)`` for
+  JAX's ``PRNGKey(seed + i)``); utterance b draws what ``kmeans_plusplus``
+  draws for ``key=keys[b]``, over ``draw_rows`` rows (default
+  ``utils.pad_bucket(N)``) of its (B, N) ``sample_weight``.
+  """
+  b, n = x.shape[:2]
+  keys = np.asarray(keys, np.uint32).reshape(b, 2)
+  w = torch.ones((b, n), dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  rows = utils.pad_bucket(n) if draw_rows is None else draw_rows
+  return _plusplus(x, k_max, keys, w, rows)
 
 
 def _update_centroids(x, labels, w, c):
   """Weighted segment means; empty clusters keep their centroid (and make
   no 0/0 on the way, so ``sanity.debug_nans`` stays quiet)."""
-  k_max = c.shape[0]
-  onehot = (labels[:, None] == torch.arange(k_max, device=x.device)[None, :])
-  onehot = onehot.to(x.dtype) * w[:, None]
-  counts = torch.sum(onehot, dim=0)
-  sums = torch.matmul(onehot.T, x)
-  filled = counts[:, None] > 0
-  return torch.where(filled, sums / torch.where(filled, counts[:, None], 1.0),
-                     c)
+  k_max = c.shape[-2]
+  onehot = (labels[..., :, None] == torch.arange(k_max, device=x.device))
+  onehot = onehot.to(x.dtype) * w[..., :, None]
+  counts = torch.sum(onehot, dim=-2)
+  sums = torch.matmul(onehot.transpose(-1, -2), x)
+  filled = counts[..., :, None] > 0
+  return torch.where(filled, sums / torch.where(filled, counts[..., :, None],
+                                                1.0), c)
+
+
+def _all_stopped(live: torch.Tensor, rounds: int, max_rounds: int,
+                 check_every: int) -> bool:
+  """Whether the loop may end after ``rounds`` rounds. By ``max_rounds``
+  every state has stopped, which needs no read; before it, the flags are
+  read on the host every ``check_every`` rounds only."""
+  if rounds >= max_rounds:
+    return True
+  return rounds % check_every == 0 and not bool(live.any())
+
+
+def _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w,
+           check_every=STOP_CHECK_ROUNDS):
+  """The Lloyd loop of ``lloyd_iterations`` over x (N, d) or a batch
+  (B, N, d), with the JAX package's stop rule on the device. Returns
+  (labels int32, centroids, rounds): ``rounds`` is each state's number of
+  assignment rounds, the stopping one included.
+
+  A stopped state keeps its centroids, so every later round assigns its
+  points exactly as its stopping round did: its labels and mean distance
+  need no freezing. Every live state has run every round, so JAX's
+  ``it >= max_iter`` is the host's round count, and the per-state count
+  is kept only to be returned. Each round is a fixed sequence of device
+  ops; the host reads the live flags every ``check_every`` rounds.
+  """
+  k_max = centroids.shape[-2]
+  batch = x.shape[:-2]
+  w_total = torch.sum(w, dim=-1)
+  weighted = w > 0
+  col_ok = utils.valid_mask(k_max, n_clusters, x.device)[..., None, :]
+
+  it = torch.zeros(batch, dtype=torch.int32, device=x.device)
+  prev = torch.zeros(batch, dtype=x.dtype, device=x.device)
+  live = torch.ones(batch, dtype=torch.bool, device=x.device)
+  c = centroids
+  for rounds in range(1, max_iter + 2):
+    dist = torch.where(col_ok, dist_fn(x, c), torch.inf)
+    labels = torch.argmin(dist, dim=-1)
+    mind = torch.amin(dist, dim=-1)
+    mean_dist = torch.sum(torch.where(weighted, mind, 0.0) * w,
+                          dim=-1) / w_total
+    it.add_(live)
+    if rounds > max_iter:  # JAX's it >= max_iter: every state stops
+      break
+    stop = (mean_dist <= prev) & (mean_dist >= (1.0 - tol) * prev)
+    live = live & ~stop
+    c = torch.where(live[..., None, None],
+                    _update_centroids(x, labels, w, c), c)
+    prev = mean_dist
+    if _all_stopped(live, rounds, max_iter + 1, check_every):
+      break
+  return labels.to(torch.int32), c, it
 
 
 def lloyd_iterations(
@@ -112,28 +224,29 @@ def lloyd_iterations(
   surplus centroid slots out of the assignment. ``torch.argmin`` returns the
   first minimal index, as ``jnp.argmin`` does, so ties break alike.
   """
-  n = x.shape[0]
-  k_max = centroids.shape[0]
-  w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
+  w = torch.ones(x.shape[:1], dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
-  w_total = torch.sum(w)
-  col_ok = torch.arange(k_max, device=x.device) < n_clusters
+  labels, c, _ = _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w)
+  return labels, c
 
-  it = 0
-  prev = torch.zeros((), dtype=x.dtype, device=x.device)
-  c = centroids
-  while True:
-    dist = torch.where(col_ok[None, :], dist_fn(x, c), torch.inf)
-    labels = torch.argmin(dist, dim=1)
-    mind = torch.amin(dist, dim=1)
-    mean_dist = torch.sum(torch.where(w > 0, mind, 0.0) * w) / w_total
-    stop = bool((mean_dist <= prev) & (mean_dist >= (1.0 - tol) * prev)) or (
-        it >= max_iter)
-    if stop:
-      return labels.to(torch.int32), c
-    c = _update_centroids(x, labels, w, c)
-    prev = mean_dist
-    it += 1
+
+def lloyd_iterations_batched(
+    x: torch.Tensor,
+    centroids: torch.Tensor,
+    n_clusters: torch.Tensor,
+    dist_fn: typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    max_iter: int = 10,
+    tol: float = 0.001,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """``lloyd_iterations`` of B utterances at once: x (B, N, k), centroids
+  (B, k_max, k), n_clusters (B,), sample_weight (B, N), ``dist_fn`` over
+  (B, N, k) and (B, k_max, k) (``affinity.get_batched_distance_fn``).
+  Returns (labels (B, N), centroids, rounds (B,)); utterance b's labels,
+  centroids and rounds are those of ``lloyd_iterations`` on it alone."""
+  w = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  return _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w)
 
 
 def standard_lloyd(
@@ -145,23 +258,29 @@ def standard_lloyd(
     sample_weight: typing.Optional[torch.Tensor] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
   """Plain euclidean Lloyd (the reference's `custom_dist falsy` sklearn branch,
-  custom_distance_kmeans.py:33-36): run until centers move < tol or max_iter."""
-  n = x.shape[0]
-  k_max = centroids.shape[0]
-  w = torch.ones((n,), dtype=x.dtype, device=x.device) if (
+  custom_distance_kmeans.py:33-36): run until centers move < tol or max_iter.
+
+  x (N, d) or a batch (B, N, d). The stop flag stays on the device and
+  freezes its centroids; the host reads it every ``STOP_CHECK_ROUNDS``
+  rounds.
+  """
+  k_max = centroids.shape[-2]
+  w = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
-  col_ok = torch.arange(k_max, device=x.device) < n_clusters
+  col_ok = utils.valid_mask(k_max, n_clusters, x.device)[..., None, :]
 
   def assign(c):
     dist = affinity_ops.cdist_sqeuclidean(x, c)
-    return torch.argmin(torch.where(col_ok[None, :], dist, torch.inf), dim=1)
+    return torch.argmin(torch.where(col_ok, dist, torch.inf), dim=-1)
 
   c = centroids
+  live = torch.ones(x.shape[:-2], dtype=torch.bool, device=x.device)
   for it in range(max_iter):
     new_c = _update_centroids(x, assign(c), w, c)
-    shift = torch.sum((new_c - c) ** 2)
-    c = new_c
-    if bool(shift < tol) or it + 1 >= max_iter:
+    shift = torch.sum((new_c - c) ** 2, dim=(-2, -1))
+    c = torch.where(live[..., None, None], new_c, c)
+    live = live & ~(shift < tol)
+    if _all_stopped(live, it + 1, max_iter, STOP_CHECK_ROUNDS):
       break
   return assign(c).to(torch.int32), c
 
@@ -199,6 +318,34 @@ def kmeans_fit(
   labels, _ = lloyd_iterations(x, centroids, n_clusters, dist_fn,
                                max_iter=max_iter, tol=tol,
                                sample_weight=sample_weight)
+  return labels
+
+
+def kmeans_fit_batched(
+    x: torch.Tensor,
+    n_clusters: torch.Tensor,
+    keys,
+    custom_dist: typing.Union[str, typing.Callable, None] = "cosine",
+    max_iter: int = 10,
+    tol: float = 0.001,
+    k_max: typing.Optional[int] = None,
+    sample_weight: typing.Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+  """``kmeans_fit`` of B utterances: x (B, N, k), n_clusters (B,), keys
+  (B, 2) JAX key data, sample_weight (B, N) -> labels (B, N) int32, as the
+  JAX package's vmap of ``kmeans_fit``. ``k_max`` defaults to the widest
+  count (read on the host)."""
+  if k_max is None:
+    k_max = int(torch.max(n_clusters))
+  centroids = kmeans_plusplus_batched(x, k_max, keys, sample_weight)
+  if not custom_dist:
+    labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,
+                               sample_weight=sample_weight)
+    return labels
+  dist_fn = affinity_ops.get_batched_distance_fn(custom_dist)
+  labels, _, _ = lloyd_iterations_batched(x, centroids, n_clusters, dist_fn,
+                                          max_iter=max_iter, tol=tol,
+                                          sample_weight=sample_weight)
   return labels
 
 

@@ -10,6 +10,8 @@ eigenvectors, so the pipeline runs a symmetric eigensolver throughout:
   RandomWalk:  L_rw = D̃^{-1} L  with D̃ = diag(d + eps)
                = D̃^{-1/2} (D̃^{-1/2} L D̃^{-1/2}) D̃^{1/2}
                → eigh(D̃^{-1/2} L D̃^{-1/2}); eigvecs v = D̃^{-1/2} u. Exact.
+
+Each function also takes a (B, N, N) batch with a (B,) ``n_valid``.
 """
 
 from __future__ import annotations
@@ -19,18 +21,19 @@ import typing
 import torch
 
 from spectralcluster_tpu_torch.types import EPS, LaplacianType
+from spectralcluster_tpu_torch.utils import valid_mask
 
 
 def _degree(affinity: torch.Tensor, n_valid=None) -> torch.Tensor:
-  """Row sums over the columns < n_valid."""
+  """Row sums over the columns < n_valid (a (B,) n_valid for a batch)."""
   if n_valid is None:
-    return torch.sum(affinity, dim=1)
-  v = torch.arange(affinity.shape[0], device=affinity.device) < n_valid
-  return torch.sum(torch.where(v[None, :], affinity, 0.0), dim=1)
+    return torch.sum(affinity, dim=-1)
+  v = valid_mask(affinity.shape[-1], n_valid, affinity.device)
+  return torch.sum(torch.where(v[..., None, :], affinity, 0.0), dim=-1)
 
 
 def _unnormalized(affinity: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-  return torch.diag(d) - affinity
+  return torch.diag_embed(d) - affinity
 
 
 def compute_laplacian(affinity: torch.Tensor,
@@ -48,10 +51,10 @@ def compute_laplacian(affinity: torch.Tensor,
     return lap
   elif laplacian_type == LaplacianType.RandomWalk:
     scale = 1.0 / (d + eps)
-    return scale[:, None] * lap
+    return scale[..., :, None] * lap
   elif laplacian_type == LaplacianType.GraphCut:
     scale = 1.0 / (torch.sqrt(d) + eps)
-    return scale[:, None] * lap * scale[None, :]
+    return scale[..., :, None] * lap * scale[..., None, :]
   raise ValueError("Unsupported laplacian_type.")
 
 
@@ -75,9 +78,9 @@ def laplacian_similarity(
     return lap, None
   elif laplacian_type == LaplacianType.GraphCut:
     scale = 1.0 / (torch.sqrt(d) + eps)
-    return scale[:, None] * lap * scale[None, :], None
+    return scale[..., :, None] * lap * scale[..., None, :], None
   elif laplacian_type == LaplacianType.RandomWalk:
     # Exact similarity including the reference's eps: D̃ = d + eps.
     inv_sqrt = 1.0 / torch.sqrt(d + eps)
-    return inv_sqrt[:, None] * lap * inv_sqrt[None, :], inv_sqrt
+    return inv_sqrt[..., :, None] * lap * inv_sqrt[..., None, :], inv_sqrt
   raise ValueError("Unsupported laplacian_type.")

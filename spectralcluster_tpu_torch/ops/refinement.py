@@ -4,13 +4,19 @@ Port of ``spectralcluster_tpu/ops/refinement.py``. Each op maps (N,N) ->
 (N,N) and takes an optional ``n_valid``, so a padded matrix reproduces the
 unpadded semantics on its valid block (invariant: padded rows/cols are zero
 on entry and re-zeroed on exit of every op). ``n_valid`` may be a Python int
-or a 0-dim tensor.
+or a 0-dim tensor. Every op also takes a (B, N, N) batch, the JAX package's
+``vmap`` written out: ``n_valid`` is then None or a (B,) tensor, and a
+``p_percentile`` a scalar or one value per matrix, (B,). Each matrix of a
+batch gets the bits it gets alone, the product of Diffuse up to the
+summation order of a batched matmul.
 
 ``apply_refinement_sequence(..., use_kernels=True)`` routes CropDiagonal,
 the RowWiseThreshold+Symmetrize pair and RowWiseNormalize to the wrappers of
 kernels/fused.py: the CUDA kernels for a tensor on the card, their plain
-twins for a tensor on the CPU. Diffuse stays ``torch.matmul`` (the JAX
-package left it to XLA).
+twins for a tensor on the CPU; a batch takes the batched wrappers, one
+launch each. Kernel 5 (RowWiseNormalize) has no batched form: a batch runs
+it once per matrix. Diffuse stays ``torch.matmul`` (the JAX package left it
+to XLA), a batched product for a batch.
 
 ``analyze_symmetry`` statically classifies the refined matrix so that a
 symmetric eigensolver serves wherever the structure allows (see the JAX
@@ -28,10 +34,7 @@ from spectralcluster_tpu_torch.ops import blur as blur_ops
 from spectralcluster_tpu_torch.ops import quantile as quantile_ops
 from spectralcluster_tpu_torch.types import (RefinementName, RefinementOptions,
                                              SymmetrizeType, ThresholdType)
-
-
-def _valid_mask(n: int, n_valid, device) -> torch.Tensor:
-  return torch.arange(n, device=device) < n_valid
+from spectralcluster_tpu_torch.utils import per_matrix, valid_mask
 
 
 def _eye(n: int, device) -> torch.Tensor:
@@ -42,8 +45,39 @@ def mask_padding(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """Zero out rows/cols beyond n_valid (no-op when n_valid is None)."""
   if n_valid is None:
     return mat
-  v = _valid_mask(mat.shape[0], n_valid, mat.device)
-  return torch.where(v[:, None] & v[None, :], mat, 0.0)
+  v = valid_mask(mat.shape[-1], n_valid, mat.device)
+  return torch.where(v[..., :, None] & v[..., None, :], mat, 0.0)
+
+
+# The kernel wrappers for one matrix or a batch.
+def _row_max_kernel(mat, exclude_diagonal=False, n_valid=None):
+  if mat.dim() == 3:
+    return fused_kernels.row_max_batched(mat, exclude_diagonal, n_valid)
+  return fused_kernels.row_max(mat, exclude_diagonal, n_valid)
+
+
+def _crop_diagonal_kernel(mat, n_valid, inplace):
+  if mat.dim() == 3:
+    return fused_kernels.crop_diagonal_batched(mat, n_valid, inplace)
+  return fused_kernels.crop_diagonal(mat, n_valid, inplace)
+
+
+def _threshold_symmetrize_kernel(mat, thr, *flags, average):
+  if mat.dim() == 3:
+    return fused_kernels.threshold_symmetrize_general_batched(
+        mat, thr, *flags, average=average)
+  return fused_kernels.threshold_symmetrize_general(mat, thr, *flags,
+                                                    average=average)
+
+
+def _row_wise_normalize_kernel(mat, n_valid):
+  if mat.dim() == 3:
+    # No batched form of kernel 5: one launch per matrix.
+    return torch.stack([
+        fused_kernels.row_wise_normalize(
+            m, None if n_valid is None else n_valid[i])
+        for i, m in enumerate(mat)])
+  return fused_kernels.row_wise_normalize(mat, n_valid)
 
 
 def crop_diagonal(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
@@ -52,14 +86,14 @@ def crop_diagonal(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   Reference refinement.py:136-151: the diagonal is zero-filled and counted
   in the max, so the result is >= 0 even for all-negative rows.
   """
-  n = mat.shape[0]
+  n = mat.shape[-1]
   eye = _eye(n, mat.device)
   off = torch.where(eye, 0.0, mat)
   if n_valid is not None:
-    v = _valid_mask(n, n_valid, mat.device)
-    off = torch.where(v[None, :], off, -torch.inf)
-  row_max = torch.amax(off, dim=1)
-  out = torch.where(eye, row_max[:, None], mat)
+    v = valid_mask(n, n_valid, mat.device)
+    off = torch.where(v[..., None, :], off, -torch.inf)
+  row_max = torch.amax(off, dim=-1)
+  out = torch.where(eye, row_max[..., :, None], mat)
   return mask_padding(out, n_valid)
 
 
@@ -74,14 +108,15 @@ def gaussian_blur(mat: torch.Tensor, sigma: float,
 
 def _row_thresholds(a: torch.Tensor, p_percentile,
                     thresholding_type: ThresholdType, n_valid) -> torch.Tensor:
-  """(N, 1) per-row thresholds of ``a`` for RowMax or Percentile."""
+  """(N, 1) per-row thresholds of ``a`` for Percentile ((B, N, 1) for a
+  batch)."""
   if thresholding_type == ThresholdType.Percentile:
     if n_valid is None:
       return quantile_ops.quantile_from_sorted(
-          quantile_ops.sort_rows(a), p_percentile)[:, None]
+          quantile_ops.sort_rows(a), p_percentile)[..., None]
     return quantile_ops.quantile_from_sorted_masked(
         quantile_ops.sort_rows_masked(a, n_valid), p_percentile,
-        n_valid)[:, None]
+        n_valid)[..., None]
   raise ValueError("Unsupported thresholding_type")
 
 
@@ -93,16 +128,17 @@ def row_wise_threshold(mat: torch.Tensor,
                        preserve_diagonal: bool = False,
                        n_valid=None) -> torch.Tensor:
   """Row-wise (soft) thresholding. Reference refinement.py:165-210."""
-  n = mat.shape[0]
+  n = mat.shape[-1]
   eye = _eye(n, mat.device)
   a = torch.where(eye, 0.0, mat) if preserve_diagonal else mat
   if thresholding_type == ThresholdType.RowMax:
     if n_valid is None:
-      row_max = torch.amax(a, dim=1)
+      row_max = torch.amax(a, dim=-1)
     else:
-      v = _valid_mask(n, n_valid, mat.device)
-      row_max = torch.amax(torch.where(v[None, :], a, -torch.inf), dim=1)
-    threshold = row_max[:, None] * p_percentile
+      v = valid_mask(n, n_valid, mat.device)
+      row_max = torch.amax(torch.where(v[..., None, :], a, -torch.inf),
+                           dim=-1)
+    threshold = row_max[..., :, None] * per_matrix(p_percentile, mat.dim())
   else:
     threshold = _row_thresholds(a, p_percentile, thresholding_type, n_valid)
   is_smaller = a < threshold
@@ -120,21 +156,21 @@ def symmetrize(mat: torch.Tensor,
                n_valid=None) -> torch.Tensor:
   """Reference refinement.py:213-226."""
   if symmetrize_type == SymmetrizeType.Max:
-    return torch.maximum(mat, mat.T)
+    return torch.maximum(mat, mat.transpose(-1, -2))
   elif symmetrize_type == SymmetrizeType.Average:
-    return 0.5 * (mat + mat.T)
+    return 0.5 * (mat + mat.transpose(-1, -2))
   raise ValueError("Unsupported symmetrize_type.")
 
 
 def diffuse(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """A @ A^T (reference refinement.py:229-234). Padded rows/cols stay zero."""
-  return torch.matmul(mat, mat.T)
+  return torch.matmul(mat, mat.transpose(-1, -2))
 
 
 def row_wise_normalize(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """Divide each row by its max (reference refinement.py:237-245)."""
   d = row_max_scale(mat, n_valid)
-  out = mat / d[:, None]
+  out = mat / d[..., :, None]
   return mask_padding(out, n_valid)
 
 
@@ -145,17 +181,18 @@ def row_max_scale(mat: torch.Tensor, n_valid=None,
   With ``use_kernels`` the reduction is the row_max kernel (its twin on the
   CPU), which gives the same maxima on valid rows.
   """
-  n = mat.shape[0]
+  n = mat.shape[-1]
   if use_kernels:
-    row_max = fused_kernels.row_max(mat, n_valid=n_valid)[:, 0]
+    row_max = _row_max_kernel(mat, n_valid=n_valid)[..., 0]
   elif n_valid is None:
-    return torch.amax(mat, dim=1)
+    return torch.amax(mat, dim=-1)
   else:
-    v = _valid_mask(n, n_valid, mat.device)
-    row_max = torch.amax(torch.where(v[None, :], mat, -torch.inf), dim=1)
+    v = valid_mask(n, n_valid, mat.device)
+    row_max = torch.amax(torch.where(v[..., None, :], mat, -torch.inf),
+                         dim=-1)
   if n_valid is None:
     return row_max
-  return torch.where(_valid_mask(n, n_valid, mat.device), row_max, 1.0)
+  return torch.where(valid_mask(n, n_valid, mat.device), row_max, 1.0)
 
 
 def apply_refinement_op(mat: torch.Tensor,
@@ -220,14 +257,14 @@ def apply_refinement_sequence(
       p = options.p_percentile if p_percentile is None else p_percentile
       preserve = options.thresholding_preserve_diagonal
       if options.thresholding_type == ThresholdType.RowMax:
-        thr = fused_kernels.row_max(
-            mat, exclude_diagonal=preserve, n_valid=n_valid) * p
+        thr = _row_max_kernel(mat, exclude_diagonal=preserve,
+                              n_valid=n_valid) * per_matrix(p, mat.dim())
       else:
-        a = torch.where(_eye(mat.shape[0], mat.device), 0.0,
+        a = torch.where(_eye(mat.shape[-1], mat.device), 0.0,
                         mat) if preserve else mat
         thr = _row_thresholds(a, p, options.thresholding_type,
                               n_valid).contiguous()
-      mat = fused_kernels.threshold_symmetrize_general(
+      mat = _threshold_symmetrize_kernel(
           mat, thr, options.thresholding_soft_multiplier,
           options.thresholding_with_binarization, preserve,
           average=(options.symmetrize_type == SymmetrizeType.Average))
@@ -235,13 +272,12 @@ def apply_refinement_sequence(
       i += 2
       continue
     if use_kernels and name == RefinementName.CropDiagonal:
-      mat = mask_padding(fused_kernels.crop_diagonal(
-          mat, n_valid=n_valid, inplace=(consume_input and i == 0)), n_valid)
+      mat = mask_padding(_crop_diagonal_kernel(
+          mat, n_valid, inplace=(consume_input and i == 0)), n_valid)
       i += 1
       continue
     if use_kernels and name == RefinementName.RowWiseNormalize:
-      mat = mask_padding(fused_kernels.row_wise_normalize(mat, n_valid),
-                         n_valid)
+      mat = mask_padding(_row_wise_normalize_kernel(mat, n_valid), n_valid)
       i += 1
       continue
     mat = apply_refinement_op(mat, name, options, p_percentile, n_valid)

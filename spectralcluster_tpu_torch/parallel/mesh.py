@@ -4,9 +4,12 @@ Port of ``spectralcluster_tpu/parallel/mesh.py``. The mesh is a 2-D grid
 of devices with the JAX package's axis names:
 
   * ``batch`` — data parallelism: independent utterances spread over
-    devices. The batch drivers (``parallel/batch.py``) use column 0 only,
-    shard k on ``devices[k, 0]`` (``batch_sharding``): the JAX package's DP
-    driver shards only the ``batch`` axis too;
+    devices. The batch drivers (``parallel/batch.py``) shard only this
+    axis, as the JAX package's DP driver does: shard k (``batch_rows``)
+    on ``devices[k, 0]`` in one process (``batch_sharding``), or on the
+    ranks of batch index k
+    of a distributed mesh, whose labels are gathered over each ``batch``
+    line;
   * ``model`` — matrix sharding of one large affinity: the row-sharded path
     (``parallel/sharded.py``) splits its N×N work over one ``model`` line of
     the mesh, rows ``row_sharding(mesh, n)[r]`` on shard r.
@@ -21,7 +24,8 @@ entry; the collectives then run between processes
 (``parallel/collectives.py``).
 
 The JAX module's ``NamedSharding`` helpers become what the port's drivers
-read: ``batch_sharding`` is the device of each utterance of a batch,
+read: ``batch_rows`` the utterances of each batch shard,
+``batch_sharding`` the device of each utterance of a batch,
 ``row_sharding`` the row range of each ``model`` shard, ``replicated``
 every device that holds a replicated value.
 """
@@ -111,16 +115,25 @@ def make_mesh(dp: typing.Optional[int] = None,
               None if ranks is None else ranks.reshape(dp, mp))
 
 
-def batch_sharding(mesh: Mesh, count: int) -> typing.List[torch.device]:
-  """The device of each of ``count`` utterances: the batch axis padded to
-  a multiple of dp, shard k on ``mesh.devices[k, 0]``. The batch drivers
-  run in one process: a mesh of ``torch.distributed`` ranks is refused."""
-  if mesh.ranks is not None:
-    raise ValueError("the batch drivers run in one process; pass a mesh of "
-                     "this process's devices (make_mesh(devices=...))")
+def batch_rows(mesh: Mesh, count: int) -> typing.List[typing.List[int]]:
+  """The rows each ``batch`` shard holds of a batch of ``count``
+  utterances: the batch axis padded to a multiple of dp, shard k holding
+  rows [k·⌈count/dp⌉, (k+1)·⌈count/dp⌉) less the padding (possibly
+  none)."""
   dp = mesh.shape["batch"]
   per_shard = -(-count // dp)
-  return [mesh.devices[j // per_shard, 0] for j in range(count)]
+  return [list(range(k * per_shard, min((k + 1) * per_shard, count)))
+          for k in range(dp)]
+
+
+def batch_sharding(mesh: Mesh, count: int) -> typing.List[torch.device]:
+  """The device of each of ``count`` utterances: the rows of batch shard k
+  (``batch_rows``) on ``mesh.devices[k, 0]``. On a mesh of
+  ``torch.distributed`` ranks that is the device of rank
+  ``mesh.ranks[k, 0]``; a rank computes the shard of its own batch index
+  (``batch.py``)."""
+  return [mesh.devices[k, 0]
+          for k, rows in enumerate(batch_rows(mesh, count)) for _ in rows]
 
 
 def row_sharding(mesh: Mesh, n: int) -> typing.List[slice]:

@@ -18,7 +18,10 @@ eigen operand -> eigenpairs -> snapped eigengap count -> masked K-Means.
     GENERAL structure, in-graph autotune) run as
     ``spectral_cluster_fixed_k``, as in JAX;
   * ``eig_topk_staged`` — the per-candidate refine -> top-k eig -> gap
-    evaluator that the clusterer's host flow uses at large N.
+    evaluator that the clusterer's host flow uses at large N;
+  * ``spectral_cluster_fixed_k_batched`` — the JAX package's ``vmap`` of
+    ``spectral_cluster_fixed_k`` (its batched step, parallel/batch.py):
+    a (B, N, d) chunk of padded utterances as one program, see below.
 
 Constraints (constraint.py) enter as ``constraint_matrix``, a keyword
 argument of every entry point, and apply where ``cfg.constraint_options``
@@ -49,6 +52,21 @@ extreme eigenpairs in scan order with a residual certificate, snapped
 against the solver's norm estimate; on a descending scan
 ``_warn_near_stop`` warns when the cluster count depends on digits that
 certificate cannot vouch for, as in JAX.
+
+The batched step. ``prepare_affinity``, ``refine_and_eigendecompose`` and
+the ops under them take a leading batch axis, with ``n_valid`` a (B,)
+tensor on the device: the affinity, CropDiagonal, the row maxima and the
+RowWiseThreshold+Symmetrize pair are one launch of a batched kernel per
+chunk, Diffuse and the E2CP products are batched matmuls, Auto and Eigh
+one batched ``torch.linalg.eigh``, and the eigengap count, the snap and
+the Lloyd stop flags are (B,) tensors on the device. Each utterance gets
+what the 2-D functions give it alone. Two routes loop over the chunk's
+utterances instead, as ROADMAP records: SubspaceIteration runs
+``topk_eigh_subspace_masked`` per utterance (JAX vmaps it, each lane
+frozen at its own convergence, which gives the same results), and the
+GENERAL structure runs the 2-D route per utterance (kernel 5 and the host
+eig). ``cfg.autotune``'s sweep evaluates its C candidates of B utterances
+as one (B·C, N, N) batch.
 
 Each entry point runs under ``precision.fp32_precision()`` (TF32 off).
 Randomness: the K-Means seeding takes a CPU ``torch.Generator`` where JAX
@@ -81,7 +99,7 @@ from spectralcluster_tpu_torch.types import (AutoTuneProxy, ConstraintOptions,
                                              EigenGapType, EigenSolver,
                                              LaplacianType, RefinementName,
                                              RefinementOptions)
-from spectralcluster_tpu_torch.utils import pad_bucket
+from spectralcluster_tpu_torch.utils import pad_bucket, valid_mask
 
 _SUBSPACE_SEED = 42
 _DC_SEED = 17
@@ -254,7 +272,8 @@ def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
     s = apply_seq(affinity, seq[:-1])
     d = refinement_ops.row_max_scale(s, n_valid, use_kernels=cfg.use_kernels)
     inv_sqrt = 1.0 / torch.sqrt(d)
-    m, scale = inv_sqrt[:, None] * s * inv_sqrt[None, :], inv_sqrt
+    m = inv_sqrt[..., :, None] * s * inv_sqrt[..., None, :]
+    scale = inv_sqrt
   else:
     refined = apply_seq(affinity, seq)
     if _constraint_after(cfg, constraint_matrix is not None):
@@ -277,6 +296,36 @@ def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
       largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
       residual_tol=cfg.subspace_residual_tol, max_iters=cfg.subspace_max_iters,
       drift_tol=cfg.subspace_drift_tol)
+
+
+def _subspace_each(m: torch.Tensor, cfg: PipelineConfig, n_valid,
+                   descend: bool):
+  """``_subspace`` on one matrix, or on each matrix of a (B, N, N) batch
+  (stacked (B, k), (B, N, k)): the JAX package vmaps the solver and each
+  lane stops at its own convergence, which gives the same results."""
+  if m.dim() == 2:
+    return _subspace(m, cfg, n_valid, descend)
+  ws, us = zip(*(_subspace(m[i], cfg, None if n_valid is None
+                           else n_valid[i], descend)
+                 for i in range(m.shape[0])))
+  return torch.stack(ws), torch.stack(us)
+
+
+def _per_utterance(affinity, cfg, p_percentile, n_valid, timings,
+                   constraint_matrix):
+  """``refine_and_eigendecompose`` on each matrix of a batch, stacked: the
+  GENERAL route, whose RowWiseNormalize (kernel 5) has no batched form and
+  whose eig runs on the host one matrix at a time."""
+
+  def at(t, i):
+    return t[i] if isinstance(t, torch.Tensor) and t.dim() > 0 else t
+
+  outs = [refine_and_eigendecompose(
+      affinity[i], cfg, p_percentile=at(p_percentile, i),
+      n_valid=at(n_valid, i), timings=timings,
+      constraint_matrix=at(constraint_matrix, i))
+          for i in range(affinity.shape[0])]
+  return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
@@ -386,9 +435,12 @@ def prepare_affinity(
     constraint_matrix: typing.Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
   """Cosine affinity of (N, d) embeddings, masked to n_valid, then the
-  constraint when ``cfg.constraint_options`` applies it before refinement."""
+  constraint when ``cfg.constraint_options`` applies it before refinement.
+  A (B, N, d) batch takes a (B,) n_valid and (B, N, N) constraints."""
   with fp32_precision():
-    if cfg.use_kernels:
+    if cfg.use_kernels and embeddings.dim() == 3:
+      affinity = fused_kernels.affinity_batched(embeddings)
+    elif cfg.use_kernels:
       affinity = fused_kernels.affinity(embeddings)
     else:
       affinity = affinity_ops.compute_affinity_matrix(embeddings)
@@ -417,11 +469,18 @@ def refine_and_eigendecompose(
   (``prepare_affinity`` applies it before). With ``timings`` (an
   observability.StageTimings), the GENERAL route's host eig is recorded as
   the stage "host_eig".
+
+  A (B, N, N) batch, with (B,) ``n_valid`` and ``p_percentile`` a scalar or
+  (B,), returns each result with a leading batch axis, each utterance's
+  equal to this function's on it alone (see the module docstring).
   """
   _check_supported(cfg)
   with_constraint = constraint_matrix is not None
   descend = _descend(cfg)
   structure = _solver_structure(cfg, with_constraint)
+  if affinity.dim() == 3 and structure == refinement_ops.GENERAL:
+    return _per_utterance(affinity, cfg, p_percentile, n_valid, timings,
+                          constraint_matrix)
   with fp32_precision():
     if structure == refinement_ops.GENERAL:
       ropts = cfg.refinement_options
@@ -445,7 +504,7 @@ def refine_and_eigendecompose(
                                         structure, consume_input,
                                         constraint_matrix)
       if cfg.eigensolver == EigenSolver.SubspaceIteration:
-        w, u = _subspace(m, cfg, n_valid, descend)
+        w, u = _subspace_each(m, cfg, n_valid, descend)
         eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
                                                                  n_valid)
         # The k extreme eigenpairs are all valid: no sentinels among them.
@@ -468,17 +527,18 @@ def spectral_embeddings_from_eigs(
 
   Columns >= n_clusters are zeroed: for the metrics used downstream zero
   coordinates are inert, so this equals the reference's slice
-  eigenvectors[:, :n] (spectral_clusterer.py:299-305).
+  eigenvectors[:, :n] (spectral_clusterer.py:299-305). A (B, N, K) batch
+  takes (B,) n_clusters and n_valid.
   """
-  emb = eigenvectors[:, :k_max]
-  col_ok = torch.arange(emb.shape[1], device=emb.device) < n_clusters
-  emb = torch.where(col_ok[None, :], emb, 0.0)
+  emb = eigenvectors[..., :k_max]
+  col_ok = valid_mask(emb.shape[-1], n_clusters, emb.device)
+  emb = torch.where(col_ok[..., None, :], emb, 0.0)
   if row_wise_renorm:
-    norms = torch.linalg.norm(emb, dim=1, keepdim=True)
+    norms = torch.linalg.norm(emb, dim=-1, keepdim=True)
     emb = emb / torch.where(norms > 0, norms, 1.0)
   if n_valid is not None:
-    row_ok = torch.arange(emb.shape[0], device=emb.device) < n_valid
-    emb = torch.where(row_ok[:, None], emb, 0.0)
+    row_ok = valid_mask(emb.shape[-2], n_valid, emb.device)
+    emb = torch.where(row_ok[..., :, None], emb, 0.0)
   return emb
 
 
@@ -504,6 +564,24 @@ def _cluster_from_eigs(eigenvectors, n_gap, cfg: PipelineConfig,
       sample_weight=weight)
   labels = torch.where(rows < (n if n_valid is None else n_valid), labels, 0)
   return labels, n_clusters
+
+
+def _cluster_from_eigs_batched(eigenvectors, n_gap, cfg: PipelineConfig,
+                               keys, n_valid, kmeans_tol):
+  """``_cluster_from_eigs`` of B utterances: (B, N, K) eigenvectors, (B,)
+  counts and n_valid, (B, 2) JAX key data. One batched K-Means."""
+  n_clusters = n_gap
+  if cfg.min_clusters is not None:
+    n_clusters = torch.clamp_min(n_clusters, cfg.min_clusters)
+  emb = spectral_embeddings_from_eigs(
+      eigenvectors, n_clusters, cfg.max_clusters, cfg.row_wise_renorm,
+      n_valid)
+  valid = valid_mask(emb.shape[-2], n_valid, emb.device)
+  labels = kmeans_ops.kmeans_fit_batched(
+      emb, n_clusters, keys, custom_dist=cfg.custom_dist,
+      max_iter=cfg.max_iter, tol=kmeans_tol, k_max=cfg.max_clusters,
+      sample_weight=valid.to(emb.dtype))
+  return torch.where(valid, labels, 0), n_clusters
 
 
 def _require_max_clusters(cfg: PipelineConfig):
@@ -533,14 +611,41 @@ def _autotune_sweep(affinity: torch.Tensor, cfg: PipelineConfig, n_valid,
         constraint_matrix=constraint_matrix)
     outs.append((w, v[:, :cfg.max_clusters], n_c, delta))
   ws, vs, ns, deltas = (torch.stack(t) for t in zip(*outs))
-  if cfg.autotune.proxy == AutoTuneProxy.PercentileSqrtOverNME:
-    ratios = torch.sqrt(1.0 - ps) / deltas
-  elif cfg.autotune.proxy == AutoTuneProxy.PercentileOverNME:
-    ratios = (1.0 - ps) / deltas
-  else:
-    raise ValueError("Unsupported value of AutoTuneProxy")
-  best = torch.argmin(ratios)
+  best = torch.argmin(_proxy_ratios(cfg.autotune.proxy, ps, deltas))
   return ws[best], vs[best], ns[best], deltas[best]
+
+
+def _proxy_ratios(proxy: AutoTuneProxy, ps: torch.Tensor,
+                  deltas: torch.Tensor) -> torch.Tensor:
+  """The AutoTune proxy of each candidate, minimized by the search."""
+  if proxy == AutoTuneProxy.PercentileSqrtOverNME:
+    return torch.sqrt(1.0 - ps) / deltas
+  elif proxy == AutoTuneProxy.PercentileOverNME:
+    return (1.0 - ps) / deltas
+  raise ValueError("Unsupported value of AutoTuneProxy")
+
+
+def evaluate_candidates_batched(affinity: torch.Tensor, cfg: PipelineConfig,
+                                ps: torch.Tensor, n_valid,
+                                constraint_matrices, k_cols: int):
+  """refine -> eig -> gap for C candidate p_percentiles of each of B
+  utterances, as one (B·C, N, N) batch: the JAX package's vmap over
+  candidates inside its vmap over utterances. ``affinity`` (B, N, N) is
+  not modified; ``ps`` is (B, C). Returns (eigenvalues (B, C, ·),
+  eigenvectors[..., :k_cols] (B, C, N, k_cols), n_clusters (B, C),
+  max_delta (B, C))."""
+  b, c = ps.shape
+
+  def repeat(t):
+    return None if t is None else t.repeat_interleave(c, dim=0)
+
+  w, v, n_c, delta = refine_and_eigendecompose(
+      repeat(affinity), cfg, p_percentile=ps.reshape(-1),
+      n_valid=repeat(n_valid), consume_input=True,
+      constraint_matrix=repeat(constraint_matrices))
+  v = v[..., :k_cols]
+  return (w.reshape((b, c) + w.shape[1:]), v.reshape((b, c) + v.shape[1:]),
+          n_c.reshape(b, c), delta.reshape(b, c))
 
 
 def spectral_cluster_fixed_k(
@@ -574,6 +679,64 @@ def spectral_cluster_fixed_k(
     del affinity
     labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
                                             generator, n_valid, kmeans_tol)
+  return labels, n_clusters, eigenvalues, max_delta
+
+
+def spectral_cluster_fixed_k_batched(
+    embeddings: torch.Tensor,
+    keys,
+    cfg: PipelineConfig,
+    constraint_matrices: typing.Optional[torch.Tensor] = None,
+    n_valid: typing.Optional[torch.Tensor] = None,
+    kmeans_tol: float = 0.001,
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The JAX package's vmap of ``spectral_cluster_fixed_k``
+  (pipeline.py:422-486) over a chunk of padded utterances, as one program.
+
+  ``embeddings`` (B, N, d) on the device that runs the chunk; ``keys``
+  (B, 2) uint32 JAX key data (``prng.key(seed + i)`` for JAX's
+  ``PRNGKey(seed + i)``), host data; ``constraint_matrices`` (B, N, N) or
+  None; ``n_valid`` (B,) integer tensor or None (every row valid). Returns
+  tensors (labels (B, N), n_clusters (B,), eigenvalues, max_delta (B,)),
+  utterance b's those of ``spectral_cluster_fixed_k`` on it alone with the
+  generator of its key's seed. With ``cfg.autotune`` every utterance's
+  level-1 sweep runs as one (B·C, N, N) batch.
+  """
+  _require_max_clusters(cfg)
+  _check_supported(cfg)
+  b, n = embeddings.shape[:2]
+  dev = embeddings.device
+  n_valid = (torch.full((b,), n, dtype=torch.int32, device=dev)
+             if n_valid is None else
+             torch.as_tensor(n_valid).to(device=dev, dtype=torch.int32))
+  with fp32_precision():
+    affinity = prepare_affinity(embeddings, cfg, n_valid, constraint_matrices)
+    if cfg.autotune is not None:
+      if RefinementName.RowWiseThreshold not in (
+          cfg.refinement_options.refinement_sequence or ()):
+        raise ValueError(
+            "AutoTune is only effective when the refinement sequence "
+            "contains RowWiseThreshold")
+      ps = torch.as_tensor(cfg.autotune.candidates(), dtype=torch.float32,
+                           device=dev).expand(b, -1)
+      ws, vs, ns, deltas = evaluate_candidates_batched(
+          affinity, cfg, ps, n_valid, constraint_matrices, cfg.max_clusters)
+      best = torch.argmin(_proxy_ratios(cfg.autotune.proxy, ps, deltas),
+                          dim=1)
+
+      def pick(t):
+        idx = best.reshape((b, 1) + (1,) * (t.dim() - 2))
+        return torch.take_along_dim(t, idx, dim=1)[:, 0]
+
+      eigenvalues, eigenvectors, n_gap, max_delta = (
+          pick(ws), pick(vs), pick(ns), pick(deltas))
+    else:
+      eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
+          affinity, cfg, n_valid=n_valid, consume_input=True,
+          constraint_matrix=constraint_matrices)
+    del affinity
+    labels, n_clusters = _cluster_from_eigs_batched(
+        eigenvectors, n_gap, cfg, keys, n_valid, kmeans_tol)
   return labels, n_clusters, eigenvalues, max_delta
 
 

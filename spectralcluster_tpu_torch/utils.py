@@ -40,6 +40,23 @@ def pad_bucket(n: int) -> int:
   return b
 
 
+def valid_mask(n: int, n_valid, device) -> torch.Tensor:
+  """``arange(n) < n_valid``: (n,) for an int or 0-dim n_valid, (B, n) for
+  a (B,) tensor, one count per matrix of a batch."""
+  if isinstance(n_valid, torch.Tensor) and n_valid.dim() > 0:
+    n_valid = n_valid[..., None]
+  return torch.arange(n, device=device) < n_valid
+
+
+def per_matrix(value, ndim: int):
+  """A per-matrix value of a batch, (B,), shaped (B, 1, ...) to broadcast
+  against (B, ...) tensors of ``ndim`` dims; a scalar or 0-dim value as
+  is."""
+  if isinstance(value, torch.Tensor) and value.dim() > 0:
+    return value.reshape(value.shape + (1,) * (ndim - 1))
+  return value
+
+
 def resolve_device(device) -> torch.device:
   """The torch device to run on; a CUDA device must exist."""
   dev = torch.device(device)

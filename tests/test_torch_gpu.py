@@ -104,6 +104,89 @@ def test_row_wise_normalize(cuda, n, n_valid):
                      fused.row_wise_normalize_plain(a, n_valid))
 
 
+# The batched forms (one launch per chunk): each against its twin, and
+# each utterance of the batch against the 2-D kernel on it alone.
+_BATCH_N_VALID = (1000, 937, 1, 500, 1000)
+
+
+def _batch(n, seed, device, shift=0.0):
+  gen = torch.Generator(device).manual_seed(seed)
+  return torch.randn((len(_BATCH_N_VALID), n, n), generator=gen,
+                     device=device) + shift
+
+
+@pytest.mark.parametrize("b,n,d", [(5, 1000, 100), (16, 1024, 256),
+                                   (3, 129, 33), (2, 1, 1)])
+def test_affinity_batched(cuda, b, n, d):
+  x = torch.as_tensor(
+      np.random.RandomState(0).randn(b, n, d).astype(np.float32)).to(cuda)
+  got = fused.affinity_batched(x)
+  torch.testing.assert_close(got, fused.affinity_plain(x), rtol=1e-5,
+                             atol=1e-6)
+  for i in range(b):
+    assert torch.equal(got[i], fused.affinity(x[i]))
+    assert torch.equal(got[i], got[i].T)
+
+
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_row_max_batched(cuda, exclude, ragged):
+  a = _batch(1000, 5, cuda, -0.5)
+  nv = torch.tensor(_BATCH_N_VALID, device=cuda) if ragged else None
+  got = fused.row_max_batched(a, exclude, nv)
+  assert torch.equal(got, fused.row_max_plain(a, exclude, nv))
+  for i in range(a.shape[0]):
+    assert torch.equal(got[i], fused.row_max(
+        a[i], exclude, _BATCH_N_VALID[i] if ragged else None))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_crop_diagonal_batched(cuda, inplace):
+  a = _batch(1001, 6, cuda, -3.0)
+  nv = torch.tensor(_BATCH_N_VALID, device=cuda)
+  want = fused.crop_diagonal_plain(a, nv)
+  assert torch.equal(fused.crop_diagonal_batched(a.clone(), nv, inplace),
+                     want)
+
+
+@pytest.mark.parametrize("flags", [
+    {}, dict(binarize=True, preserve_diagonal=True, average=True)])
+def test_threshold_symmetrize_batched(cuda, flags):
+  a = _batch(1000, 7, cuda)
+  thr = fused.row_max_plain(a) * 0.6
+  got = fused.threshold_symmetrize_general_batched(a, thr, 0.01, **flags)
+  assert torch.equal(got, fused.threshold_symmetrize_general_plain(
+      a, thr, 0.01, **flags))
+  assert torch.equal(got[2], fused.threshold_symmetrize_general(
+      a[2], thr[2], 0.01, **flags))
+
+
+def test_lloyd_reads_no_host_value_between_its_checks(cuda):
+  # The batched Lloyd loop on the card with every host read forbidden:
+  # with checks sparser than max_iter + 1 rounds it makes none, and its
+  # labels, centroids and rounds equal those of the checked loop.
+  from spectralcluster_tpu_torch.ops import affinity as t_aff
+  from spectralcluster_tpu_torch.ops import kmeans as t_kmeans
+  rng = np.random.RandomState(0)
+  x = torch.as_tensor(rng.randn(16, 1024, 7).astype(np.float32)).to(cuda)
+  w = torch.ones((16, 1024), device=cuda)
+  n_clusters = torch.tensor([2, 3, 4, 5, 6, 7, 7, 3] * 2, device=cuda)
+  keys = np.stack([np.array([0, i], np.uint32) for i in range(16)])
+  centroids = t_kmeans.kmeans_plusplus_batched(x, 7, keys, w)
+  dist = t_aff.get_batched_distance_fn("cosine")
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    got = t_kmeans._lloyd(x, centroids, n_clusters, dist, 300, 0.001, w,
+                          check_every=10_000)
+  finally:
+    torch.cuda.set_sync_debug_mode("default")
+  want = t_kmeans.lloyd_iterations_batched(x, centroids, n_clusters, dist,
+                                           300, 0.001, w)
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)
+
+
 def _reference(n):
   return np.load(os.path.join(os.path.dirname(__file__), os.pardir,
                               "benchmarks", "reference_labels.npz"))[
@@ -131,7 +214,8 @@ def test_host_general_predict_launches_all_five(cuda):
   result = configs.make_icassp2018_clusterer(
       eigensolver=EigenSolver.HostGeneral).predict_with_details(
           make_embeddings(512))
-  assert all(v > 0 for v in fused.launch_counts().values())
+  counts = fused.launch_counts()
+  assert all(counts[k] > 0 for k in _MAIN_KERNELS | {"row_wise_normalize"})
   assert "host_eig" in result.timings
   np.testing.assert_array_equal(utils.enforce_ordered_labels(result.labels),
                                 _reference(512))
@@ -304,8 +388,8 @@ def _batch_utterances(lengths, seed=0, d=64):
 
 
 def test_cluster_batch_card_matches_cpu(cuda):
-  # A ragged batch: the card's labels equal the CPU's, and each utterance
-  # launches kernels 1-4 (row_max twice).
+  # A ragged batch: the card's labels equal the CPU's, and the batched
+  # step launches kernels 1-4 once for the chunk (row_max twice).
   utts = _batch_utterances((300, 512, 200, 450, 512, 64))
   fused.reset_launch_counts()
   got = batch.cluster_batch(utts, _batch_cfg(), mesh_lib.make_mesh())
@@ -315,9 +399,12 @@ def test_cluster_batch_card_matches_cpu(cuda):
   for a, b in zip(got, want):
     np.testing.assert_array_equal(utils.enforce_ordered_labels(a),
                                   utils.enforce_ordered_labels(b))
-  assert counts == {"affinity": 6, "row_max": 12, "crop_diagonal": 6,
-                    "threshold_symmetrize_general": 6,
-                    "row_wise_normalize": 0}
+  # One chunk on one card: each batched kernel once (row_max twice).
+  assert counts == {"affinity": 0, "row_max": 0, "crop_diagonal": 0,
+                    "threshold_symmetrize_general": 0,
+                    "row_wise_normalize": 0, "affinity_batched": 1,
+                    "row_max_batched": 2, "crop_diagonal_batched": 1,
+                    "threshold_symmetrize_general_batched": 1}
 
 
 def test_cluster_batch_streamed_card_matches_serial(cuda):

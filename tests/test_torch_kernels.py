@@ -89,7 +89,14 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
       "ptxas info    : Function properties for "
       "_ZN12_GLOBAL__N_114row_max_kernelILb1EEEvPKfPfiii\n"
       "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-      "ptxas info    : Used 40 registers, used 0 barriers\n")
+      "ptxas info    : Used 40 registers, used 0 barriers\n"
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_114row_max_kernelILb0ELb1EEEvPKfPfiiiPKii' for "
+      "'sm_90a'\n"
+      "ptxas info    : Function properties for "
+      "_ZN12_GLOBAL__N_114row_max_kernelILb0ELb1EEEvPKfPfiiiPKii\n"
+      "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+      "ptxas info    : Used 32 registers, used 0 barriers\n")
   report = build.ptxas_report(str(log)[:-len(".log")])
   assert report == {
       "affinity_kernel": {"registers": 128, "static_smem": 0,
@@ -98,6 +105,8 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
                          "spill_stores": 4, "spill_loads": 8},
       "row_max_kernel<true>": {"registers": 40, "static_smem": 0,
                                "spill_stores": 0, "spill_loads": 0},
+      "row_max_kernel<false,true>": {"registers": 32, "static_smem": 0,
+                                     "spill_stores": 8, "spill_loads": 8},
   }
 
 
@@ -186,4 +195,5 @@ def test_launch_counters_are_plain_integers():
     assert isinstance(fn.launches, int)
   assert set(fused.launch_counts()) == {
       "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general",
-      "row_wise_normalize"}
+      "row_wise_normalize", "affinity_batched", "row_max_batched",
+      "crop_diagonal_batched", "threshold_symmetrize_general_batched"}

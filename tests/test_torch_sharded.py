@@ -91,6 +91,7 @@ class TestMeshHelpers:
     assert mesh.shape == {"batch": 4, "model": 2}
     assert mesh.ranks is None
     assert mesh_lib.row_sharding(mesh, 10) == [slice(0, 5), slice(5, 10)]
+    assert mesh_lib.batch_rows(mesh, 6) == [[0, 1], [2, 3], [4, 5], []]
     assert mesh_lib.batch_sharding(mesh, 6) == [CPU] * 6
     assert mesh_lib.replicated(mesh) == [CPU] * 8
     with pytest.raises(ValueError):
@@ -101,13 +102,14 @@ class TestMeshHelpers:
     assert collectives.model_group(mesh).shards == [0, 1]
 
   def test_no_silent_switch_between_backends(self):
-    # A mesh of torch.distributed ranks does not reach the single-process
-    # batch drivers, and a CUDA world without a card raises: nothing drops
-    # to gloo or to the CPU.
+    # A mesh of torch.distributed ranks runs the batch drivers only in a
+    # joined world: without one they raise instead of computing the rows
+    # of every rank in this process, and a CUDA world without a card
+    # raises: nothing drops to gloo or to the CPU.
     devices = np.empty((2,), dtype=object)
     devices[:] = [CPU, CPU]
     ranked = mesh_lib.Mesh(devices.reshape(2, 1), np.arange(2).reshape(2, 1))
-    with pytest.raises(ValueError, match="one process"):
+    with pytest.raises(ValueError, match="process group"):
       batch_lib.cluster_batch([np.zeros((8, 4), np.float32)], _cfg(), ranked)
     if not torch.cuda.is_available():
       with pytest.raises(RuntimeError, match="CUDA"):

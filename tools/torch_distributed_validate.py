@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Run the port's row-sharded path across torch.distributed ranks.
+"""Run the port's row-sharded path and batch drivers across
+torch.distributed ranks.
 
     python3 tools/torch_distributed_validate.py [--ranks 4]
     python3 tools/torch_distributed_validate.py --ranks 4 --device cuda \
-        --n 20480 --d 256 --warm-runs 2
+        --n 20480 --d 256 --warm-runs 2 --batch 64 --batch-n 1024
 
 Starts ``--ranks`` processes on this machine that join one world at a free
 localhost port (``parallel/mesh.initialize_distributed``, called twice:
@@ -23,7 +24,16 @@ card r (``--device cuda``, one card per rank). Each rank checks:
     a value that differs per rank;
   * no op of the distributed run makes a tensor larger than
     (N_pad/P + 2r)·N_pad elements (r the blur radius): no rank holds an
-    (N, N) matrix.
+    (N, N) matrix;
+  * the batch leg (as the JAX package's ``benchmarks/multihost_validate.py``
+    runs its DP step across processes): ``cluster_batch``,
+    ``cluster_batch_streamed`` (chunk 4, window 2) and
+    ``cluster_batch_autotuned`` (a two-level search with constraints) on a
+    mesh of the world's ranks, ``--batch`` ragged utterances of up to
+    ``--batch-n`` rows (the default 7 does not divide 2 or 4 ranks), give
+    every rank the labels of the same drivers in one process on a mesh of
+    as many shards on the rank's device; with 4 ranks also on a (2, 2)
+    mesh; a rank that passes other utterances makes every rank raise.
 
 With ``--warm-runs`` each rank also times that many more runs of each form
 (host clock, card synced) beside as many of the in-process shards, with
@@ -55,8 +65,94 @@ def _free_port() -> int:
     return s.getsockname()[1]
 
 
+def _batch_leg(rank: int, world: int, dev, d: int, batch: int, batch_n: int,
+               warm_runs: int, sync) -> dict:
+  """The batch drivers on a mesh of the world's ranks against the same
+  drivers with as many shards in this process."""
+  import numpy as np
+  import torch
+
+  from spectralcluster_tpu_torch import configs, pipeline
+  from spectralcluster_tpu_torch import types as types_lib
+  from spectralcluster_tpu_torch.autotune import AutoTune
+  from spectralcluster_tpu_torch.fixtures import make_batch
+  from spectralcluster_tpu_torch.parallel import batch as batch_lib
+  from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
+
+  full, _ = make_batch(batch, batch_n, d)
+  # Ragged: utterance i loses (i % 4) eighths of its rows.
+  utts = [u[:batch_n - (i % 4) * (batch_n // 8)] for i, u in enumerate(full)]
+  cfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options().replace(
+          gaussian_blur_sigma=0),
+      min_clusters=2, max_clusters=4, custom_dist="cosine", max_iter=30)
+  t2d_cfg = pipeline.PipelineConfig(
+      refinement_options=configs.turntodiarize_refinement_options(),
+      constraint_options=configs.turntodiarize_constraint_options(),
+      laplacian_type=types_lib.LaplacianType.GraphCut, min_clusters=1,
+      max_clusters=5, row_wise_renorm=True, custom_dist="cosine")
+  cms = []
+  for u in utts:
+    cm = np.zeros((u.shape[0],) * 2, np.float32)
+    for j in range(u.shape[0] - 1):
+      cm[j, j + 1] = cm[j + 1, j] = 1.0 if j % 3 else -1.0
+    cms.append(cm)
+
+  def autotune():
+    return AutoTune(p_percentile_min=0.60, p_percentile_max=0.95,
+                    init_search_step=0.05, search_level=2)
+
+  drivers = {
+      "cluster_batch": lambda mesh: batch_lib.cluster_batch(
+          utts, cfg, mesh, seed=3),
+      "cluster_batch_streamed": lambda mesh: batch_lib.cluster_batch_streamed(
+          utts, cfg, mesh, chunk=4, window=2),
+      "cluster_batch_autotuned": lambda mesh:
+          batch_lib.cluster_batch_autotuned(
+              utts, t2d_cfg, autotune(), mesh, constraint_matrices=cms),
+  }
+  ranked = mesh_lib.make_mesh(dp=world, mp=1)
+  local = mesh_lib.make_mesh(dp=world, mp=1, devices=[dev] * world)
+
+  def equal(a, b):
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+  def timed(fn, mesh):
+    sync()
+    t0 = time.perf_counter()
+    fn(mesh)
+    sync()
+    return time.perf_counter() - t0
+
+  out = {"batch": batch, "batch_n": batch_n}
+  for name, fn in drivers.items():
+    got, want = fn(ranked), fn(local)
+    assert equal(got, want), name
+    out[name] = {"batch_equal_single_process": True}
+    if warm_runs:
+      out[name]["distributed_warm_s"] = [timed(fn, ranked)
+                                         for _ in range(warm_runs)]
+      out[name]["in_process_warm_s"] = [timed(fn, local)
+                                        for _ in range(warm_runs)]
+  if world == 4:
+    grid = mesh_lib.make_mesh(dp=2, mp=2)
+    got = drivers["cluster_batch"](grid)
+    want = drivers["cluster_batch"](
+        mesh_lib.make_mesh(dp=2, mp=1, devices=[dev] * 2))
+    assert equal(got, want)
+    out["grid_2x2_batch_equal_single_process"] = True
+  try:
+    batch_lib.cluster_batch(utts[:-1] if rank == 0 else utts, cfg, ranked)
+    raise RuntimeError("ranks with other utterances were not caught")
+  except ValueError:
+    out["batch_mismatch_caught"] = True
+  torch.distributed.barrier()
+  return out
+
+
 def _worker(rank: int, world: int, port: int, device: str, n: int, d: int,
-            warm_runs: int) -> None:
+            warm_runs: int, batch: int, batch_n: int) -> None:
   import numpy as np
   import torch
   import torch.distributed as dist
@@ -169,6 +265,8 @@ def _worker(rank: int, world: int, port: int, device: str, n: int, d: int,
         x, cfg, mesh_lib.make_mesh(dp=1, mp=2, devices=[dev] * 2))
     assert got_n == want_n and ordered(got) == ordered(want)
     report["grid_2x2_labels_equal_in_process"] = True
+  report["batch_leg"] = _batch_leg(rank, world, dev, d, batch, batch_n,
+                                   warm_runs, sync)
   dist.barrier()
   dist.destroy_process_group()
   print(json.dumps(report), flush=True)
@@ -182,13 +280,19 @@ def main() -> int:
                       help="rows; the default does not divide 2 or 4")
   parser.add_argument("--d", type=int, default=32)
   parser.add_argument("--warm-runs", type=int, default=0)
+  parser.add_argument("--batch", type=int, default=7,
+                      help="utterances of the batch leg; the default does "
+                           "not divide 2 or 4")
+  parser.add_argument("--batch-n", type=int, default=32,
+                      help="rows of the longest utterance of the batch leg")
   parser.add_argument("--timeout", type=float, default=100.0,
                       help="seconds until unfinished ranks are killed")
   args = parser.parse_args()
   port = _free_port()
   ctx = multiprocessing.get_context("spawn")
   procs = [ctx.Process(target=_worker, args=(
-      r, args.ranks, port, args.device, args.n, args.d, args.warm_runs))
+      r, args.ranks, port, args.device, args.n, args.d, args.warm_runs,
+      args.batch, args.batch_n))
            for r in range(args.ranks)]
   for p in procs:
     p.start()
