@@ -18,10 +18,11 @@ result line):
      N=1000 with n_valid=937 on a matrix with negative entries; kernels 2-5
      must agree bit for bit, the affinity within rtol=1e-5, atol=1e-6 (its
      float32 sums run in another order) and equal to its transpose bit for
-     bit. The batched forms of kernels 1-4 (the batched step's vmap) the
-     same way at the batch path's B=16, N=1024 (d=256) and on a ragged
-     batch of five N=1000 matrices with n_valid (1000, 937, 1, 500, 1000)
-     read on the card; each affinity of a batch must also equal the 2-D
+     bit. The batched forms of kernels 1-5 (the batched step's vmap) the
+     same way at the batch path's B=16, N=1024 (d=256; kernel 5b on each
+     utterance's Diffuse output) and on a ragged batch of five N=1000
+     matrices with n_valid (1000, 937, 1, 500, 1000) read on the card; each
+     affinity and each kernel 5b matrix of a batch must also equal the 2-D
      kernel's bit for bit. Then times (CUDA events around 10 calls back to back behind one
      untimed call, median of 20 such means after warm-up) of each kernel,
      its twin and a one-call library yardstick where one exists (the
@@ -104,7 +105,18 @@ result line):
      synced around each, labels equal to the batch's; its Lloyd loop once
      more under torch.cuda.set_sync_debug_mode("error") with no stop check
      (no host read in any round), equal to the checked loop, and each
-     utterance's rounds. Then cluster_batch_streamed over
+     utterance's rounds. Then the batched step's other two eigensolvers on
+     the same utterances, each held against the 2-D pipeline run on each
+     utterance on the card (labels and counts equal) and against
+     tests/data/reference_batch_solvers.npz (the JAX package's labels, id
+     for id): SubspaceIteration on all 16 (one cold call, BATCH_WARM_RUNS
+     warm; launches 1/2/1/1 per chunk; Ritz values within
+     SOLVER_EIG_RTOL·max|λ| of the 2-D solve's; the batched solve alone
+     against the 2-D solve of each utterance in turn, with the iterations
+     of each), and HostGeneral on the first HOST_GENERAL_BATCH (one cold
+     call, one warm: kernels 1-5 in batched form once per chunk (row_max
+     once), the 2-D kernel 5 never; the chunk's host_eig seconds). Then
+     cluster_batch_streamed over
      make_batch(STREAMED_BATCH) with chunk=64, window=4 in float32: its
      first two chunks must equal cluster_batch on those chunks with
      seed=lo, its first 16 the reference id for id; launches 1/2/1/1 per
@@ -188,6 +200,9 @@ NV_BATCH_RAGGED = (1000, 937, 1, 500, 1000)   # the ragged batch's n_valid
 # eigh's eigenvectors and workspace.
 PEAK_BUFFERS = 8
 T2D_BATCH = 4
+HOST_GENERAL_BATCH = 4         # the batched HostGeneral leg: ~0.4 s of host
+                               # eig per utterance
+SOLVER_EIG_RTOL = 1e-4         # batched against 2-D Ritz values, of max|λ|
 AHC_ROWS = 600                 # the stream's U2: the largest pre-cluster
 SHARDS = 4                     # in-process shards of the row-sharded phase
 N_SHARDED_PAD = 20477          # N_SHARDED_PAD % SHARDS == 1: 3 pad rows
@@ -636,6 +651,20 @@ def main() -> int:
           fused.threshold_symmetrize_general_batched(mat, thr, 0.01, **flags),
           fused.threshold_symmetrize_general_plain(mat, thr, 0.01, **flags),
           True)
+  # Kernel 5b on its batched HostGeneral input (the Diffuse output of each
+  # utterance) and on the ragged batch; each matrix also against the 2-D
+  # kernel.
+  diffused_b = ref_ops.diffuse(
+      fused.threshold_symmetrize_general_batched(blurred_b, thr_b, 0.01))
+  for case, mat, nv, nvs in (
+      (f"{batch_case},Diffuse output", diffused_b, None, [None] * BATCH),
+      (ragged_case, ragged_b, nv_b, NV_BATCH_RAGGED)):
+    got = fused.row_wise_normalize_batched(mat, nv)
+    check("row_wise_normalize_batched", case, got,
+          fused.row_wise_normalize_plain(mat, nv), True)
+    check("row_wise_normalize_batched", f"{case},each against the 2-D kernel",
+          got, torch.stack([fused.row_wise_normalize(m, v)
+                            for m, v in zip(mat, nvs)]), True)
   del ragged_b, x_b_ragged
   failed = [c for c in checks if not c["ok"]]
   if failed:
@@ -701,6 +730,10 @@ def main() -> int:
           lambda: fused.threshold_symmetrize_general_plain(blurred_b, thr_b,
                                                            0.01),
           None, bb * (2 * nb * nb + nb) * 4, bb * 4 * nb * nb),
+      "row_wise_normalize_batched": (
+          lambda: fused.row_wise_normalize_batched(diffused_b),
+          lambda: fused.row_wise_normalize_plain(diffused_b), None,
+          bb * 2 * nb * nb * 4, bb * 2 * nb * nb),
   }
   # Why a kernel has no one-call library yardstick.
   no_library = {
@@ -714,6 +747,8 @@ def main() -> int:
       "threshold_symmetrize_general_batched": "no single PyTorch call: "
                                               "thresholding and the "
                                               "symmetrize are several calls",
+      "row_wise_normalize_batched": "no single PyTorch call: amax, then a "
+                                    "division",
   }
   times = {}
   with torch.no_grad():
@@ -758,6 +793,7 @@ def main() -> int:
   mark("kernels")
   del crop_scratch, blurred, ragged, aff, sym
   del x_b, aff_b, blurred_b, crop_scratch_b, thr_b, thr_b_ragged, nv_b
+  del diffused_b
 
   # 3b. The exact top-k route's parts, each alone, on the Auto operand.
   t_dc = cfg.max_clusters + 1
@@ -1438,6 +1474,161 @@ def main() -> int:
                      f"expected {per_chunk}")
   mark("batch")
 
+  # The batched step's other two eigensolvers on the same utterances: one
+  # batched SubspaceIteration solve per chunk (each utterance frozen at its
+  # own convergence), and HostGeneral's kernel 5b with one host eig of the
+  # chunk. Each is held against the 2-D pipeline on each utterance on the
+  # card and against the JAX package's labels
+  # (tests/data/reference_batch_solvers.npz).
+  solver_ref = np.load(os.path.join(HERE, "tests", "data",
+                                    "reference_batch_solvers.npz"))
+
+  def synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+  def per_utterance_2d(cfg, xs):
+    """The 2-D pipeline on each utterance alone, as a chunk holds it
+    (n_valid=N, the K-Means stream of PRNGKey(i))."""
+    return [pipeline.spectral_cluster_fixed_k(
+        x, torch.Generator().manual_seed(i), cfg, n_valid=N_BATCH)
+            for i, x in enumerate(xs)]
+
+  def ritz_err(w, want):
+    """max |w - want| over the first k, relative to max|want|."""
+    k = min(w.shape[-1], want.shape[-1], bcfg.max_clusters + 1)
+    return float(torch.amax(torch.abs(w[:k] - want[:k]))
+                 / torch.amax(torch.abs(want[:k])))
+
+  def against_2d(labels, n_clusters, w, alone):
+    return {
+        "labels_equal_2d": all(np.array_equal(a, b[0].cpu().numpy())
+                               for a, b in zip(labels, alone)),
+        "n_clusters_equal_2d": [int(a) for a in n_clusters] == [
+            int(b[1]) for b in alone],
+        "ritz_err_2d": max(ritz_err(a, b[2]) for a, b in zip(w, alone))}
+
+  x_b = torch.as_tensor(np.stack(utts)).to(dev)
+  nv_b = torch.full((BATCH,), N_BATCH, dtype=torch.int32, device=dev)
+  keys_b = np.stack([prng.key(i) for i in range(BATCH)])
+  scfg = bcfg.replace(eigensolver=EigenSolver.SubspaceIteration)
+  _, cold_s = timed_call(lambda: batch_lib.cluster_batch(utts, scfg, mesh))
+  fused.reset_launch_counts()
+  warm_s = []
+  for _ in range(BATCH_WARM_RUNS):
+    labels_s, seconds = timed_call(
+        lambda: batch_lib.cluster_batch(utts, scfg, mesh))
+    warm_s.append(seconds)
+  launches = fused.launch_counts()
+  step_labels, step_n, step_w, _ = pipeline.spectral_cluster_fixed_k_batched(
+      x_b, keys_b, scfg, n_valid=nv_b)
+  alone, alone_s = synced(lambda: per_utterance_2d(scfg, x_b))
+  # The eig stage alone: the chunk's one batched solve against the 2-D
+  # solve of each utterance in turn, on the same operand.
+  with fp32_precision():
+    m_b, _ = pipeline._symmetric_eig_operand(
+        pipeline.prepare_affinity(x_b, scfg, nv_b), scfg, None, nv_b,
+        ref_ops.ROWNORM_TAIL, consume_input=True)
+    for _ in range(2):  # a cold pass, then the timed one
+      stats = {}
+      (w_solve, _), eig_s = synced(
+          lambda: pipeline._subspace(m_b, scfg, nv_b, True, stats))
+      loop_stats = [{} for _ in range(BATCH)]
+      loop_w, loop_s = synced(lambda: [
+          pipeline._subspace(m, scfg, N_BATCH, True, st)[0]
+          for m, st in zip(m_b, loop_stats)])
+  del m_b
+  run = {
+      "leg": "cluster_batch_subspace", "batch": BATCH, "n": N_BATCH,
+      "d": D_MAIN, "eigensolver": "SubspaceIteration",
+      "parity_ids": all(np.array_equal(a, b.astype(a.dtype)) for a, b in
+                        zip(labels_s, solver_ref["subspace_labels"])),
+      "step_labels_equal_driver": all(
+          np.array_equal(a, b) for a, b in
+          zip(step_labels.cpu().numpy(), labels_s)),
+      **against_2d(labels_s, step_n, step_w, alone),
+      "gt_match": gt_match(labels_s, truths),
+      "cold_wall_s": cold_s, "warm_wall_s": statistics.median(warm_s),
+      "warm_wall_s_runs": warm_s,
+      "utterances_per_s": BATCH / statistics.median(warm_s),
+      "iters_per_utterance": stats["iters"].tolist(),
+      "iters_per_utterance_2d": [st["iters"] for st in loop_stats],
+      "eig_batched_s": eig_s, "eig_2d_loop_s": loop_s,
+      "eig_ritz_err_2d": max(ritz_err(a, b) for a, b in zip(w_solve, loop_w)),
+      "pipeline_2d_loop_s": alone_s,
+      "launches": launches,
+      "launches_per_chunk": {k: v / BATCH_WARM_RUNS
+                             for k, v in launches.items()},
+  }
+  results["batch_subspace"] = run
+  log(json.dumps({"phase": "batch_subspace", **run}))
+  if not (run["parity_ids"] and run["step_labels_equal_driver"]):
+    raise SystemExit("cluster_batch (SubspaceIteration): labels differ from "
+                     "the JAX package's or the batched step's")
+  if not (run["labels_equal_2d"] and run["n_clusters_equal_2d"]):
+    raise SystemExit("cluster_batch (SubspaceIteration): labels or counts "
+                     "differ from the 2-D pipeline's")
+  if not (run["ritz_err_2d"] <= SOLVER_EIG_RTOL
+          and run["eig_ritz_err_2d"] <= SOLVER_EIG_RTOL):
+    raise SystemExit("cluster_batch (SubspaceIteration): Ritz values differ "
+                     f"from the 2-D solve's by more than {SOLVER_EIG_RTOL}")
+  if launches != expected(BATCH_WARM_RUNS):
+    raise SystemExit(f"cluster_batch (SubspaceIteration): launches "
+                     f"{launches}, expected {expected(BATCH_WARM_RUNS)}")
+  mark("batch_subspace")
+
+  # HostGeneral: the whole refinement sequence in batched kernels, kernel
+  # 5b once per chunk and never the 2-D kernel 5, then one host eig of the
+  # chunk.
+  hb = HOST_GENERAL_BATCH
+  hcfg = bcfg.replace(eigensolver=EigenSolver.HostGeneral)
+  per_general_chunk = {"affinity_batched": 1, "row_max_batched": 1,
+                       "crop_diagonal_batched": 1,
+                       "threshold_symmetrize_general_batched": 1,
+                       "row_wise_normalize_batched": 1}
+  _, cold_s = timed_call(
+      lambda: batch_lib.cluster_batch(utts[:hb], hcfg, mesh))
+  fused.reset_launch_counts()
+  labels_h, warm_s = timed_call(
+      lambda: batch_lib.cluster_batch(utts[:hb], hcfg, mesh))
+  launches = fused.launch_counts()
+  stage_timings = observability.StageTimings(dev)
+  step_labels, step_n, step_w, _ = pipeline.spectral_cluster_fixed_k_batched(
+      x_b[:hb], keys_b[:hb], hcfg, n_valid=nv_b[:hb], timings=stage_timings)
+  alone, alone_s = synced(lambda: per_utterance_2d(hcfg, x_b[:hb]))
+  run = {
+      "leg": "cluster_batch_host_general", "batch": hb, "n": N_BATCH,
+      "d": D_MAIN, "eigensolver": "HostGeneral",
+      "parity_ids": all(np.array_equal(a, b.astype(a.dtype)) for a, b in
+                        zip(labels_h, solver_ref["host_general_labels"])),
+      "step_labels_equal_driver": all(
+          np.array_equal(a, b) for a, b in
+          zip(step_labels.cpu().numpy(), labels_h)),
+      **against_2d(labels_h, step_n, step_w, alone),
+      "gt_match": gt_match(labels_h, truths[:hb]),
+      "cold_wall_s": cold_s, "warm_wall_s": warm_s,
+      "utterances_per_s": hb / warm_s,
+      "stage_s": stage_timings.as_dict(),
+      "pipeline_2d_loop_s": alone_s,
+      "launches": launches,
+  }
+  results["batch_host_general"] = run
+  log(json.dumps({"phase": "batch_host_general", **run}))
+  if not (run["parity_ids"] and run["step_labels_equal_driver"]):
+    raise SystemExit("cluster_batch (HostGeneral): labels differ from the "
+                     "JAX package's or the batched step's")
+  if not (run["labels_equal_2d"] and run["n_clusters_equal_2d"]):
+    raise SystemExit("cluster_batch (HostGeneral): labels or counts differ "
+                     "from the 2-D pipeline's")
+  if launches != expected(1, per_general_chunk):
+    raise SystemExit(f"cluster_batch (HostGeneral): launches {launches}, "
+                     f"expected {expected(1, per_general_chunk)}")
+  del x_b
+  mark("batch_host_general")
+
   # The streamed driver at the 1024-utterance scale.
   s_utts, s_truths = make_batch(STREAMED_BATCH, N_BATCH, D_MAIN)
   fused.reset_launch_counts()
@@ -1591,6 +1782,8 @@ def main() -> int:
   mark("sharded")
   batch_launches = {
       "cluster_batch": results["batch"]["launches"],
+      "cluster_batch_subspace": results["batch_subspace"]["launches"],
+      "cluster_batch_host_general": results["batch_host_general"]["launches"],
       "cluster_batch_streamed": results["batch_streamed"]["launches"],
       "cluster_batch_autotuned": results["batch_autotuned"]["launches"]}
 
@@ -1617,6 +1810,8 @@ def main() -> int:
                      + sum(r[name] for r in batch_launches.values())),
         "launches_per_batch_chunk":
             results["batch"]["launches_per_chunk"][name],
+        "launches_per_host_general_batch_chunk":
+            results["batch_host_general"]["launches"][name],
         "launches_autotuned_batch":
             batch_launches["cluster_batch_autotuned"][name],
         "launches_sharded": sharded_launches[name],

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "sct_threshold_symmetrize_batched": (_P, _P, _P, _I, _I, _F, _I, _I, _I,
                                          _P),
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
+    "sct_row_wise_normalize_batched": (_P, _P, _I, _I, _P, _I, _P),
     "sct_resident_blocks": (_I, _P),
 }
 

@@ -15,13 +15,12 @@ Five wrappers, one per Pallas kernel of the JAX package
     symmetry structure reaches it (EigenSolver.HostGeneral, or a sequence
     that the symmetric eigensolvers cannot absorb).
 
-Kernels 1-4 also have batched wrappers (``affinity_batched``,
+Each kernel also has a batched wrapper (``affinity_batched``,
 ``row_max_batched``, ``crop_diagonal_batched``,
-``threshold_symmetrize_general_batched``): the JAX package's ``vmap`` of
-each ``pallas_call`` in its batched step, one launch for a (B, N, ·) chunk,
-with ``n_valid`` a (B,) integer tensor that the kernel reads on the device.
-Kernel 5 has no batched form (ROADMAP): only the GENERAL structure reaches
-it, and that route eigendecomposes on the host one utterance at a time.
+``threshold_symmetrize_general_batched``, ``row_wise_normalize_batched``):
+the JAX package's ``vmap`` of each ``pallas_call`` in its batched step, one
+launch for a (B, N, ·) chunk, with ``n_valid`` a (B,) integer tensor that
+the kernel reads on the device.
 
 The kernels are in ``csrc/fused.cu``, whose comments give each one's bound on
 the H100 and what its design does about it. Each wrapper has a plain
@@ -193,7 +192,8 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 
   Rows >= n_valid are divided by their valid-column max too, as
   row_wise_normalize_pallas does; callers re-mask padding. A row whose
-  valid max is 0 gives NaN, as the division does there.
+  valid max is 0 gives NaN, as the division does there. A (B, N, N) batch
+  takes n_valid None or (B,).
   """
   return mat / row_max_plain(mat, n_valid=n_valid)
 
@@ -392,9 +392,28 @@ def threshold_symmetrize_general_batched(
   return out
 
 
+def row_wise_normalize_batched(mat: torch.Tensor,
+                               n_valid=None) -> torch.Tensor:
+  """RowWiseNormalize of each matrix of a (B, N, N) batch, each over its
+  first ``n_valid[b]`` columns (None or a (B,) integer tensor); callers
+  re-mask."""
+  if _is_cpu(mat):
+    return row_wise_normalize_plain(mat, n_valid)
+  b, n = _batch_of_squares("row_wise_normalize_batched", mat)
+  nv = _device_n_valid("row_wise_normalize_batched", b, n, n_valid,
+                       mat.device)
+  out = torch.empty_like(mat)
+  if b and n:
+    _launch("sct_row_wise_normalize_batched", mat.data_ptr(), out.data_ptr(),
+            b, n, nv.data_ptr(), _vec(mat) & _vec(out), _stream(mat))
+    row_wise_normalize_batched.launches += 1
+  return out
+
+
 WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
             row_wise_normalize, affinity_batched, row_max_batched,
-            crop_diagonal_batched, threshold_symmetrize_general_batched)
+            crop_diagonal_batched, threshold_symmetrize_general_batched,
+            row_wise_normalize_batched)
 
 
 def reset_launch_counts():

@@ -10,7 +10,8 @@ Port of ``spectralcluster_tpu/ops/eigen.py``:
     ``compute_number_of_clusters`` (reference utils.py:74-130 semantics);
   * ``apply_padding_sentinels`` for padded eigenproblems;
   * ``topk_eigh_subspace(_masked)`` — block power iteration with CholeskyQR2
-    for the top-k eigenpairs, with residual and drift escalation;
+    for the top-k eigenpairs, with residual and drift escalation, on one
+    matrix or a (B, N, N) batch;
     ``topk_eigh_subspace_sharded`` — the masked form on a matrix held as
     row stripes over a shard group (``parallel/collectives.py``).
 
@@ -18,8 +19,9 @@ Differences from the JAX version, by design:
   * Start panels come from a ``torch.Generator`` drawn on the CPU and moved
     to the matrix's device, so a CPU run and a card run start from the same
     panel (they differ from ``jax.random``'s panel).
-  * ``lax.while_loop`` becomes a Python loop that reads the residual once per
-    chunk of iterations.
+  * ``lax.while_loop`` becomes a Python loop that reads on the host once per
+    chunk of iterations whether any matrix goes on; a batch of matrices
+    (JAX's vmap of the loop) keeps each one's state with ``torch.where``.
   * ``torch.linalg.cholesky`` raises where JAX's returned NaN, so
     CholeskyQR2 uses ``cholesky_ex`` and its ``info`` for the 1e-2 rescue.
 """
@@ -37,8 +39,11 @@ from spectralcluster_tpu_torch.utils import per_matrix, valid_mask
 
 def _sort_eigs(w: torch.Tensor, v: torch.Tensor,
                descend: bool) -> typing.Tuple[torch.Tensor, torch.Tensor]:
-  order = torch.argsort(-w if descend else w, stable=True)
-  return w[order], v[:, order]
+  """Stable sort of (…, N) eigenvalues and the (…, N, N) columns with
+  them."""
+  order = torch.argsort(-w if descend else w, dim=-1, stable=True)
+  return (torch.take_along_dim(w, order, dim=-1),
+          torch.take_along_dim(v, order[..., None, :], dim=-1))
 
 
 def sorted_eigh(mat: torch.Tensor,
@@ -96,11 +101,19 @@ def sorted_eig_general_host(
   matrix's dtype, then a stable sort. The results go back to the matrix's
   device. This route is host LAPACK by contract, in both packages; its
   callers report its time on its own.
+
+  A (B, N, N) batch is copied to the host once, decomposed one matrix
+  after another (JAX's ``vmap_method="sequential"``) and copied back once;
+  each matrix gets what it gets alone.
   """
-  w, v = np.linalg.eig(mat.detach().cpu().numpy().astype(np.float64))
-  w = torch.from_numpy(w.real.astype(np.float32)).to(mat.dtype)
-  v = torch.from_numpy(v.real.astype(np.float32)).to(mat.dtype)
-  w, v = _sort_eigs(w, v, descend)
+  host = mat.detach().cpu().numpy().astype(np.float64)
+  pairs = [np.linalg.eig(m) for m in host.reshape((-1,) + host.shape[-2:])]
+  w = np.stack([p[0].real for p in pairs]).astype(np.float32).reshape(
+      host.shape[:-1])
+  v = np.stack([p[1].real for p in pairs]).astype(np.float32).reshape(
+      host.shape)
+  w, v = _sort_eigs(torch.from_numpy(w).to(mat.dtype),
+                    torch.from_numpy(v).to(mat.dtype), descend)
   return w.to(mat.device), v.to(mat.device)
 
 
@@ -260,24 +273,27 @@ def cholqr2_shifted(y: torch.Tensor) -> torch.Tensor:
   indefinite), it is redone with a 1e-2 shift, which is always positive
   definite. ``cholesky_ex`` reports the failure in ``info`` instead of
   raising; both passes are computed and selected on the device, so no host
-  sync is needed.
+  sync is needed. A (B, N, b) stack of panels is orthonormalized panel by
+  panel: each one's rescue is decided by its own ``info`` and values, as
+  under JAX's vmap.
   """
-  b = y.shape[1]
+  b = y.shape[-1]
   eye = torch.eye(b, dtype=y.dtype, device=y.device)
 
   def one_pass(y, delta_rel):
-    gram = torch.matmul(y.T, y)
-    delta = delta_rel * torch.clamp_min(torch.amax(torch.diagonal(gram)),
-                                        1e-30)
-    r, info = torch.linalg.cholesky_ex(gram + delta * eye)
-    q = torch.linalg.solve_triangular(r, y.T, upper=False).T
+    yt = y.transpose(-1, -2)
+    gram = torch.matmul(yt, y)
+    delta = delta_rel * torch.clamp_min(
+        torch.amax(torch.diagonal(gram, dim1=-2, dim2=-1), dim=-1), 1e-30)
+    r, info = torch.linalg.cholesky_ex(gram + delta[..., None, None] * eye)
+    q = torch.linalg.solve_triangular(r, yt, upper=False).transpose(-1, -2)
     return q, info
 
   for _ in range(2):
     y1, info = one_pass(y, 1e-6)
-    ok = (info == 0) & torch.all(torch.isfinite(y1))
+    ok = (info == 0) & torch.all(torch.isfinite(y1), dim=(-2, -1))
     y2, _ = one_pass(y, 1e-2)
-    y = torch.where(ok, y1, y2)
+    y = torch.where(ok[..., None, None], y1, y2)
   return y
 
 
@@ -297,6 +313,7 @@ def topk_eigh_subspace_masked(
     residual_tol: typing.Optional[float] = None,
     max_iters: int = 384,
     drift_tol: typing.Optional[float] = None,
+    stats: typing.Optional[dict] = None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
   """topk_eigh_subspace on the VALID block of a sentinel-padded matrix.
 
@@ -304,27 +321,23 @@ def topk_eigh_subspace_masked(
   amplified by the power iteration. For the ascending case its diagonal is
   set to the valid block's Gershgorin bound + 1 (just past the scan end) and
   the shift comes from that bound, so the valid spectrum keeps a healthy
-  separation.
+  separation. A (B, N, N) batch takes a (B,) ``n_valid``, with a bound and
+  a shift per matrix.
   """
+  kw = dict(num_iters=num_iters, residual_tol=residual_tol,
+            max_iters=max_iters, drift_tol=drift_tol, stats=stats)
   if n_valid is None:
-    return topk_eigh_subspace(mat, k, generator, num_iters=num_iters,
-                              largest=largest, residual_tol=residual_tol,
-                              max_iters=max_iters, drift_tol=drift_tol)
-  n = mat.shape[0]
-  v = torch.arange(n, device=mat.device) < n_valid
-  keep = v[:, None] & v[None, :]
+    return topk_eigh_subspace(mat, k, generator, largest=largest, **kw)
+  v = valid_mask(mat.shape[-1], n_valid, mat.device)
+  keep = v[..., :, None] & v[..., None, :]
   mm = torch.where(keep, mat, 0.0)
   if largest:
-    return topk_eigh_subspace(mm, k, generator, num_iters=num_iters,
-                              largest=True, residual_tol=residual_tol,
-                              max_iters=max_iters, drift_tol=drift_tol)
-  bound = torch.amax(torch.sum(torch.abs(mm), dim=1))
+    return topk_eigh_subspace(mm, k, generator, largest=True, **kw)
+  bound = torch.amax(torch.sum(torch.abs(mm), dim=-1), dim=-1)
   shift = bound + 1.0
-  op_m = mm + torch.diag(torch.where(v, 0.0, shift))
-  return topk_eigh_subspace(op_m, k, generator, num_iters=num_iters,
-                            largest=False, shift=shift,
-                            residual_tol=residual_tol, max_iters=max_iters,
-                            drift_tol=drift_tol)
+  op_m = mm + torch.diag_embed(torch.where(v, 0.0, shift[..., None]))
+  return topk_eigh_subspace(op_m, k, generator, largest=False, shift=shift,
+                            **kw)
 
 
 def topk_eigh_subspace(
@@ -350,16 +363,24 @@ def topk_eigh_subspace(
   escalates in ``num_iters``-sized chunks (up to ``max_iters`` in all) until
   the worst top-k residual max_i ‖M v_i − λ_i v_i‖ / max|λ| drops below the
   tolerance, or, with ``drift_tol``, until the Ritz values moved by at most
-  drift_tol·max|λ| over the last chunk. The loop reads the residual and the
-  drift on the host once per chunk. A ``stats`` dict receives the number of
-  iterations run under "iters".
+  drift_tol·max|λ| over the last chunk. The host reads whether to go on
+  once per chunk. A ``stats`` dict receives the number of iterations run
+  under "iters".
+
+  A (B, N, N) batch (``shift`` then None or (B,)) is JAX's vmap of this
+  solver: (B, N, b) panels from the one start panel, and each matrix keeps
+  its own residual, drift and iteration count. The chunks go on while any
+  matrix's condition holds; a matrix whose condition fails keeps its panel
+  from then on, so each gets what it gets alone. Returns (B, k) and
+  (B, N, k); "iters" is then a (B,) tensor.
   """
-  n = mat.shape[0]
+  n = mat.shape[-1]
   b = min(n, k + oversample)
   if not largest:
     if shift is None:
-      shift = torch.amax(torch.sum(torch.abs(mat), dim=1))
-    op = lambda x: shift * x - torch.matmul(mat, x)
+      shift = torch.amax(torch.sum(torch.abs(mat), dim=-1), dim=-1)
+    s = shift[..., None, None] if isinstance(shift, torch.Tensor) else shift
+    op = lambda x: s * x - torch.matmul(mat, x)
   else:
     op = lambda x: torch.matmul(mat, x)
 
@@ -371,38 +392,51 @@ def topk_eigh_subspace(
   def rayleigh_ritz(q):
     """Ritz pairs of the ORIGINAL matrix + worst relative top-k residual."""
     mq = torch.matmul(mat, q)
-    t = q.T @ mq
-    t = 0.5 * (t + t.T)
+    t = q.transpose(-1, -2) @ mq
+    t = 0.5 * (t + t.transpose(-1, -2))
     # The (b, b) Ritz problem is solved in float64: once the basis has
     # collapsed onto a low-rank top, t carries float32 denormals, on which
     # torch's float32 eigh fails to converge and raises (JAX's returns).
     w_small, u_small = torch.linalg.eigh(t.double())
     w_small, u_small = w_small.to(t.dtype), u_small.to(t.dtype)
     if largest:
-      w_small, u_small = torch.flip(w_small, (0,)), torch.flip(u_small, (1,))
-    v = q @ u_small[:, :k]
-    mv = mq @ u_small[:, :k]
-    res = torch.linalg.norm(mv - v * w_small[None, :k], dim=0)
-    scale = torch.clamp_min(torch.amax(torch.abs(w_small)), 1e-30)
-    return w_small[:k], v, torch.amax(res) / scale
+      w_small, u_small = torch.flip(w_small, (-1,)), torch.flip(u_small,
+                                                                (-1,))
+    v = q @ u_small[..., :k]
+    mv = mq @ u_small[..., :k]
+    res = torch.linalg.norm(mv - v * w_small[..., None, :k], dim=-2)
+    scale = torch.clamp_min(torch.amax(torch.abs(w_small), dim=-1), 1e-30)
+    return w_small[..., :k], v, torch.amax(res, dim=-1) / scale
 
   q = cholqr2_shifted(start_panel(n, b, generator, mat.dtype, mat.device))
-  q = iterate(q, num_iters)
-  it = num_iters
+  q = iterate(q.expand(mat.shape[:-2] + q.shape), num_iters)
+  it = torch.full(mat.shape[:-2], num_iters, device=mat.device)
 
   if residual_tol is not None:
     dtol = -1.0 if drift_tol is None else drift_tol
     w_prev, _, res = rayleigh_ritz(q)
-    drift = float("inf")
-    while float(res) > residual_tol and drift > dtol and it < max_iters:
-      q = iterate(q, num_iters)
-      w_new, _, res = rayleigh_ritz(q)
-      scale = torch.clamp_min(torch.amax(torch.abs(w_new)), 1e-30)
-      drift = float(torch.amax(torch.abs(w_new - w_prev)) / scale)
-      w_prev = w_new
-      it += num_iters
+    drift = torch.full_like(res, torch.inf)
+
+    def going_on():
+      # Compared in float64, as a host float would be.
+      return ((res.double() > residual_tol) & (drift.double() > dtol)
+              & (it < max_iters))
+
+    going = going_on()
+    while bool(torch.any(going)):
+      q_new = iterate(q, num_iters)
+      w_new, _, res_new = rayleigh_ritz(q_new)
+      scale = torch.clamp_min(torch.amax(torch.abs(w_new), dim=-1), 1e-30)
+      drift_new = torch.amax(torch.abs(w_new - w_prev), dim=-1) / scale
+      # A matrix whose condition failed keeps its state.
+      q = torch.where(going[..., None, None], q_new, q)
+      w_prev = torch.where(going[..., None], w_new, w_prev)
+      res = torch.where(going, res_new, res)
+      drift = torch.where(going, drift_new, drift)
+      it = torch.where(going, it + num_iters, it)
+      going = going_on()
   if stats is not None:
-    stats["iters"] = it
+    stats["iters"] = int(it) if mat.dim() == 2 else it
   w, v, _ = rayleigh_ritz(q)
   return w, v
 

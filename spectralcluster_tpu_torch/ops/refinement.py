@@ -14,8 +14,7 @@ summation order of a batched matmul.
 the RowWiseThreshold+Symmetrize pair and RowWiseNormalize to the wrappers of
 kernels/fused.py: the CUDA kernels for a tensor on the card, their plain
 twins for a tensor on the CPU; a batch takes the batched wrappers, one
-launch each. Kernel 5 (RowWiseNormalize) has no batched form: a batch runs
-it once per matrix. Diffuse stays ``torch.matmul`` (the JAX package left it
+launch each. Diffuse stays ``torch.matmul`` (the JAX package left it
 to XLA), a batched product for a batch.
 
 ``analyze_symmetry`` statically classifies the refined matrix so that a
@@ -72,11 +71,7 @@ def _threshold_symmetrize_kernel(mat, thr, *flags, average):
 
 def _row_wise_normalize_kernel(mat, n_valid):
   if mat.dim() == 3:
-    # No batched form of kernel 5: one launch per matrix.
-    return torch.stack([
-        fused_kernels.row_wise_normalize(
-            m, None if n_valid is None else n_valid[i])
-        for i, m in enumerate(mat)])
+    return fused_kernels.row_wise_normalize_batched(mat, n_valid)
   return fused_kernels.row_wise_normalize(mat, n_valid)
 
 

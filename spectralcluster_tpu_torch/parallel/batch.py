@@ -7,8 +7,8 @@ drivers ``cluster_batch``, ``cluster_batch_streamed`` and
 ``cluster_batch_autotuned``. As in the JAX package, a chunk of padded
 utterances is one program: ``pipeline.spectral_cluster_fixed_k_batched``,
 the written-out ``vmap`` of the fixed-k pipeline, whose kernels, eigh and
-K-Means loop run once per chunk per device, not once per utterance
-(``pipeline.py`` says which routes still loop inside it).
+K-Means loop run once per chunk per device, not once per utterance,
+whatever the eigensolver.
 
   * every utterance is zero-padded to ``pad_bucket`` of the longest one in
     the call (of the whole stream in ``cluster_batch_streamed``) and keeps

@@ -58,15 +58,16 @@ the ops under them take a leading batch axis, with ``n_valid`` a (B,)
 tensor on the device: the affinity, CropDiagonal, the row maxima and the
 RowWiseThreshold+Symmetrize pair are one launch of a batched kernel per
 chunk, Diffuse and the E2CP products are batched matmuls, Auto and Eigh
-one batched ``torch.linalg.eigh``, and the eigengap count, the snap and
-the Lloyd stop flags are (B,) tensors on the device. Each utterance gets
-what the 2-D functions give it alone. Two routes loop over the chunk's
-utterances instead, as ROADMAP records: SubspaceIteration runs
-``topk_eigh_subspace_masked`` per utterance (JAX vmaps it, each lane
-frozen at its own convergence, which gives the same results), and the
-GENERAL structure runs the 2-D route per utterance (kernel 5 and the host
-eig). ``cfg.autotune``'s sweep evaluates its C candidates of B utterances
-as one (B·C, N, N) batch.
+one batched ``torch.linalg.eigh``, SubspaceIteration one batched solve
+(``topk_eigh_subspace_masked`` on (B, N, b) panels, each utterance frozen
+at its own convergence, as JAX's vmapped ``while_loop`` does), and the
+eigengap count, the snap and the Lloyd stop flags are (B,) tensors on the
+device. The GENERAL structure runs the whole chunk too: its
+RowWiseNormalize is one launch of kernel 5's batched form, and its host
+eig copies the chunk to the host once and decomposes one matrix after
+another (JAX's ``vmap_method="sequential"``). Each utterance gets what the
+2-D functions give it alone. ``cfg.autotune``'s sweep evaluates its C
+candidates of B utterances as one (B·C, N, N) batch.
 
 Each entry point runs under ``precision.fp32_precision()`` (TF32 off).
 Randomness: the K-Means seeding takes a CPU ``torch.Generator`` where JAX
@@ -289,43 +290,16 @@ def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
   return m, scale
 
 
-def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
-  """The max_clusters+1 extreme eigenpairs by subspace iteration."""
+def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
+              stats=None):
+  """The max_clusters+1 extreme eigenpairs by subspace iteration; for a
+  (B, N, N) batch one batched solve, each matrix frozen at its own
+  convergence (stacked (B, k), (B, N, k)). ``stats`` receives "iters"."""
   return eigen_ops.topk_eigh_subspace_masked(
       m, cfg.max_clusters + 1, torch.Generator().manual_seed(_SUBSPACE_SEED),
       largest=descend, n_valid=n_valid, num_iters=cfg.subspace_iters,
       residual_tol=cfg.subspace_residual_tol, max_iters=cfg.subspace_max_iters,
-      drift_tol=cfg.subspace_drift_tol)
-
-
-def _subspace_each(m: torch.Tensor, cfg: PipelineConfig, n_valid,
-                   descend: bool):
-  """``_subspace`` on one matrix, or on each matrix of a (B, N, N) batch
-  (stacked (B, k), (B, N, k)): the JAX package vmaps the solver and each
-  lane stops at its own convergence, which gives the same results."""
-  if m.dim() == 2:
-    return _subspace(m, cfg, n_valid, descend)
-  ws, us = zip(*(_subspace(m[i], cfg, None if n_valid is None
-                           else n_valid[i], descend)
-                 for i in range(m.shape[0])))
-  return torch.stack(ws), torch.stack(us)
-
-
-def _per_utterance(affinity, cfg, p_percentile, n_valid, timings,
-                   constraint_matrix):
-  """``refine_and_eigendecompose`` on each matrix of a batch, stacked: the
-  GENERAL route, whose RowWiseNormalize (kernel 5) has no batched form and
-  whose eig runs on the host one matrix at a time."""
-
-  def at(t, i):
-    return t[i] if isinstance(t, torch.Tensor) and t.dim() > 0 else t
-
-  outs = [refine_and_eigendecompose(
-      affinity[i], cfg, p_percentile=at(p_percentile, i),
-      n_valid=at(n_valid, i), timings=timings,
-      constraint_matrix=at(constraint_matrix, i))
-          for i in range(affinity.shape[0])]
-  return tuple(torch.stack(t) for t in zip(*outs))
+      drift_tol=cfg.subspace_drift_tol, stats=stats)
 
 
 def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
@@ -478,9 +452,6 @@ def refine_and_eigendecompose(
   with_constraint = constraint_matrix is not None
   descend = _descend(cfg)
   structure = _solver_structure(cfg, with_constraint)
-  if affinity.dim() == 3 and structure == refinement_ops.GENERAL:
-    return _per_utterance(affinity, cfg, p_percentile, n_valid, timings,
-                          constraint_matrix)
   with fp32_precision():
     if structure == refinement_ops.GENERAL:
       ropts = cfg.refinement_options
@@ -504,7 +475,7 @@ def refine_and_eigendecompose(
                                         structure, consume_input,
                                         constraint_matrix)
       if cfg.eigensolver == EigenSolver.SubspaceIteration:
-        w, u = _subspace_each(m, cfg, n_valid, descend)
+        w, u = _subspace(m, cfg, n_valid, descend)
         eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
                                                                  n_valid)
         # The k extreme eigenpairs are all valid: no sentinels among them.
@@ -689,6 +660,7 @@ def spectral_cluster_fixed_k_batched(
     constraint_matrices: typing.Optional[torch.Tensor] = None,
     n_valid: typing.Optional[torch.Tensor] = None,
     kmeans_tol: float = 0.001,
+    timings=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
   """The JAX package's vmap of ``spectral_cluster_fixed_k``
   (pipeline.py:422-486) over a chunk of padded utterances, as one program.
@@ -700,7 +672,9 @@ def spectral_cluster_fixed_k_batched(
   tensors (labels (B, N), n_clusters (B,), eigenvalues, max_delta (B,)),
   utterance b's those of ``spectral_cluster_fixed_k`` on it alone with the
   generator of its key's seed. With ``cfg.autotune`` every utterance's
-  level-1 sweep runs as one (B·C, N, N) batch.
+  level-1 sweep runs as one (B·C, N, N) batch. Without it, ``timings``
+  records the GENERAL route's host eig of the chunk as the stage
+  "host_eig".
   """
   _require_max_clusters(cfg)
   _check_supported(cfg)
@@ -732,7 +706,7 @@ def spectral_cluster_fixed_k_batched(
           pick(ws), pick(vs), pick(ns), pick(deltas))
     else:
       eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
-          affinity, cfg, n_valid=n_valid, consume_input=True,
+          affinity, cfg, n_valid=n_valid, consume_input=True, timings=timings,
           constraint_matrix=constraint_matrices)
     del affinity
     labels, n_clusters = _cluster_from_eigs_batched(

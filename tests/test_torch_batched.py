@@ -346,10 +346,15 @@ def _jax_keys(seed, b):
   return np.asarray(jax.vmap(jax.random.PRNGKey)(seed + np.arange(b)))
 
 
-def test_make_batched_cluster_fn_matches_jax():
+@pytest.mark.parametrize("eigensolver", ["Auto", "SubspaceIteration",
+                                         "HostGeneral"])
+def test_make_batched_cluster_fn_matches_jax(eigensolver):
+  # SubspaceIteration: JAX's vmapped while_loop, each lane frozen at its
+  # own convergence; HostGeneral: kernel 5 and the host eig per chunk.
   jcfg = j_pipeline.PipelineConfig(
       refinement_options=j_configs.icassp2018_refinement_options(),
-      min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300)
+      min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300,
+      eigensolver=j_types.EigenSolver[eigensolver])
   cfg = convert.pipeline_config_from(jcfg)
   lengths = [64, 50, 33, 64]
   x, nv = _padded(_utterances(lengths, seed=2, noise=0.5))

@@ -14,13 +14,13 @@ import pytest
 import torch
 
 from spectralcluster_tpu_torch import (configs, constraint, pipeline,
-                                       precision, streaming, utils)
+                                       precision, prng, streaming, utils)
 from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.constraint import ConstraintMatrix
 from spectralcluster_tpu_torch.fixtures import (make_embeddings, make_stream,
                                                 make_t2d_fixture)
 from spectralcluster_tpu_torch.kernels import fused
-from spectralcluster_tpu_torch.ops import dc
+from spectralcluster_tpu_torch.ops import dc, eigen
 from spectralcluster_tpu_torch.parallel import batch
 from spectralcluster_tpu_torch.parallel import mesh as mesh_lib
 from spectralcluster_tpu_torch.parallel import sharded
@@ -159,6 +159,22 @@ def test_threshold_symmetrize_batched(cuda, flags):
       a, thr, 0.01, **flags))
   assert torch.equal(got[2], fused.threshold_symmetrize_general(
       a[2], thr[2], 0.01, **flags))
+
+
+@pytest.mark.parametrize("b,n,ragged", [(5, 1000, False), (5, 1000, True),
+                                         (16, 1024, False), (3, 7, False)])
+def test_row_wise_normalize_batched(cuda, b, n, ragged):
+  gen = torch.Generator(cuda).manual_seed(8)
+  a = torch.randn((b, n, n), generator=gen, device=cuda) - 0.5
+  nv = torch.tensor(_BATCH_N_VALID, device=cuda) if ragged else None
+  got = fused.row_wise_normalize_batched(a, nv)
+  torch.testing.assert_close(got, fused.row_wise_normalize_plain(a, nv),
+                             rtol=0, atol=0, equal_nan=True)
+  for i in range(b):
+    torch.testing.assert_close(
+        got[i], fused.row_wise_normalize(
+            a[i], _BATCH_N_VALID[i] if ragged else None),
+        rtol=0, atol=0, equal_nan=True)
 
 
 def test_lloyd_reads_no_host_value_between_its_checks(cuda):
@@ -404,7 +420,8 @@ def test_cluster_batch_card_matches_cpu(cuda):
                     "threshold_symmetrize_general": 0,
                     "row_wise_normalize": 0, "affinity_batched": 1,
                     "row_max_batched": 2, "crop_diagonal_batched": 1,
-                    "threshold_symmetrize_general_batched": 1}
+                    "threshold_symmetrize_general_batched": 1,
+                    "row_wise_normalize_batched": 0}
 
 
 def test_cluster_batch_streamed_card_matches_serial(cuda):
@@ -425,6 +442,71 @@ def test_cluster_batch_streamed_card_matches_serial(cuda):
     np.testing.assert_array_equal(s, r)
     np.testing.assert_array_equal(utils.enforce_ordered_labels(s),
                                   utils.enforce_ordered_labels(h))
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_subspace_batched_card_matches_2d_per_lane(cuda, largest):
+  # Lanes that stop at different chunks (geometric spectra r**j) and one
+  # valid row: each lane's Ritz values within 1e-4·max|λ| of its 2-D solve
+  # on the card, and its iterations.
+  n, nvs = 256, (256, 200, 256, 1)
+  q, _ = np.linalg.qr(np.random.RandomState(0).randn(n, n))
+  mats = np.zeros((len(nvs), n, n), np.float32)
+  for i, (r, nv) in enumerate(zip((0.9, 0.98, 0.995), nvs)):
+    lam = r ** np.arange(n)
+    a = (q * (lam if largest else 2.0 - lam)) @ q.T
+    mats[i, :nv, :nv] = (0.5 * (a + a.T))[:nv, :nv]
+  mats[3, 0, 0] = 2.5
+  mats = torch.as_tensor(mats).to(cuda)
+
+  def solve(m, nv, stats):
+    return eigen.topk_eigh_subspace_masked(
+        m, 8, torch.Generator().manual_seed(42), largest, nv,
+        residual_tol=2e-3, drift_tol=1e-4, stats=stats)
+
+  stats = {}
+  w, _ = solve(mats, torch.tensor(nvs, device=cuda), stats)
+  iters = []
+  for i, nv in enumerate(nvs):
+    alone = {}
+    w1, _ = solve(mats[i], nv, alone)
+    scale = float(torch.amax(torch.abs(w1)))
+    torch.testing.assert_close(w[i], w1, rtol=0, atol=1e-4 * scale)
+    iters.append((int(stats["iters"][i]), alone["iters"]))
+  assert all(a == b for a, b in iters)
+  assert len({a for a, _ in iters}) >= 2
+
+
+@pytest.mark.parametrize("eigensolver", [EigenSolver.SubspaceIteration,
+                                         EigenSolver.HostGeneral])
+def test_batched_solvers_card_match_the_2d_pipeline(cuda, eigensolver):
+  # One chunk of ragged utterances through the batched solver (or kernel 5b
+  # and the batched host eig) against the 2-D pipeline per utterance on the
+  # card: labels and counts equal, Ritz values within 1e-4·max|λ| (bmm and
+  # mm may sum in other orders on the card).
+  lengths = (300, 512, 200, 450)
+  utts = _batch_utterances(lengths, seed=2)
+  x = torch.zeros((len(lengths), 512, 64), device=cuda)
+  for i, u in enumerate(utts):
+    x[i, :len(u)] = torch.as_tensor(u)
+  nv = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+  cfg = _batch_cfg().replace(eigensolver=eigensolver)
+  keys = np.stack([prng.key(i) for i in range(len(lengths))])
+  fused.reset_launch_counts()
+  labels, n_clusters, w, _ = pipeline.spectral_cluster_fixed_k_batched(
+      x, keys, cfg, n_valid=nv)
+  counts = fused.launch_counts()
+  general = eigensolver == EigenSolver.HostGeneral
+  assert counts["row_wise_normalize_batched"] == int(general)
+  assert counts["row_wise_normalize"] == 0
+  for i, n in enumerate(lengths):
+    want = pipeline.spectral_cluster_fixed_k(
+        x[i], torch.Generator().manual_seed(i), cfg, n_valid=n)
+    assert torch.equal(labels[i], want[0])
+    assert int(n_clusters[i]) == int(want[1])
+    top = w[i][:8] if general else w[i]
+    scale = float(torch.amax(torch.abs(want[2][:8])))
+    torch.testing.assert_close(top, want[2][:8], rtol=0, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("n,use_ring", [(512, False), (509, True)])

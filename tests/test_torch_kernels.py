@@ -196,4 +196,5 @@ def test_launch_counters_are_plain_integers():
   assert set(fused.launch_counts()) == {
       "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general",
       "row_wise_normalize", "affinity_batched", "row_max_batched",
-      "crop_diagonal_batched", "threshold_symmetrize_general_batched"}
+      "crop_diagonal_batched", "threshold_symmetrize_general_batched",
+      "row_wise_normalize_batched"}

@@ -26,7 +26,8 @@ card r (``--device cuda``, one card per rank). Each rank checks:
     (N_pad/P + 2r)·N_pad elements (r the blur radius): no rank holds an
     (N, N) matrix;
   * the batch leg (as the JAX package's ``benchmarks/multihost_validate.py``
-    runs its DP step across processes): ``cluster_batch``,
+    runs its DP step across processes): ``cluster_batch`` (Auto, and
+    SubspaceIteration and, on the first world + 1 utterances, HostGeneral),
     ``cluster_batch_streamed`` (chunk 4, window 2) and
     ``cluster_batch_autotuned`` (a two-level search with constraints) on a
     mesh of the world's ranks, ``--batch`` ragged utterances of up to
@@ -102,9 +103,18 @@ def _batch_leg(rank: int, world: int, dev, d: int, batch: int, batch_n: int,
     return AutoTune(p_percentile_min=0.60, p_percentile_max=0.95,
                     init_search_step=0.05, search_level=2)
 
+  subspace_cfg = cfg.replace(
+      eigensolver=types_lib.EigenSolver.SubspaceIteration)
+  general_cfg = cfg.replace(eigensolver=types_lib.EigenSolver.HostGeneral)
   drivers = {
       "cluster_batch": lambda mesh: batch_lib.cluster_batch(
           utts, cfg, mesh, seed=3),
+      # The batched step's other two eigensolvers; HostGeneral's host eig
+      # on world + 1 utterances only (uneven shards still).
+      "cluster_batch_subspace": lambda mesh: batch_lib.cluster_batch(
+          utts, subspace_cfg, mesh),
+      "cluster_batch_host_general": lambda mesh: batch_lib.cluster_batch(
+          utts[:world + 1], general_cfg, mesh),
       "cluster_batch_streamed": lambda mesh: batch_lib.cluster_batch_streamed(
           utts, cfg, mesh, chunk=4, window=2),
       "cluster_batch_autotuned": lambda mesh:
