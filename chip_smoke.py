@@ -10,8 +10,10 @@ result line):
 
   1. device — the card's name and power limit (nvidia-smi);
   2. build — compiles csrc/fused.cu with nvcc at first use; prints ptxas's
-     registers, static shared memory and spill bytes per kernel, and the
-     blocks resident per SM of the affinity, row_max and crop_diagonal;
+     registers, static shared memory and spill bytes per kernel, the
+     blocks resident per SM of the affinity, row_max and crop_diagonal and
+     of the batched affinity and row_max, and the batched affinity's grid
+     at B=16 and 64;
   3. kernels — each hand-written kernel against its plain PyTorch twin on the
      card, at the main path's shapes (N=10240, d=256; kernel 5 on the
      Diffuse output, its input on the HostGeneral path) and at a ragged
@@ -23,14 +25,19 @@ result line):
      utterance's Diffuse output) and on a ragged batch of five N=1000
      matrices with n_valid (1000, 937, 1, 500, 1000) read on the card; each
      affinity and each kernel 5b matrix of a batch must also equal the 2-D
-     kernel's bit for bit. Then times (CUDA events around 10 calls back to back behind one
-     untimed call, median of 20 such means after warm-up) of each kernel,
-     its twin and a one-call library yardstick where one exists (the
-     affinity's `addmm` timed with the row normalization, as the kernel's
-     wrapper is), beside the card's bound for the same work (the
-     affinity's as the symmetric least work, N(N+1)/2 dot products), and of
-     the main path's other device stages (blur, Diffuse, full eigh, top-k
-     subspace);
+     kernel's bit for bit; 1b and 2b also at the streamed chunk's B=64,
+     N=1024, 1b there also against its transpose. Then times (CUDA events
+     around 10 calls back to back behind one untimed call, median of 20
+     such means after warm-up) of each kernel, its twin and a one-call
+     library yardstick where one exists (the affinity's `addmm` timed with the row normalization, as
+     the kernel's wrapper is), beside the card's bound for the same work
+     (the affinity's as the symmetric least work, N(N+1)/2 dot products);
+     the batched affinity's kernel alone beside its wrapper, at B=16 and at
+     the streamed chunk's B=64 (the build phase prints its grid and waves);
+     the batched row max and its `amax` also with the L2 flushed by a
+     128 MB write before each call, and the row max's kernel alone (its C
+     entry) both ways; and the main path's other device stages (blur,
+     Diffuse, full eigh, top-k subspace);
   3b. the exact top-k route's parts, each alone, on the icassp2018 Auto
      operand at N=10240 and 20480: the certified route (accepted or
      declined, its iterations, res, scale, est_next against w_t), the
@@ -259,6 +266,27 @@ def time_ms(torch, fn, reps=REPS, batch=EVENT_BATCH, warmup=3) -> float:
     end.record()
     end.synchronize()
     times.append(start.elapsed_time(end) / batch)
+  return statistics.median(times)
+
+
+def time_flushed_ms(torch, fn, flush, reps=REPS, warmup=3) -> float:
+  """Median over `reps` of one call's card time right after a write of
+  `flush` (128 MB, more than the L2's 50 MB), so the call finds its input
+  in device memory; the L2 then holds the flush's dirty lines, which the
+  call's reads evict, as a caller after a large write would."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    flush.fill_(1.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
   return statistics.median(times)
 
 
@@ -499,21 +527,40 @@ def main() -> int:
   build.load()
   build_s = time.perf_counter() - t0
   resident = {}
-  for i, name in enumerate(("affinity", "row_max", "crop_diagonal")):
+  for i, name in enumerate(("affinity", "row_max", "crop_diagonal",
+                            "affinity_batched", "row_max_batched")):
     blocks = ctypes.c_int(0)
     rc = build.load().sct_resident_blocks(i, ctypes.byref(blocks))
     if rc != 0:
       raise SystemExit(f"sct_resident_blocks({name}): CUDA error {rc}")
     resident[name] = blocks.value
+  # The batched affinity's grid at the batch path's and the streamed
+  # chunk's shapes, against the card's resident blocks.
+  affinity_batched_schedule = {}
+  for b in (BATCH, STREAMED_CHUNK):
+    blocks, split, slots = (ctypes.c_longlong(0), ctypes.c_int(0),
+                            ctypes.c_int(0))
+    rc = build.load().sct_affinity_batched_schedule(
+        b, N_BATCH, ctypes.byref(blocks), ctypes.byref(split),
+        ctypes.byref(slots))
+    if rc != 0:
+      raise SystemExit(f"sct_affinity_batched_schedule: CUDA error {rc}")
+    t = -(-N_BATCH // fused.AFFINITY_TILE)
+    affinity_batched_schedule[f"B={b},N={N_BATCH}"] = {
+        "blocks": blocks.value, "split_diagonal_tiles": split.value,
+        "resident_blocks": slots.value,
+        # In 128x128 tiles' work: a diagonal tile is 3/4 of one.
+        "waves": (b * t * (t - 1) / 2 + 0.75 * b * t) / slots.value}
   ptxas = build.ptxas_report(lib_path)
   results["build"] = {
       "seconds": build_s, "library": os.path.basename(lib_path),
       "ptxas": ptxas, "resident_blocks_per_sm": resident,
-      # The two kernels redesigned for this card should not spill.
+      "affinity_batched_schedule": affinity_batched_schedule,
+      # The kernels redesigned for this card should not spill.
       "spill_bytes_affinity_row_max": sum(
           r.get("spill_stores", 0) + r.get("spill_loads", 0)
           for k, r in ptxas.items()
-          if k.startswith(("affinity_kernel", "row_max_kernel")))}
+          if k.startswith(("affinity", "row_max")))}
   log(json.dumps({"phase": "build", **results["build"]}))
 
   # 3. Kernels against their twins.
@@ -627,6 +674,26 @@ def main() -> int:
         aff_b_ragged, torch.stack([fused.affinity(u) for u in x_b_ragged]),
         True)
   del aff_b_ragged
+  check("affinity_batched", f"{batch_case},each utterance against the 2-D "
+        "kernel", aff_b, torch.stack([fused.affinity(u) for u in x_b]), True)
+  # 1b and 2b at the streamed chunk's (STREAMED_CHUNK, N_BATCH), the shape
+  # the streamed leg runs them at.
+  chunk_case = f"B={STREAMED_CHUNK},N={N_BATCH}"
+  x_b64 = torch.as_tensor(np.stack(
+      make_batch(STREAMED_CHUNK, N_BATCH, D_MAIN)[0])).to(dev)
+  aff_b64 = fused.affinity_batched(x_b64)
+  check("affinity_batched", f"{chunk_case},d={D_MAIN}", aff_b64,
+        fused.affinity_plain(x_b64), False)
+  check("affinity_batched", f"{chunk_case},each utterance against the 2-D "
+        "kernel", aff_b64, torch.stack([fused.affinity(u) for u in x_b64]),
+        True)
+  check("affinity_batched", f"{chunk_case},against its transpose", aff_b64,
+        aff_b64.transpose(1, 2), True)
+  blurred_b64 = ref_ops.gaussian_blur(fused.crop_diagonal_plain(aff_b64),
+                                      1.0).contiguous()
+  check("row_max_batched", chunk_case, fused.row_max_batched(blurred_b64),
+        fused.row_max_plain(blurred_b64), True)
+  del blurred_b64
   check("row_max_batched", batch_case, fused.row_max_batched(blurred_b),
         fused.row_max_plain(blurred_b), True)
   for excl in (False, True):
@@ -763,6 +830,56 @@ def main() -> int:
           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
       }
       log(json.dumps({"phase": "timing", "kernel": name, **times[name]}))
+    # 1b: the kernel alone (its C entry on normalized rows made beforehand)
+    # beside the wrapper (row normalization included), at the batch path's
+    # shape and at the streamed chunk's (STREAMED_CHUNK, N_BATCH). 2b and
+    # its amax: also with the L2 flushed before each call.
+    lib, stream = build.load(), torch.cuda.current_stream(dev).cuda_stream
+    for b, xb, aff_want in ((bb, x_b, aff_b),
+                            (STREAMED_CHUNK, x_b64, aff_b64)):
+      xn_b = fused.normalize_rows(xb).contiguous()
+      out_b = torch.empty((b, nb, nb), device=dev)
+
+      def alone(xn_b=xn_b, out_b=out_b, b=b):
+        rc = lib.sct_affinity_batched(xn_b.data_ptr(), out_b.data_ptr(), b,
+                                      nb, D_MAIN, stream)
+        if rc:
+          raise SystemExit(f"sct_affinity_batched: CUDA error {rc}")
+
+      parts = {"kernel_alone_ms": time_ms(torch, alone)}
+      if b != bb:
+        parts["ms"] = time_ms(torch, lambda xb=xb: fused.affinity_batched(xb))
+        parts["bound_ms"] = b * nb * (nb + 1) * D_MAIN / fp32 * 1e3
+      # The kernel alone gives the wrapper's output, gated above.
+      if not torch.equal(out_b, aff_want):
+        raise SystemExit(f"sct_affinity_batched alone at B={b} disagrees "
+                         "with its wrapper")
+      key = "affinity_batched" if b == bb else f"affinity_batched_b{b}"
+      times.setdefault(key, {}).update(parts)
+      log(json.dumps({"phase": "timing", "kernel": key,
+                      "shape": f"B={b},N={nb},d={D_MAIN}", **times[key]}))
+      del xn_b, out_b
+    del x_b64, aff_b64
+    flush = torch.empty(128 << 18, device=dev)
+    rmax_b = torch.empty((bb, nb, 1), device=dev)
+
+    def row_max_alone():
+      rc = lib.sct_row_max_batched(blurred_b.data_ptr(), rmax_b.data_ptr(),
+                                   bb, nb, None, 0, 1, stream)
+      if rc:
+        raise SystemExit(f"sct_row_max_batched: CUDA error {rc}")
+
+    times["row_max_batched"].update({
+        "kernel_alone_ms": time_ms(torch, row_max_alone),
+        "ms_l2_flushed": time_flushed_ms(torch, timed["row_max_batched"][0],
+                                         flush),
+        "kernel_alone_ms_l2_flushed": time_flushed_ms(torch, row_max_alone,
+                                                      flush),
+        "library_ms_l2_flushed": time_flushed_ms(
+            torch, timed["row_max_batched"][2], flush)})
+    log(json.dumps({"phase": "timing", "kernel": "row_max_batched",
+                    **times["row_max_batched"]}))
+    del flush, rmax_b
 
   # Where the main path's time goes: its other device stages at N_MAIN,
   # each timed alone on the same inputs the pipeline gives it.
@@ -1830,6 +1947,9 @@ def main() -> int:
               "nodeflicker"]["launches_per_step_past_L"][name]})
     else:
       kernel["shape"] = f"B={BATCH},N={N_BATCH},d={D_MAIN}"
+    if name == "affinity_batched":
+      kernel[f"at_B={STREAMED_CHUNK}"] = times[
+          f"affinity_batched_b{STREAMED_CHUNK}"]
     if name in no_library:
       kernel["library_note"] = no_library[name]
     if name == "threshold_symmetrize_general":

@@ -11,23 +11,22 @@
 // division and square root stays IEEE, and the products are float32 FMAs
 // on the CUDA cores, never TF32 tensor cores.
 //
-// Interface: plain C. Every sct_* function but sct_resident_blocks (a
-// report of occupancy) launches one kernel on the given stream, does not
-// synchronize, allocates nothing, and returns cudaGetLastError() so the
-// caller sees a refused launch.
+// Interface: plain C. Every sct_* function but the two reports
+// (sct_resident_blocks, sct_affinity_batched_schedule) launches one kernel
+// on the given stream, does not synchronize, allocates nothing, and returns
+// cudaGetLastError() so the caller sees a refused launch.
 //
 // Batched forms (sct_*_batched). The JAX package's batched step runs each
 // Pallas kernel under vmap, which adds a leading grid axis over the
-// utterances of a chunk. Kernels 1-5 here take that axis the same way: one
-// launch covers B contiguous (N, N) matrices, the affinity and
-// threshold_symmetrize with the utterance as a grid index (blockIdx.y,
-// blockIdx.z), row_max, crop_diagonal and row_wise_normalize by treating
-// the batch as B·N rows (utterance r / N, diagonal column r % N). Each utterance's n_valid is read
-// from a (B,) int32 array in device memory, so a chunk of ragged utterances
-// needs no host value per utterance. Each of these kernels is a template
-// on kBatched; the 2-D entry points launch its one-matrix instance, which
-// compiles to the code it had before the batch axis, with n_valid as an
-// argument.
+// utterances of a chunk. One launch covers B contiguous (N, N) matrices:
+// threshold_symmetrize with the utterance as a grid index (blockIdx.z);
+// crop_diagonal and row_wise_normalize by treating the batch as B·N rows
+// (utterance r / N, diagonal column r % N), as templates on kBatched whose
+// one-matrix instances compile to the code they had before the batch axis;
+// the affinity and row_max by kernels of their own (1b, 2b), designed for
+// the chunk's shapes. Each utterance's n_valid is read from a (B,) int32
+// array in device memory, so a chunk of ragged utterances needs no host
+// value per utterance.
 //
 // Card figures used below (H100 SXM data sheet): 3.35 TB/s HBM3,
 // 67 TFLOP/s float32 on the CUDA cores. N = 10240, d = 256 on the main path.
@@ -149,18 +148,10 @@ __device__ __forceinline__ void store4(float* row, int c, int n, bool vec,
   if (c + 3 < n) row[c + 3] = v3;
 }
 
-// kBatched: utterance blockIdx.y of a batch, its operand and its output
-// matrix. A template argument, as for the row kernels below, so that the
-// one-matrix form compiles to the code it had before the batch axis.
-template <bool kBatched>
 __global__ void __launch_bounds__(kAffThreads, 2)
 affinity_kernel(const float* __restrict__ xt, float* __restrict__ out, int n,
                 int ld, int k_slices) {
   extern __shared__ __align__(16) float smem[];
-  if (kBatched) {
-    xt += (size_t)blockIdx.y * k_slices * kAffDepth * ld;
-    out += (size_t)blockIdx.y * n * n;
-  }
   int bi, bj;
   triangle_pair(blockIdx.x, bi, bj);
   const int row0 = bi * kAffTile;
@@ -255,18 +246,351 @@ affinity_kernel(const float* __restrict__ xt, float* __restrict__ out, int n,
   }
 }
 
-// Lets both forms of the affinity kernel take kAffSmemBytes of dynamic
-// shared memory; set once per process.
+// Lets the affinity kernel take kAffSmemBytes of dynamic shared memory; set
+// once per process.
 cudaError_t affinity_smem_opt_in() {
-  static const cudaError_t err = [] {
-    const cudaError_t one = cudaFuncSetAttribute(
-        affinity_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kAffSmemBytes);
-    if (one != cudaSuccess) return one;
-    return cudaFuncSetAttribute(affinity_kernel<true>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kAffSmemBytes);
-  }();
+  static const cudaError_t err = cudaFuncSetAttribute(
+      affinity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAffSmemBytes);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// 1b. Batched affinity: the 2-D kernel's products on row-major operands,
+// the largest blocks first.
+//
+// Replaces affinity_pallas under the batched step's vmap (parallel/batch.py):
+// the B matrices (xn_b xn_bᵀ + 1) / 2 of one chunk, B·N(N+1)·d float32
+// operations, 4.3 GFLOP -> 0.064 ms at (B, N, d) = (16, 1024, 256); its bytes
+// (16.8 MB read, 67 MB written -> 0.025 ms) cost less. The 2-D kernel with
+// the utterance as a grid index lost time there three ways (PERF.md §6):
+// its wrapper first copied xnᵀ into a padded operand, a copy whose reads
+// stride by d; its 576 tile pairs of 128x128 are 2.2 waves over the 264
+// resident blocks; and its diagonal tiles are computed in full.
+// Design:
+//  * the operand is the normalized rows as they are, (B, N, d4) row-major
+//    (d4 = d padded to a multiple of 4 by the wrapper, only where d % 4 !=
+//    0): no transposed copy. Each k slice is copied into a ring of shared
+//    memory as it lies, with the 2-D kernel's count of 16-byte cp.async,
+//    and one slice ahead of its products each thread moves 4 float4s of it
+//    into a k-major tile with 16 scalar stores: a warp reads 32 rows'
+//    float4 and writes 32 consecutive floats of each k, both at the fewest
+//    wavefronts. (Copying with 4-byte cp.async straight into k-major order
+//    was slower, and so was reading float4s along k from a row-major tile,
+//    which spilled.)
+//  * the products are the 2-D kernel's k loop on that tile, so each element
+//    is one fmaf chain over k = 0..16·ceil(d4/16)-1 in order (the zero fill
+//    past N and d adds exact zeros): each matrix equals the 2-D kernel's
+//    bit for bit, and its own transpose;
+//  * a block computes some of the four 64x64 quads of a 128x128 tile pair,
+//    and the grid puts the largest blocks first: the off-diagonal pairs,
+//    then the diagonal tiles at 3/4 of the work (the lower left quad is the
+//    mirror of the upper right one, and the columns are the rows, staged
+//    once), the last quarter-wave of them split into an upper row half and
+//    a lower quad, so that small blocks fill the last wave's gaps.
+// ---------------------------------------------------------------------------
+
+constexpr int kAbQuad = kAffTile / 2;
+constexpr int kAbStages = 3;
+// A ring stage: a slice of the piece's rows (at 0) and columns (at
+// kAffTile) as they lie, kAffDepth floats a row, padded to kAbRowPitch so
+// that 8 rows' float4 q fall in 8 bank groups.
+constexpr int kAbRowPitch = kAffDepth + 4;
+constexpr int kAbRingFloats = 2 * kAffTile * kAbRowPitch;
+// A k-major tile: the 2-D kernel's stage, (kAffDepth, kAffTile) of rows,
+// then of columns.
+constexpr int kAbTileFloats = 2 * kAffDepth * kAffTile;
+constexpr int kAbSmemBytes =
+    (kAbStages * kAbRingFloats + 2 * kAbTileFloats) * 4;
+
+// A block's piece of the upper triangle: the 64x64 quads kQuads (bit
+// 2hr + hc for rows row0 + 64hr, columns col0 + 64hc) of utterance utt.
+// kOffDiagonal: a 128x128 tile pair bi < bj, all four quads. The others lie
+// on a diagonal tile (row0 = col0), whose columns are its rows: kDiagonal
+// its quads (0,0), (0,1), (1,1) (the lower left one is the mirror of the
+// upper right one), kUpperHalf its upper row half, kLowerQuad its lower
+// right quad, as a 64-row piece from row0 + 64.
+constexpr int kOffDiagonal = 0xf;
+constexpr int kDiagonal = 0xb;
+constexpr int kUpperHalf = 0x3;
+constexpr int kLowerQuad = 0x1;
+
+struct AffPiece {
+  int kind, utt, row0, col0;
+};
+
+// Block blk's piece. The grid puts the largest first: the b·T(T-1)/2
+// off-diagonal pairs (utterance by utterance, pair bj(bj-1)/2 + bi), then
+// the diagonal tiles, the last `split` of which come as an upper half and
+// a lower quad each, all the halves, then all the quads: small blocks
+// fill the last wave's gaps. kind < 0: a quad past n.
+__device__ __forceinline__ AffPiece affinity_piece(int blk, int n, int b,
+                                                   int tiles, int split) {
+  const int off = tiles * (tiles - 1) / 2;
+  if (blk < b * off) {
+    const int utt = blk / off;
+    const int pr = blk - utt * off;
+    int bj = static_cast<int>((sqrtf(8.0f * pr + 1.0f) + 1.0f) * 0.5f);
+    while (bj > 1 && bj * (bj - 1) / 2 > pr) --bj;
+    while ((bj + 1) * bj / 2 <= pr) ++bj;
+    const int bi = pr - bj * (bj - 1) / 2;
+    return AffPiece{kOffDiagonal, utt, bi * kAffTile, bj * kAffTile};
+  }
+  blk -= b * off;
+  const int whole = b * tiles - split;
+  int kind = kDiagonal, g = blk;
+  if (blk >= whole + split) {
+    kind = kLowerQuad;
+    g = blk - split;
+  } else if (blk >= whole) {
+    kind = kUpperHalf;
+  }
+  const int utt = g / tiles;
+  const int r0 =
+      (g - utt * tiles) * kAffTile + (kind == kLowerQuad ? kAbQuad : 0);
+  return AffPiece{r0 < n ? kind : -1, utt, r0, r0};
+}
+
+// Copies k slice `slice` of kRows rows of x (n, d4), row-major, from row
+// `first`, into ring rows [0, kRows) as they lie; zero past n and d4.
+// Thread tid copies float4 c % 4 of row c / 4, c = tid + 256u: a warp 8
+// rows of 64 bytes.
+template <int kRows>
+__device__ __forceinline__ void stage_rows(float* ring, const float* x,
+                                           int n, int d4, int slice,
+                                           int first, int tid) {
+#pragma unroll
+  for (int u = 0; u < kRows * 4 / kAffThreads; ++u) {
+    const int c = tid + u * kAffThreads;
+    const int r = c >> 2;
+    const int q = c & 3;
+    const int k = slice * kAffDepth + 4 * q;
+    const bool ok = first + r < n && k < d4;
+    const float* src = ok ? x + (size_t)(first + r) * d4 + k : x;
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(ring + r * kAbRowPitch + 4 * q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 16 : 0));
+  }
+}
+
+// Ring rows [0, kRows) -> k-major tiles of 128 rows (rows [128, 256) are
+// the column operand's, the second tile). Thread tid moves float4 q of row
+// r, r = c % 32 + 32(c / 128), q = c / 32 % 4, c = tid + 256u: a warp
+// reads 32 rows' float4 q (4 wavefronts, the least for 512 bytes) and
+// writes 32 consecutive floats of each of k = 4q..4q+3.
+template <int kRows>
+__device__ __forceinline__ void transpose_rows(float* tiles,
+                                               const float* ring, int tid) {
+#pragma unroll
+  for (int u = 0; u < kRows * 4 / kAffThreads; ++u) {
+    const int c = tid + u * kAffThreads;
+    const int r = (c & 31) + 32 * (c >> 7);
+    const int q = (c >> 5) & 3;
+    const float4 v =
+        *reinterpret_cast<const float4*>(ring + r * kAbRowPitch + 4 * q);
+    float* t = tiles + (r >> 7) * kAffDepth * kAffTile + (r & 127);
+    t[(4 * q) * kAffTile] = v.x;
+    t[(4 * q + 1) * kAffTile] = v.y;
+    t[(4 * q + 2) * kAffTile] = v.z;
+    t[(4 * q + 3) * kAffTile] = v.w;
+  }
+}
+
+// The ring rows a piece stages: its rows, and its columns after them off
+// the diagonal; 64 rows for a lower quad, the only piece in one quad.
+template <int kQuads>
+constexpr int kPieceRows = kQuads == kOffDiagonal ? 2 * kAffTile
+                           : (kQuads & 0xe)       ? kAffTile
+                                                  : kAbQuad;
+
+template <int kQuads>
+__device__ __forceinline__ void stage_piece(float* ring, const float* x,
+                                            int n, int d4, int slice,
+                                            const AffPiece& p, int tid) {
+  if (kQuads == kOffDiagonal) {
+    stage_rows<kAffTile>(ring, x, n, d4, slice, p.row0, tid);
+    stage_rows<kAffTile>(ring + kAffTile * kAbRowPitch, x, n, d4, slice,
+                         p.col0, tid);
+  } else {
+    stage_rows<kPieceRows<kQuads>>(ring, x, n, d4, slice, p.row0, tid);
+  }
+}
+
+// The piece's products: acc[i][j] over rows 64(i/4) + 4ty + i%4 and
+// columns 64(j/4) + 4tx + j%4 of it, ty and tx the 2-D kernel's, for the
+// quads of kQuads. Slice s is copied into ring stage s % kAbStages, moved
+// into k-major tile s % 2 one slice ahead of its products, and multiplied
+// by the 2-D kernel's k loop; one __syncthreads a slice orders the three.
+template <int kQuads>
+__device__ __forceinline__ void piece_products(const float* x, int n, int d4,
+                                               int k_slices,
+                                               const AffPiece& p, float* smem,
+                                               float (&acc)[8][8]) {
+  constexpr int kRows = kPieceRows<kQuads>;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  float* ring = smem;
+  float* tiles = smem + kAbStages * kAbRingFloats;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+#pragma unroll
+  for (int s = 0; s < kAbStages; ++s) {
+    if (s < k_slices) {
+      stage_piece<kQuads>(ring + s * kAbRingFloats, x, n, d4, s, p, tid);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kAbStages - 1>();
+  __syncthreads();
+  if (k_slices > 0) transpose_rows<kRows>(tiles, ring, tid);
+  for (int ks = 0; ks < k_slices; ++ks) {
+    // Slice ks+1 has landed; every thread is done with tile (ks+1) % 2
+    // (slice ks-1's products) and with ring stage ks % kAbStages (slice
+    // ks's move), and slice ks's move is in tile ks % 2.
+    cp_async_wait<kAbStages - 2>();
+    __syncthreads();
+    if (ks + 1 < k_slices) {
+      transpose_rows<kRows>(tiles + ((ks + 1) & 1) * kAbTileFloats,
+                            ring + ((ks + 1) % kAbStages) * kAbRingFloats,
+                            tid);
+    }
+    if (ks + kAbStages < k_slices) {
+      stage_piece<kQuads>(ring + (ks % kAbStages) * kAbRingFloats, x, n, d4,
+                          ks + kAbStages, p, tid);
+    }
+    cp_async_commit();
+    const float* as = tiles + (ks & 1) * kAbTileFloats;
+    const float* bs =
+        kQuads == kOffDiagonal ? as + kAffDepth * kAffTile : as;
+#pragma unroll
+    for (int k = 0; k < kAffDepth; ++k) {
+      float a[8], b[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (kQuads & (0x3 << (2 * h))) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              as + k * kAffTile + h * kAbQuad + 4 * ty);
+          a[4 * h] = v.x; a[4 * h + 1] = v.y; a[4 * h + 2] = v.z;
+          a[4 * h + 3] = v.w;
+        }
+        if (kQuads & (0x5 << h)) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bs + k * kAffTile + h * kAbQuad + 4 * tx);
+          b[4 * h] = v.x; b[4 * h + 1] = v.y; b[4 * h + 2] = v.z;
+          b[4 * h + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (kQuads & (1 << (2 * (i >> 2) + (j >> 2)))) {
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Stores (acc + 1) / 2 of piece p's quads; a quad off the diagonal also
+// writes its transpose: row c of it is column c of the register tile, 4
+// consecutive rows of the piece.
+template <int kQuads>
+__device__ __forceinline__ void piece_store(float* out, int n,
+                                            const AffPiece& p, bool vec,
+                                            float (&acc)[8][8]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  float* o = out + (size_t)p.utt * n * n;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r0 = p.row0 + hr * kAbQuad;
+#pragma unroll
+    for (int hc = 0; hc < 2; ++hc) {
+      if (!(kQuads & (1 << (2 * hr + hc)))) continue;
+      const int c0 = p.col0 + hc * kAbQuad;
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[i][j] = (acc[4 * hr + i][4 * hc + j] + 1.0f) * 0.5f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 4 * ty + i;
+        if (r < n) {
+          store4(o + (size_t)r * n, c0 + 4 * tx, n, vec, v[i][0], v[i][1],
+                 v[i][2], v[i][3]);
+        }
+      }
+      if (r0 == c0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 4 * tx + j;
+        if (c < n) {
+          store4(o + (size_t)c * n, r0 + 4 * ty, n, vec, v[0][j], v[1][j],
+                 v[2][j], v[3][j]);
+        }
+      }
+    }
+  }
+}
+
+template <int kQuads>
+__device__ __forceinline__ void affinity_piece_run(const float* x, float* out,
+                                                   int n, int d4,
+                                                   int k_slices,
+                                                   const AffPiece& p,
+                                                   float* smem, bool vec) {
+  float acc[8][8];
+  piece_products<kQuads>(x, n, d4, k_slices, p, smem, acc);
+  piece_store<kQuads>(out, n, p, vec, acc);
+}
+
+// xn: B utterances of (n, d4), row-major; out: B matrices of (n, n).
+__global__ void __launch_bounds__(kAffThreads, 2)
+affinity_batched_kernel(const float* __restrict__ xn, float* __restrict__ out,
+                        int b, int n, int d4, int k_slices, int tiles,
+                        int split) {
+  extern __shared__ __align__(16) float smem[];
+  const AffPiece p = affinity_piece(blockIdx.x, n, b, tiles, split);
+  const float* x = xn + (size_t)p.utt * n * d4;
+  const bool vec =
+      (n & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  switch (p.kind) {
+    case kOffDiagonal:
+      affinity_piece_run<kOffDiagonal>(x, out, n, d4, k_slices, p, smem, vec);
+      break;
+    case kDiagonal:
+      affinity_piece_run<kDiagonal>(x, out, n, d4, k_slices, p, smem, vec);
+      break;
+    case kUpperHalf:
+      affinity_piece_run<kUpperHalf>(x, out, n, d4, k_slices, p, smem, vec);
+      break;
+    case kLowerQuad:
+      affinity_piece_run<kLowerQuad>(x, out, n, d4, k_slices, p, smem, vec);
+      break;
+    default:
+      break;
+  }
+}
+
+cudaError_t affinity_batched_smem_opt_in() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      affinity_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAbSmemBytes);
   return err;
 }
 
@@ -384,8 +708,10 @@ __device__ __forceinline__ void row_position(int r, int n, int n_valid,
   }
 }
 
-// `rows` rows of length n: one matrix (rows = n) or a batch (rows = B·n).
-template <bool kExclude, bool kBatched>
+// One matrix of n rows of length n (rows = n). `n_valids` is not read
+// (nullptr); the parameter list is the one the kernel had as a template on
+// kBatched, so that it keeps its compiled code.
+template <bool kExclude>
 __global__ void __launch_bounds__(kRowThreads)
 row_max_kernel(const float* __restrict__ a, float* __restrict__ out, int rows,
                int n, int n_valid, const int* __restrict__ n_valids,
@@ -395,11 +721,84 @@ row_max_kernel(const float* __restrict__ a, float* __restrict__ out, int rows,
   for (int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5); r < rows;
        r += warps) {
     int i, nv;
-    row_position<kBatched>(r, n, n_valid, n_valids, i, nv);
+    row_position<false>(r, n, n_valid, n_valids, i, nv);
     const float m = row_max_value<kExclude>(a + (size_t)r * n, i, nv,
                                             vec != 0, lane);
     if (lane == 0) out[r] = m;
   }
+}
+
+// 2b. Batched row max, for the short rows of a chunk (4 KB at N=1024).
+// Replaces row_max_pallas under the batched step's vmap. The 2-D kernel's
+// one-wave grid (above) gave each warp about two rows of the batch in turn,
+// far apart, each read in two dependent rounds of kRowUnroll loads. Here a
+// warp takes one row and a lane issues all its loads of a kRbLoads·512-byte
+// stretch (the whole row at N=1024) before it reduces any; the grid is one
+// warp per row, B·N / 8 blocks with no stride, which the block scheduler
+// hands out in order, so the batch is read as one sweep with no occupancy
+// query. Bound: the B·N·n_valid floats read once, 67 MB -> 0.020 ms at
+// (16, 1024). With kExclude the max starts at 0, the diagonal's value, and
+// column i is read with the rest and dropped, so the two column ranges of
+// the 2-D kernel are one. A max is order-free: the twin's bits, and the
+// 2-D kernel's.
+constexpr int kRbLoads = 8;
+
+template <bool kExclude>
+__global__ void __launch_bounds__(kRowThreads)
+row_max_batched_kernel(const float* __restrict__ a, float* __restrict__ out,
+                       int rows, int n, const int* __restrict__ n_valids,
+                       int vec) {
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int lane = threadIdx.x & 31;
+  // Row i of utterance r / n, valid columns its n_valid clamped to [0, n],
+  // or all n without n_valids.
+  const int utterance = r / n;
+  const int i = r - utterance * n;
+  const int nv = n_valids ? min(max(n_valids[utterance], 0), n) : n;
+  const float* row = a + (size_t)r * n;
+  float m = kExclude ? 0.0f : -INFINITY;
+  if (vec) {
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const int n4 = nv >> 2;
+    for (int c0 = lane; c0 < n4; c0 += 32 * kRbLoads) {
+      float4 v[kRbLoads];
+#pragma unroll
+      for (int u = 0; u < kRbLoads; ++u) {
+        const int c = c0 + 32 * u;
+        v[u] = c < n4 ? row4[c]
+                      : make_float4(-INFINITY, -INFINITY, -INFINITY,
+                                    -INFINITY);
+      }
+#pragma unroll
+      for (int u = 0; u < kRbLoads; ++u) {
+        if (kExclude && c0 + 32 * u == (i >> 2)) {
+          const int e = i & 3;
+          v[u].x = e == 0 ? -INFINITY : v[u].x;
+          v[u].y = e == 1 ? -INFINITY : v[u].y;
+          v[u].z = e == 2 ? -INFINITY : v[u].z;
+          v[u].w = e == 3 ? -INFINITY : v[u].w;
+        }
+        m = fmaxf(m, fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w)));
+      }
+    }
+    // The at most three columns past the last whole float4.
+    const int c = 4 * n4 + lane;
+    if (c < nv && !(kExclude && c == i)) m = fmaxf(m, row[c]);
+  } else {
+    for (int c0 = lane; c0 < nv; c0 += 32 * kRbLoads) {
+      float v[kRbLoads];
+#pragma unroll
+      for (int u = 0; u < kRbLoads; ++u) {
+        const int c = c0 + 32 * u;
+        v[u] = c < nv && !(kExclude && c == i) ? row[c] : -INFINITY;
+      }
+#pragma unroll
+      for (int u = 0; u < kRbLoads; ++u) m = fmaxf(m, v[u]);
+    }
+  }
+  m = warp_max(m);
+  if (lane == 0) out[r] = m;
 }
 
 template <bool kBatched>
@@ -623,41 +1022,91 @@ row_wise_normalize_kernel(const float* __restrict__ a, float* __restrict__ out,
 // The grid's y and z dimensions, which carry a batch's utterance index.
 constexpr int kMaxGridYZ = 65535;
 
-cudaError_t launch_affinity(const float* xt, float* out, int b, int n, int ld,
+cudaError_t launch_affinity(const float* xt, float* out, int n, int ld,
                             int d_pad, cudaStream_t stream) {
-  // xt is xnᵀ zero-padded to (d_pad, ld) per utterance: whole k slices,
-  // whole tiles.
-  if (ld % kAffTile != 0 || ld < n || d_pad % kAffDepth != 0 || b < 1 ||
-      b > kMaxGridYZ) {
+  // xt is xnᵀ zero-padded to (d_pad, ld): whole k slices, whole tiles.
+  if (ld % kAffTile != 0 || ld < n || d_pad % kAffDepth != 0) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t attr = affinity_smem_opt_in();
   if (attr != cudaSuccess) return attr;
   const int tiles = cdiv(n, kAffTile);
-  const dim3 grid(tiles * (tiles + 1) / 2, b);
-  if (b == 1) {
-    affinity_kernel<false><<<grid, kAffThreads, kAffSmemBytes, stream>>>(
-        xt, out, n, ld, d_pad / kAffDepth);
+  affinity_kernel<<<tiles * (tiles + 1) / 2, kAffThreads, kAffSmemBytes,
+                    stream>>>(xt, out, n, ld, d_pad / kAffDepth);
+  return cudaGetLastError();
+}
+
+// Blocks of the batched affinity resident on one SM (2 by its launch
+// bounds and shared memory); asked once per process.
+int affinity_batched_resident() {
+  static const int blocks = [] {
+    int per_sm = 0;
+    if (affinity_batched_smem_opt_in() != cudaSuccess) return 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, affinity_batched_kernel, kAffThreads, kAbSmemBytes);
+    return per_sm;
+  }();
+  return blocks;
+}
+
+// The batched affinity's diagonal tiles that come split in two, so that
+// small blocks fill the last wave: a quarter of the card's resident slots.
+int affinity_batched_split(int b, int n) {
+  const long long diagonal = (long long)b * cdiv(n, kAffTile);
+  const int quarter = sm_count() * affinity_batched_resident() / 4;
+  return static_cast<int>(diagonal < quarter ? diagonal : quarter);
+}
+
+// The batched affinity's grid: b·T(T-1)/2 off-diagonal tile pairs, b·T
+// diagonal tiles, and `split` of these twice, for T = ceil(n/128).
+long long affinity_batched_blocks(int b, int n, int split) {
+  const long long tiles = cdiv(n, kAffTile);
+  return b * (tiles * (tiles + 1) / 2) + split;
+}
+
+cudaError_t launch_affinity_batched(const float* xn, float* out, int b, int n,
+                                    int d4, cudaStream_t stream) {
+  if (b < 1 || n < 1 || d4 < 0 || d4 % 4 != 0 ||
+      (reinterpret_cast<uintptr_t>(xn) & 15) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t attr = affinity_batched_smem_opt_in();
+  if (attr != cudaSuccess) return attr;
+  const int split = affinity_batched_split(b, n);
+  const long long blocks = affinity_batched_blocks(b, n, split);
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  affinity_batched_kernel<<<static_cast<int>(blocks), kAffThreads,
+                            kAbSmemBytes, stream>>>(
+      xn, out, b, n, d4, cdiv(d4, kAffDepth), cdiv(n, kAffTile), split);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_row_max(const float* a, float* out, int n, int n_valid,
+                           int exclude_diagonal, int vec,
+                           cudaStream_t stream) {
+  if (exclude_diagonal) {
+    const int grid = row_blocks<row_max_kernel<true>>(n);
+    row_max_kernel<true><<<grid, kRowThreads, 0, stream>>>(
+        a, out, n, n, n_valid, nullptr, vec);
   } else {
-    affinity_kernel<true><<<grid, kAffThreads, kAffSmemBytes, stream>>>(
-        xt, out, n, ld, d_pad / kAffDepth);
+    const int grid = row_blocks<row_max_kernel<false>>(n);
+    row_max_kernel<false><<<grid, kRowThreads, 0, stream>>>(
+        a, out, n, n, n_valid, nullptr, vec);
   }
   return cudaGetLastError();
 }
 
-template <bool kBatched>
-cudaError_t launch_row_max(const float* a, float* out, int rows, int n,
-                           int n_valid, const int* n_valids,
-                           int exclude_diagonal, int vec,
-                           cudaStream_t stream) {
+cudaError_t launch_row_max_batched(const float* a, float* out, int rows,
+                                   int n, const int* n_valids,
+                                   int exclude_diagonal, int vec,
+                                   cudaStream_t stream) {
+  const int grid = cdiv(rows, kRowWarps);
   if (exclude_diagonal) {
-    const int grid = row_blocks<row_max_kernel<true, kBatched>>(rows);
-    row_max_kernel<true, kBatched><<<grid, kRowThreads, 0, stream>>>(
-        a, out, rows, n, n_valid, n_valids, vec);
+    row_max_batched_kernel<true><<<grid, kRowThreads, 0, stream>>>(
+        a, out, rows, n, n_valids, vec);
   } else {
-    const int grid = row_blocks<row_max_kernel<false, kBatched>>(rows);
-    row_max_kernel<false, kBatched><<<grid, kRowThreads, 0, stream>>>(
-        a, out, rows, n, n_valid, n_valids, vec);
+    row_max_batched_kernel<false><<<grid, kRowThreads, 0, stream>>>(
+        a, out, rows, n, n_valids, vec);
   }
   return cudaGetLastError();
 }
@@ -706,34 +1155,34 @@ const char* sct_error_string(int code) {
 
 int sct_affinity(const float* xt, float* out, int n, int ld, int d_pad,
                  void* stream) {
-  return static_cast<int>(launch_affinity(
-      xt, out, 1, n, ld, d_pad, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_affinity(xt, out, n, ld, d_pad,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
-// xt: B operands of (d_pad, ld), out: B matrices of (n, n), contiguous.
-int sct_affinity_batched(const float* xt, float* out, int b, int n, int ld,
-                         int d_pad, void* stream) {
-  return static_cast<int>(launch_affinity(
-      xt, out, b, n, ld, d_pad, static_cast<cudaStream_t>(stream)));
+// xn: B normalized utterances of (n, d4), row-major, 16-byte aligned, d4 a
+// multiple of 4; out: B matrices of (n, n), contiguous.
+int sct_affinity_batched(const float* xn, float* out, int b, int n, int d4,
+                         void* stream) {
+  return static_cast<int>(launch_affinity_batched(
+      xn, out, b, n, d4, static_cast<cudaStream_t>(stream)));
 }
 
 int sct_row_max(const float* a, float* out, int n, int n_valid,
                 int exclude_diagonal, int vec, void* stream) {
-  return static_cast<int>(
-      launch_row_max<false>(a, out, n, n, n_valid, nullptr, exclude_diagonal,
-                            vec, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_row_max(a, out, n, n_valid, exclude_diagonal,
+                                         vec,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
-// a: B matrices of (n, n); out: B·n maxima; n_valids: B int32 on the card.
+// a: B matrices of (n, n); out: B·n maxima; n_valids: B int32 on the card,
+// or nullptr when every column is valid.
 int sct_row_max_batched(const float* a, float* out, int b, int n,
                         const int* n_valids, int exclude_diagonal, int vec,
                         void* stream) {
-  if (!rows_fit(b, n) || n_valids == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(
-      launch_row_max<true>(a, out, b * n, n, n, n_valids, exclude_diagonal,
-                           vec, static_cast<cudaStream_t>(stream)));
+  if (!rows_fit(b, n)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_row_max_batched(
+      a, out, b * n, n, n_valids, exclude_diagonal, vec,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int sct_crop_diagonal(const float* a, float* out, int n, int n_valid, int vec,
@@ -753,23 +1202,42 @@ int sct_crop_diagonal_batched(const float* a, float* out, int b, int n,
 }
 
 // Blocks resident on one SM, for reports: kernel 0 is the affinity, 1
-// row_max (the main path's form, no exclude_diagonal), 2 crop_diagonal.
+// row_max (the main path's form, no exclude_diagonal), 2 crop_diagonal, 3
+// the batched affinity, 4 the batched row_max (no exclude_diagonal).
 int sct_resident_blocks(int kernel, int* blocks) {
   cudaError_t err = cudaSuccess;
   if (kernel == 0) {
     err = affinity_smem_opt_in();
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, affinity_kernel<false>, kAffThreads, kAffSmemBytes);
+          blocks, affinity_kernel, kAffThreads, kAffSmemBytes);
     }
   } else if (kernel == 1) {
-    *blocks = row_resident_blocks<row_max_kernel<false, false>>();
+    *blocks = row_resident_blocks<row_max_kernel<false>>();
   } else if (kernel == 2) {
     *blocks = row_resident_blocks<crop_diagonal_kernel<false>>();
+  } else if (kernel == 3) {
+    *blocks = affinity_batched_resident();
+  } else if (kernel == 4) {
+    *blocks = row_resident_blocks<row_max_batched_kernel<false>>();
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The batched affinity's grid for (b, n), its diagonal tiles that come
+// split, and the card's resident slots for it, for reports.
+int sct_affinity_batched_schedule(int b, int n, long long* blocks,
+                                  int* split, int* slots) {
+  if (b < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = affinity_batched_smem_opt_in();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  *split = affinity_batched_split(b, n);
+  *blocks = affinity_batched_blocks(b, n, *split);
+  *slots = sm_count() * affinity_batched_resident();
+  return static_cast<int>(*slots > 0 ? cudaSuccess
+                                     : cudaErrorInvalidConfiguration);
 }
 
 int sct_threshold_symmetrize(const float* a, const float* thr, float* out,

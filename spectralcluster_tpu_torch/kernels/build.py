@@ -34,7 +34,7 @@ _F = ctypes.c_float
 # passed as a 32-bit int and cut the pointer.
 _SIGNATURES = {
     "sct_affinity": (_P, _P, _I, _I, _I, _P),
-    "sct_affinity_batched": (_P, _P, _I, _I, _I, _I, _P),
+    "sct_affinity_batched": (_P, _P, _I, _I, _I, _P),
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
     "sct_row_max_batched": (_P, _P, _I, _I, _P, _I, _I, _P),
     "sct_crop_diagonal": (_P, _P, _I, _I, _I, _P),
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
     "sct_row_wise_normalize_batched": (_P, _P, _I, _I, _P, _I, _P),
     "sct_resident_blocks": (_I, _P),
+    "sct_affinity_batched_schedule": (_I, _I, _P, _P, _P),
 }
 
 

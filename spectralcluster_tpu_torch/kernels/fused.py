@@ -46,11 +46,11 @@ def _lib():
 
 
 def _is_cpu(t: torch.Tensor) -> bool:
-  if t.device.type == "cpu":
-    return True
-  if t.device.type != "cuda":
+  if t.is_cuda:
+    return False
+  if t.device.type != "cpu":
     raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")
-  return False
+  return True
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: typing.Tuple[int, ...]):
@@ -121,7 +121,12 @@ def _launch(fn_name: str, *args):
 
 
 def _stream(t: torch.Tensor) -> int:
-  return torch.cuda.current_stream(t.device).cuda_stream
+  """The current CUDA stream of t's card, as a pointer. The raw query
+  takes a fraction of a microsecond where building a torch.cuda.Stream
+  takes several: the batched kernels run for tens of microseconds, and
+  back-to-back calls keep the card busy only while the host's work per
+  call stays under that."""
+  return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 # ---------------------------------------------------------------------------
@@ -203,16 +208,16 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-# The affinity kernel's operand units (kAffTile, kAffDepth in csrc/fused.cu):
-# it takes xnᵀ zero-padded to whole 128-column tiles and 16-deep k slices,
-# and refuses any other padding.
+# The 2-D affinity kernel's operand units (kAffTile, kAffDepth in
+# csrc/fused.cu): it takes xnᵀ zero-padded to whole 128-column tiles and
+# 16-deep k slices, and refuses any other padding.
 AFFINITY_TILE = 128
 AFFINITY_DEPTH = 16
 
 
 def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
-  """xnᵀ, (d_pad, n_pad), zero-padded to the kernel's tile and k-slice units
-  ((B, d_pad, n_pad) for a (B, N, d) batch).
+  """xnᵀ, (d_pad, n_pad), zero-padded to the 2-D kernel's tile and k-slice
+  units ((B, d_pad, n_pad) for a (B, N, d) batch).
 
   The padding adds exact zeros to each dot product, and rows past N are
   never stored, so the kernel needs no masks on its loads.
@@ -225,6 +230,14 @@ def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
   xt = xn.new_zeros(xn.shape[:-2] + (d_pad, n_pad))
   xt[..., :d, :n] = xn.transpose(-1, -2)
   return xt
+
+
+def row_major_operand(xn: torch.Tensor) -> torch.Tensor:
+  """The batched kernel's operand: xn (B, N, d) as it is where d % 4 == 0,
+  else zero-padded to whole float4s (its rows start 16-byte aligned)."""
+  if xn.shape[-1] % 4:
+    xn = torch.nn.functional.pad(xn, (0, -xn.shape[-1] % 4))
+  return xn.contiguous()
 
 
 def affinity(embeddings: torch.Tensor) -> torch.Tensor:
@@ -319,19 +332,25 @@ def row_wise_normalize(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 
 
 def affinity_batched(embeddings: torch.Tensor) -> torch.Tensor:
-  """Cosine affinities of a (B, N, d) float32 batch -> (B, N, N): kernel 1
-  with the utterance as a grid index, one launch for the batch."""
+  """Cosine affinities of a (B, N, d) float32 batch -> (B, N, N), one launch
+  for the batch (kernel 1b).
+
+  The row normalization stays plain torch, as in ``affinity``; the kernel
+  reads the normalized rows as they are, row-major, with no transposed
+  operand. Where d % 4 != 0 they are zero-padded to whole float4s (exact
+  zeros in each dot product).
+  """
   if _is_cpu(embeddings):
     return affinity_plain(embeddings)
   if embeddings.dim() != 3:
     raise ValueError("affinity_batched: expected (B, N, d) embeddings")
   b, n, d = embeddings.shape
   _check_f32("affinity_batched", embeddings, (b, n, d))
-  xt = affinity_operand(normalize_rows(embeddings))
+  xn = row_major_operand(normalize_rows(embeddings))
   out = torch.empty((b, n, n), dtype=torch.float32, device=embeddings.device)
   if b and n:
-    _launch("sct_affinity_batched", xt.data_ptr(), out.data_ptr(), b, n,
-            xt.shape[2], xt.shape[1], _stream(embeddings))
+    _launch("sct_affinity_batched", xn.data_ptr(), out.data_ptr(), b, n,
+            xn.shape[2], _stream(embeddings))
     affinity_batched.launches += 1
   return out
 
@@ -339,15 +358,23 @@ def affinity_batched(embeddings: torch.Tensor) -> torch.Tensor:
 def row_max_batched(mat: torch.Tensor, exclude_diagonal: bool = False,
                     n_valid=None) -> torch.Tensor:
   """(B, N, 1) row maxima of a (B, N, N) batch, each matrix over its first
-  ``n_valid[b]`` columns; ``n_valid`` is None or a (B,) integer tensor."""
+  ``n_valid[b]`` columns; ``n_valid`` is None or a (B,) integer tensor.
+
+  With ``n_valid`` None the kernel gets no n_valid array (every column is
+  valid) and the wrapper launches nothing else: its host work per call
+  stays under the kernel's 25 µs at (16, 1024), so back-to-back calls keep
+  the card busy.
+  """
   if _is_cpu(mat):
     return row_max_plain(mat, exclude_diagonal, n_valid)
   b, n = _batch_of_squares("row_max_batched", mat)
-  nv = _device_n_valid("row_max_batched", b, n, n_valid, mat.device)
-  out = torch.empty((b, n, 1), dtype=torch.float32, device=mat.device)
+  nv = (None if n_valid is None else
+        _device_n_valid("row_max_batched", b, n, n_valid, mat.device))
+  out = mat.new_empty((b, n, 1))
   if b and n:
     _launch("sct_row_max_batched", mat.data_ptr(), out.data_ptr(), b, n,
-            nv.data_ptr(), int(exclude_diagonal), _vec(mat), _stream(mat))
+            None if nv is None else nv.data_ptr(), int(exclude_diagonal),
+            _vec(mat), _stream(mat))
     row_max_batched.launches += 1
   return out
 

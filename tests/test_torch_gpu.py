@@ -115,8 +115,23 @@ def _batch(n, seed, device, shift=0.0):
                      device=device) + shift
 
 
+# The batched affinity (csrc/fused.cu, 1b): a block per piece of a 128x128
+# tile pair, the B·T(T-1)/2 off-diagonal pairs first, then the B·T diagonal
+# tiles at 3/4 of a tile, the last min(B·T, slots / 4) of them as an upper
+# row half and a lower quad (66 of 264 slots on an H100 SXM). Cases: every
+# diagonal tile split (1, 5, 6, 7 x 1024), some (9 x 1024, 88 x 100, 16 x
+# 1024, 64 x 1024); a grid under, at and over one wave of 264 blocks (5, 6,
+# 7 x 1024: 220, 264, 308); a lower quad past N (960, 64) or of one row
+# (65); N % 4 != 0 (1001, 129, 513); d past whole 16-deep slices (257, 100),
+# d % 4 != 0 (257, 33, 3, 1, padded by the wrapper); N = 1.
 @pytest.mark.parametrize("b,n,d", [(5, 1000, 100), (16, 1024, 256),
-                                   (3, 129, 33), (2, 1, 1)])
+                                   (3, 129, 33), (2, 1, 1), (1, 1024, 256),
+                                   (5, 1024, 64), (6, 1024, 64),
+                                   (7, 1024, 64), (9, 1024, 64),
+                                   (88, 100, 64), (64, 1024, 256),
+                                   (3, 960, 64), (2, 64, 16), (4, 192, 257),
+                                   (2, 1001, 8), (1, 65, 3), (7, 513, 16),
+                                   (8, 1024, 64), (2, 2500, 16)])
 def test_affinity_batched(cuda, b, n, d):
   x = torch.as_tensor(
       np.random.RandomState(0).randn(b, n, d).astype(np.float32)).to(cuda)
@@ -138,6 +153,28 @@ def test_row_max_batched(cuda, exclude, ragged):
   for i in range(a.shape[0]):
     assert torch.equal(got[i], fused.row_max(
         a[i], exclude, _BATCH_N_VALID[i] if ragged else None))
+
+
+# The batched row max (csrc/fused.cu, 2b): a warp per row, each lane's
+# loads of a 512·kRbLoads-byte stretch (4 KB) in flight at once. Cases: a
+# row past one stretch (2500: three, the last partial; 2503 without float4
+# loads), N % 4 != 0 (1001, 7: the tail columns and the scalar path), the
+# batch path's 16 x 1024 and the streamed chunk's 64 x 1024, N = 1; n_valid
+# of N, N - 1, 0, 1 and N/2 + 3 by turns, and past [0, N] (clamped).
+@pytest.mark.parametrize("b,n", [(3, 2500), (2, 2503), (5, 1001), (4, 7),
+                                 (16, 1024), (64, 1024), (3, 1)])
+@pytest.mark.parametrize("exclude", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_row_max_batched_shapes(cuda, b, n, exclude, ragged):
+  gen = torch.Generator(cuda).manual_seed(9)
+  a = torch.randn((b, n, n), generator=gen, device=cuda) - 0.5
+  nvs = [(n, n - 1, 0, 1, n // 2 + 3, n + 5, -3)[i % 7] for i in range(b)]
+  nv = torch.tensor(nvs, device=cuda) if ragged else None
+  got = fused.row_max_batched(a, exclude, nv)
+  assert torch.equal(got, fused.row_max_plain(a, exclude, nv))
+  for i in range(b):
+    assert torch.equal(got[i], fused.row_max(
+        a[i], exclude, nvs[i] if ragged else None))
 
 
 @pytest.mark.parametrize("inplace", [False, True])

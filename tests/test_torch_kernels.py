@@ -68,6 +68,26 @@ def test_affinity_operand_feeds_the_pallas_product(n, d):
                              atol=1e-6)
 
 
+@pytest.mark.parametrize("b,n,d", [(2, 100, 33), (1, 64, 256), (3, 7, 1)])
+def test_row_major_operand_feeds_the_pallas_product(b, n, d):
+  # The batched CUDA kernel's operand: the normalized rows as they are,
+  # zero-padded to whole float4s only where d % 4 != 0. Its product is the
+  # Pallas kernel's affinity on each utterance.
+  x = np.random.RandomState(2).randn(b, n, d).astype(np.float32)
+  xn = fused.normalize_rows(_t(x))
+  op = fused.row_major_operand(xn)
+  d4 = -(-d // 4) * 4
+  assert tuple(op.shape) == (b, n, d4) and op.is_contiguous()
+  assert torch.equal(op[..., :d], xn) and not op[..., d:].any()
+  if d == d4:
+    assert op.data_ptr() == xn.data_ptr()
+  ours = (torch.matmul(op, op.transpose(1, 2)) + 1.0) * 0.5
+  for i in range(b):
+    ref = jax_fused.affinity_pallas(jnp.asarray(x[i]), interpret=True)
+    np.testing.assert_allclose(ours[i].numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_ptxas_report_reads_each_kernel(tmp_path):
   log = tmp_path / "libsct_fused_x.so.log"
   log.write_text(

@@ -7,24 +7,42 @@ earlier source file (for example from `git show <commit>:<path>`):
     python3 tools/compare_fused_parent.py --parent OLD_fused.cu [--out FILE]
 
 The earlier version's `sct_affinity` may be the one before the symmetric
-kernel, `sct_affinity(xn, out, n, d, stream)` on the normalized embeddings
-row-major, or the current `sct_affinity(xt, out, n, ld, d_pad, stream)`
-on the padded transpose; the tool reads which from the source. Its
-`sct_row_max` and `sct_crop_diagonal` take what the current ones take.
-Both libraries build with the same nvcc flags
-(`kernels/build.py`). On the bench fixture (`make_embeddings(N)`, d=256) and
-on the blurred, cropped affinity, as `chip_smoke.py` feeds the row max, it
-prints one JSON line per kernel:
+kernel,
+`sct_affinity(xn, out, n, d, stream)` on the normalized embeddings
+row-major, or `sct_affinity(xt, out, n, ld, d_pad, stream)` on the padded
+transpose; its `sct_affinity_batched` may take that padded transpose per
+utterance (`xt, out, b, n, ld, d_pad, stream`) or the normalized rows
+(`xn, out, b, n, d, stream`). The tool reads which from its source. Its
+other entry points take what the current ones take. Both libraries build
+with the same nvcc flags (`kernels/build.py`).
+
+The 2-D kernels run on the bench fixture (`make_embeddings(N)`, d=256) and
+on the blurred, cropped affinity, as `chip_smoke.py` feeds the row max. The
+batched ones run at (B, 1024, 256) for B in BATCHES on `make_batch(B)`, as
+`chip_smoke.py` feeds them. One JSON line per kernel and shape:
 
   * the max abs difference between the two versions' outputs, and whether
     they are equal bit for bit (the affinity too: both sum each element's d
     products in k order);
-  * each version's time in turns, parent, current, current, parent (CUDA
-    events around BATCH back-to-back C calls of the kernel alone, the median
-    of REPS such means per turn), on the same inputs;
-  * ptxas's registers and spill bytes of each version's kernel.
+  * each version's time in turns, parent, current, current, parent
+    (`chip_smoke.time_ms`: CUDA events around 10 back-to-back C calls of
+    the kernel alone, the median of 20 such means per turn), on the same
+    inputs. The batched affinity also in turns with its wrapper's torch
+    prologue (row normalization, and the padded transpose where that
+    version takes one), and each prologue op alone; the batched row max
+    also with the L2 flushed (`chip_smoke.time_flushed_ms`: a 128 MB write
+    before each single timed call, median of 20), beside one `torch.amax`
+    over the last axis timed both ways in the same turns;
+  * ptxas's registers and spill bytes of each version's kernel;
+  * for the batched affinity, the launch's blocks and waves in each version.
 
-Then the card's name and power limit, as nvidia-smi gives them.
+Then the card's SM clock, power draw and throttle reasons (nvidia-smi,
+every 200 ms) while the current batched affinity runs back to back for
+LOAD_SECONDS at the last batch size; whether each kernel both versions
+have, other than the two batched kernels with a design of their own,
+compiled to the same SASS up to the offsets of its parameters
+(`cuobjdump -sass`); then the card's name and power limit, as nvidia-smi
+gives them.
 """
 
 from __future__ import annotations
@@ -34,45 +52,70 @@ import concurrent.futures
 import ctypes
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 10240
 D = 256
-REPS = 20
-BATCH = 10
+N_BATCH = 1024
+BATCHES = (16, 64)
+FLUSH_BYTES = 128 << 20
+LOAD_SECONDS = 3.0
+TURNS = ("parent", "current", "current", "parent")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The earlier version's C interface, with the affinity's before the
-# symmetric kernel.
+# The earlier version's C interface: the affinity's before the symmetric
+# kernel, the batched affinity's on the padded transpose.
 _PARENT_SIGNATURES = {
     "sct_affinity": (_P, _P, _I, _I, _P),
+    "sct_affinity_batched": (_P, _P, _I, _I, _I, _I, _P),
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
+    "sct_row_max_batched": (_P, _P, _I, _I, _P, _I, _I, _P),
     "sct_crop_diagonal": (_P, _P, _I, _I, _I, _P),
+    "sct_crop_diagonal_batched": (_P, _P, _I, _I, _P, _I, _P),
 }
 _SYMMETRIC_AFFINITY = "int sct_affinity(const float* xt"
+_ROW_MAJOR_BATCHED = "int sct_affinity_batched(const float* xn"
+# Kernels with a design of their own in the current version: no SASS check.
+_REDESIGNED = ("affinity_batched_kernel", "row_max_batched_kernel")
 
 
-def _time_ms(torch, fn, reps=REPS, batch=BATCH, warmup=3) -> float:
-  # As chip_smoke.time_ms: the mean of `batch` calls back to back between
-  # two CUDA events, median over `reps`.
-  for _ in range(warmup):
-    fn()
-  torch.cuda.synchronize()
-  times = []
-  for _ in range(reps):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()  # keeps the card busy while the host enqueues the timed calls
-    start.record()
-    for _ in range(batch):
-      fn()
-    end.record()
-    end.synchronize()
-    times.append(start.elapsed_time(end) / batch)
-  return statistics.median(times)
+def _kernel_key(mangled: str) -> str:
+  # As build.ptxas_report: row_max_kernel<true,false> and the like.
+  name = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?E", mangled)
+  if not name:
+    return mangled
+  flags = re.findall(r"Lb([01])E", name.group(2) or "")
+  return name.group(1) + ("<" + ",".join(
+      "true" if f == "1" else "false" for f in flags) + ">" if flags else "")
+
+
+def _current_key(parent_key: str) -> str:
+  """The current kernel that an earlier one became: the 2-D affinity and
+  row max lost their batch template argument (false in their 2-D form)."""
+  if parent_key == "affinity_kernel<false>":
+    return "affinity_kernel"
+  m = re.fullmatch(r"row_max_kernel<(true|false),false>", parent_key)
+  return f"row_max_kernel<{m.group(1)}>" if m else parent_key
+
+
+def _sass(cuobjdump: str, lib: str):
+  """{kernel key: its SASS instructions, constant-bank offsets masked}."""
+  out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                       text=True, check=True).stdout
+  funcs = {}
+  for block in re.split(r"\n\s*Function : ", out)[1:]:
+    name, body = block.split("\n", 1)
+    ops = []
+    for line in body.split("\n"):
+      m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+      if m:
+        ops.append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[.]", m.group(1)))
+    funcs[_kernel_key(name.strip())] = ops
+  return funcs
 
 
 def main() -> int:
@@ -88,23 +131,31 @@ def main() -> int:
     return 2
   torch.backends.cuda.matmul.allow_tf32 = False
   sys.path.insert(0, ROOT)
-  from spectralcluster_tpu_torch.fixtures import make_embeddings
+  import numpy as np
+  from chip_smoke import time_flushed_ms, time_ms
+  from spectralcluster_tpu_torch.fixtures import make_batch, make_embeddings
   from spectralcluster_tpu_torch.kernels import build, fused
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
 
   parent_src = os.path.abspath(args.parent)
   with open(parent_src) as f:
-    parent_symmetric = _SYMMETRIC_AFFINITY in f.read()
+    parent_text = f.read()
+  parent_symmetric = _SYMMETRIC_AFFINITY in parent_text
+  parent_row_major = _ROW_MAJOR_BATCHED in parent_text
   with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    cur_path, par_path = pool.map(build.build,
-                                  (build.SOURCES, (parent_src,)))
-  cur = build.load()
-  par = ctypes.CDLL(par_path)
-  for name, argtypes in _PARENT_SIGNATURES.items():
-    if name == "sct_affinity" and parent_symmetric:
-      argtypes = build._SIGNATURES[name]
-    getattr(par, name).argtypes = list(argtypes)
-    getattr(par, name).restype = ctypes.c_int
+    cur_path, par_path = pool.map(build.build, (build.SOURCES, (parent_src,)))
+  libs = {"parent": ctypes.CDLL(par_path), "current": ctypes.CDLL(cur_path)}
+  for version, lib in libs.items():
+    for name, argtypes in build._SIGNATURES.items():
+      if version == "parent" and name in _PARENT_SIGNATURES:
+        argtypes = _PARENT_SIGNATURES[name]
+        if ((name == "sct_affinity" and parent_symmetric)
+            or (name == "sct_affinity_batched" and parent_row_major)):
+          argtypes = build._SIGNATURES[name]
+      fn = getattr(lib, name, None)
+      if fn is not None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
   ptxas = {"parent": build.ptxas_report(par_path),
            "current": build.ptxas_report(cur_path)}
 
@@ -113,72 +164,189 @@ def main() -> int:
     if rc != 0:
       raise RuntimeError(f"{fn}: CUDA error {rc}")
 
+  def resident(lib, kernel):
+    blocks = ctypes.c_int(0)
+    call(lib, "sct_resident_blocks", kernel, ctypes.byref(blocks))
+    return blocks.value
+
+  def fused_schedule(b, t, slots, blocks=None, split=0):
+    """Blocks and waves of a batched affinity launch over `slots` resident
+    blocks, in 128x128 tiles' work: the tile grid's b·T(T+1)/2 tiles
+    (blocks None), or the piece grid's off-diagonal tiles, diagonal tiles
+    at 3/4 and `split` of these as a half and a quad."""
+    if blocks is None:
+      return {"blocks": b * t * (t + 1) // 2, "resident_blocks": slots,
+              "waves": b * t * (t + 1) / 2 / slots}
+    return {"blocks": blocks, "split_diagonal_tiles": split,
+            "resident_blocks": slots,
+            "waves": (b * t * (t - 1) / 2 + 0.75 * b * t) / slots}
+
   dev = torch.device("cuda")
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
   stream = torch.cuda.current_stream(dev).cuda_stream
-  x = torch.as_tensor(make_embeddings(N, D)).to(dev)
-  xn = fused.normalize_rows(x).contiguous()
-  xt = fused.affinity_operand(xn)
-  aff = {v: torch.empty((N, N), device=dev) for v in ("parent", "current")}
-  blurred = ref_ops.gaussian_blur(fused.crop_diagonal_plain(fused.affinity(x)),
-                                  1.0).contiguous()
-  rmax = {v: torch.empty((N, 1), device=dev) for v in ("parent", "current")}
-  crop = {}
-
-  def symmetric_affinity(lib, v):
-    call(lib, "sct_affinity", xt.data_ptr(), aff[v].data_ptr(), N,
-         xt.shape[1], xt.shape[0], stream)
-
-  runs = {
-      "affinity": {
-          "parent": (
-              (lambda: symmetric_affinity(par, "parent")) if parent_symmetric
-              else lambda: call(par, "sct_affinity", xn.data_ptr(),
-                                aff["parent"].data_ptr(), N, D, stream)),
-          "current": lambda: symmetric_affinity(cur, "current"),
-      },
-      "row_max": {
-          v: (lambda lib, v=v: call(lib, "sct_row_max", blurred.data_ptr(),
-                                    rmax[v].data_ptr(), N, N, 0, 1, stream))
-          for v in ("parent", "current")},
-      "crop_diagonal": {
-          v: (lambda lib, v=v: call(lib, "sct_crop_diagonal",
-                                    crop[v].data_ptr(), crop[v].data_ptr(), N,
-                                    N, 1, stream))
-          for v in ("parent", "current")},
-  }
-  libs = {"parent": par, "current": cur}
-  outputs = {"affinity": aff, "row_max": rmax, "crop_diagonal": crop}
+  flush = torch.empty(FLUSH_BYTES // 4, device=dev)
   results = []
-  with torch.no_grad():
-    for kernel, fns in runs.items():
-      if kernel == "crop_diagonal":
-        for v in ("parent", "current"):
-          crop[v] = aff["current"].clone()
+
+  def ptxas_of(kernel):
+    return {f"ptxas_{v}": {k: r for k, r in ptxas[v].items()
+                           if k.startswith(f"{kernel}_kernel")}
+            for v in ("parent", "current")}
+
+  def under_load(fn, shape):
+    """nvidia-smi's samples while fn runs back to back: whether the card
+    holds its clock under the kernel's load."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader",
+         "-lms", "200"], stdout=subprocess.PIPE, text=True)
+    try:
+      start = time.monotonic()
+      while time.monotonic() - start < LOAD_SECONDS:
+        for _ in range(20):
+          fn()
+        torch.cuda.synchronize()
+    finally:
+      smi.terminate()
+    samples = smi.communicate()[0].strip().splitlines()
+    # The first and last samples straddle the load's start and end.
+    row = {"kernel": "affinity_batched", "shape": shape,
+           "under_load_nvidia_smi": samples[2:-2]}
+    results.append(row)
+    print(json.dumps(row), flush=True)
+
+  def compare(kernel, shape, fns, outputs, extra_turns=(), extra=None):
+    """Turns of the kernels alone, then of `extra_turns` (name, {version:
+    fn}, flushed?), then the outputs compared."""
+    row = {"kernel": kernel, "shape": shape}
+    for label, by_version, flushed in (("", fns, False),) + tuple(extra_turns):
       times = {"parent": [], "current": []}
-      for v in ("parent", "current", "current", "parent"):
-        fn = fns[v]
-        if kernel != "affinity":
-          fn = (lambda f=fn, lib=libs[v]: f(lib))
-        times[v].append(_time_ms(torch, fn))
-      torch.cuda.synchronize()
-      got, want = outputs[kernel]["current"], outputs[kernel]["parent"]
-      results.append({
-          "kernel": kernel, "n": N,
-          "max_abs_diff": float(torch.max(torch.abs(got - want))),
-          "bit_equal": bool(torch.equal(got, want)),
-          "parent_ms": times["parent"], "current_ms": times["current"],
-          **{f"ptxas_{v}": {k: r for k, r in ptxas[v].items()
-                            if k.startswith(f"{kernel}_kernel")}
-             for v in ("parent", "current")},
-      })
-      print(json.dumps(results[-1]), flush=True)
+      for v in TURNS:
+        times[v].append(time_flushed_ms(torch, by_version[v], flush)
+                        if flushed else time_ms(torch, by_version[v]))
+      for v in ("parent", "current"):
+        row[f"{v}{label}_ms"] = times[v]
+    torch.cuda.synchronize()
+    got, want = outputs["current"], outputs["parent"]
+    row.update({"max_abs_diff": float(torch.max(torch.abs(got - want))),
+                "bit_equal": bool(torch.equal(got, want)),
+                **ptxas_of(kernel), **(extra or {})})
+    results.append(row)
+    print(json.dumps(row), flush=True)
+
+  with torch.no_grad():
+    # The 2-D kernels at N=10240.
+    x = torch.as_tensor(make_embeddings(N, D)).to(dev)
+    xn = fused.normalize_rows(x).contiguous()
+    xt = fused.affinity_operand(xn)
+    aff = {v: torch.empty((N, N), device=dev) for v in libs}
+
+    def affinity_2d(v):
+      if v == "current" or parent_symmetric:
+        return lambda: call(libs[v], "sct_affinity", xt.data_ptr(),
+                            aff[v].data_ptr(), N, xt.shape[1], xt.shape[0],
+                            stream)
+      return lambda: call(libs[v], "sct_affinity", xn.data_ptr(),
+                          aff[v].data_ptr(), N, D, stream)
+
+    compare("affinity", f"N={N},d={D}", {v: affinity_2d(v) for v in libs},
+            aff)
+    blurred = ref_ops.gaussian_blur(
+        fused.crop_diagonal_plain(aff["current"]), 1.0).contiguous()
+    rmax = {v: torch.empty((N, 1), device=dev) for v in libs}
+    compare("row_max", f"N={N}", {
+        v: (lambda v=v: call(libs[v], "sct_row_max", blurred.data_ptr(),
+                             rmax[v].data_ptr(), N, N, 0, 1, stream))
+        for v in libs}, rmax)
+    crop = {v: aff["current"].clone() for v in libs}
+    compare("crop_diagonal", f"N={N}", {
+        v: (lambda v=v: call(libs[v], "sct_crop_diagonal", crop[v].data_ptr(),
+                             crop[v].data_ptr(), N, N, 1, stream))
+        for v in libs}, crop)
+    del x, xn, xt, aff, blurred, rmax, crop
+
+    # The batched kernels at (B, N_BATCH, D).
+    t = -(-N_BATCH // fused.AFFINITY_TILE)
+    for b in BATCHES:
+      shape = f"B={b},N={N_BATCH},d={D}"
+      xb = torch.as_tensor(np.stack(make_batch(b, N_BATCH, D)[0])).to(dev)
+      xnb = fused.normalize_rows(xb).contiguous()
+      xtb = fused.affinity_operand(xnb)
+      affb = {v: torch.empty((b, N_BATCH, N_BATCH), device=dev) for v in libs}
+
+      def affinity_b(v, prologue=False):
+        if v == "current" or parent_row_major:
+          def run():
+            src = fused.normalize_rows(xb).contiguous() if prologue else xnb
+            call(libs[v], "sct_affinity_batched", src.data_ptr(),
+                 affb[v].data_ptr(), b, N_BATCH, D, stream)
+        else:
+          def run():
+            src = (fused.affinity_operand(fused.normalize_rows(xb))
+                   if prologue else xtb)
+            call(libs[v], "sct_affinity_batched", src.data_ptr(),
+                 affb[v].data_ptr(), b, N_BATCH, src.shape[2], src.shape[1],
+                 stream)
+        return run
+
+      schedule = {"parent_schedule": fused_schedule(
+          b, t, sms * resident(libs["parent"], 0))}
+      blocks, split, slots = (ctypes.c_longlong(0), ctypes.c_int(0),
+                              ctypes.c_int(0))
+      call(libs["current"], "sct_affinity_batched_schedule", b, N_BATCH,
+           ctypes.byref(blocks), ctypes.byref(split), ctypes.byref(slots))
+      schedule["current_schedule"] = fused_schedule(
+          b, t, slots.value, blocks.value, split.value)
+      prologue = {
+          "normalize_rows_ms": time_ms(torch,
+                                       lambda: fused.normalize_rows(xb)),
+          "affinity_operand_ms": time_ms(
+              torch, lambda: fused.affinity_operand(xnb))}
+      compare("affinity_batched", shape, {v: affinity_b(v) for v in libs},
+              affb, [("_wrapper", {v: affinity_b(v, True) for v in libs},
+                      False)], {**schedule, **prologue})
+      blurred_b = ref_ops.gaussian_blur(
+          fused.crop_diagonal_plain(affb["current"]), 1.0).contiguous()
+      nv = torch.full((b,), N_BATCH, dtype=torch.int32, device=dev)
+      rmb = {v: torch.empty((b, N_BATCH, 1), device=dev) for v in libs}
+      row_max_b = {
+          v: (lambda v=v: call(libs[v], "sct_row_max_batched",
+                               blurred_b.data_ptr(), rmb[v].data_ptr(), b,
+                               N_BATCH, nv.data_ptr(), 0, 1, stream))
+          for v in libs}
+      amax = lambda: torch.amax(blurred_b, dim=-1, keepdim=True)  # noqa: E731
+      compare("row_max_batched", shape, row_max_b, rmb, [
+          ("_l2_flushed", row_max_b, True),
+          ("_amax", {v: amax for v in libs}, False),
+          ("_amax_l2_flushed", {v: amax for v in libs}, True)])
+      cropb = {v: affb["current"].clone() for v in libs}
+      compare("crop_diagonal_batched", shape, {
+          v: (lambda v=v: call(libs[v], "sct_crop_diagonal_batched",
+                               cropb[v].data_ptr(), cropb[v].data_ptr(), b,
+                               N_BATCH, nv.data_ptr(), 1, stream))
+          for v in libs}, cropb)
+      if b == BATCHES[-1]:
+        under_load(affinity_b("current"), shape)
+      del xb, xnb, xtb, affb, blurred_b, rmb, cropb
+
+  cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+  sass = {v: _sass(cuobjdump, p) for v, p in (("parent", par_path),
+                                               ("current", cur_path))}
+  same_code = {}
+  for key, ops in sorted(sass["parent"].items()):
+    cur = _current_key(key)
+    if cur in sass["current"] and not cur.startswith(_REDESIGNED):
+      same_code[cur] = {"parent": key, "instructions": len(ops),
+                        "sass_equal": ops == sass["current"][cur]}
+  print(json.dumps({"sass_equal_up_to_parameter_offsets": same_code}),
+        flush=True)
   smi = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
       capture_output=True, text=True, check=True).stdout.strip()
   print(smi)
   if args.out:
     with open(args.out, "w") as f:
-      json.dump({"kernels": results, "nvidia_smi": smi}, f, indent=1)
+      json.dump({"kernels": results, "sass": same_code, "nvidia_smi": smi},
+                f, indent=1)
   return 0
 
 
