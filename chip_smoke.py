@@ -26,7 +26,19 @@ result line):
      matrices with n_valid (1000, 937, 1, 500, 1000) read on the card; each
      affinity and each kernel 5b matrix of a batch must also equal the 2-D
      kernel's bit for bit; 1b and 2b also at the streamed chunk's B=64,
-     N=1024, 1b there also against its transpose. Then times (CUDA events
+     N=1024, 1b there also against its transpose. The subspace solver's
+     kernels on the operands it gives them: the panel product (6) on the
+     certified route's shifted operand at N=10240 by 16, 8 and 1 columns,
+     on a quarter of its rows and on the batched operands, and the solver's
+     float64 Gram (``ops.eigen.panel_gram``, no kernel) of the Ritz matrix
+     and of CholeskyQR2, each within the float32 bound of a K-term sum of
+     the twin (|Δ| ≤ 2·K·2⁻²⁴·(|a|·|x|)) and within one float32 rounding
+     of a float64 sum of the same inputs (|got − exact| ≤ 2⁻²⁴·|exact| +
+     K·2⁻⁵²·(|a|·|x|): a float32 or TF32 sum fails it), cuBLAS's error
+     against that sum printed beside; the CholeskyQR pass (7) at both
+     shifts no farther from the same pass computed in float64 than four
+     times the twin's distance (cuSOLVER's Cholesky, cuBLAS's solve) plus
+     1e-6, the same info. Then times (CUDA events
      around 10 calls back to back behind one untimed call, median of 20
      such means after warm-up) of each kernel, its twin and a one-call
      library yardstick where one exists (the affinity's `addmm` timed with the row normalization, as
@@ -40,12 +52,20 @@ result line):
      Diffuse, full eigh, top-k subspace);
   3b. the exact top-k route's parts, each alone, on the icassp2018 Auto
      operand at N=10240 and 20480: the certified route (accepted or
-     declined, its iterations, res, scale, est_next against w_t), the
-     completeness probe, the full eigh (the yardstick), and the sign-chain
-     split: at 10240 forced (try_iterative_first=False) at "highest" (IEEE
-     float32) and at "high" (3×TF32), its eigenvalues within 2e-4·scale of
-     the certified route's; at 20480 the natural decline, its eigenvalues
-     within 2e-4·scale of the full eigh's top t. Each split prints its
+     declined, its iterations, res, scale, est_next against w_t, and its
+     residual after each 32-iteration chunk beside the route the port and
+     the JAX package took on the same operand built on the CPU,
+     tests/data/reference_dc_route.json, written by
+     tools/record_dc_route_reference.py), the completeness probe, the full
+     eigh (the yardstick), and the sign-chain split, forced
+     (try_iterative_first=False): at 10240 at "highest" (IEEE float32) and
+     at "high" (3×TF32), at 20480 at the default precision, its
+     eigenvalues within 2e-4·scale of the certified route's (of the full
+     eigh's top t where the route declined). Then the certified route
+     alone on make_embeddings_k(10240, k), k=4 and 7. Each route fails the
+     run if it accepts where the JAX package declined or the reverse, or
+     runs to the 2,048-iteration cap where the CPU certified below it.
+     Each split prints its
      levels (branch, k_f, k_pad, k_eff, residuals), the host seconds of
      prep, each sign step (with its TFLOP/s against the card's float32 and
      TF32 peaks), projection, Ritz and remainder, and its peak memory
@@ -57,13 +77,18 @@ result line):
      each leg fails if a kernel of its path did not launch:
        * Auto and SubspaceIteration at N=10240 (one cold run, WARM_RUNS
          warm): kernels 1-4 (RowWiseNormalize is absorbed into the eigh
-         similarity transform there). Auto runs the exact top-k route
+         similarity transform there) and the subspace solver's 6-7, as
+         the host API leg below. Auto runs the exact top-k route
          (ops/dc.py, stage staged_dc); each Auto leg prints the route its
          dc solve took and fails on a certified residual above 1e-5;
-       * Auto at N=20480 (labels_20480; its dc route must decline to the
-         split), and at N=10240 on make_embeddings_k(N, k) for k=4 and k=7
+       * Auto at N=20480 (labels_20480), and at N=10240 on
+         make_embeddings_k(N, k) for k=4 and k=7
          (benchmarks/reference_labels_multi.npz), one cold run and one
-         warm; then Auto at N=10240 with the dc route forced to decline,
+         warm; each Auto leg's dc solves must take the JAX package's
+         recorded route (tests/data/reference_dc_route.json: certified)
+         and stop below the iteration cap where the CPU did, and launch the
+         subspace solver's kernels (6-7) as well as 1-4; then Auto at
+         N=10240 with the dc route forced to decline,
          on make_embeddings(N) and make_embeddings_k(N, 4): the split
          only, the same labels, eigenvalues within 2e-4·scale of the
          certified legs';
@@ -117,10 +142,14 @@ result line):
      utterance on the card (labels and counts equal) and against
      tests/data/reference_batch_solvers.npz (the JAX package's labels, id
      for id): SubspaceIteration on all 16 (one cold call, BATCH_WARM_RUNS
-     warm; launches 1/2/1/1 per chunk; Ritz values within
+     warm; launches 1/2/1/1 per chunk and kernels 6-7; Ritz values within
      SOLVER_EIG_RTOL·max|λ| of the 2-D solve's; the batched solve alone
      against the 2-D solve of each utterance in turn, with the iterations
-     of each), and HostGeneral on the first HOST_GENERAL_BATCH (one cold
+     of each); the same on three utterances that stop at other
+     iterations, make_embeddings_k(1024, k) for k=2, 4, 7 with the
+     certified route's solver constants (chunks of 32, residual 1e-6, at
+     most 2,048), against tests/data/reference_batch_ragged.npz and the
+     speakers, and HostGeneral on the first HOST_GENERAL_BATCH (one cold
      call, one warm: kernels 1-5 in batched form once per chunk (row_max
      once), the 2-D kernel 5 never; the chunk's host_eig seconds). Then
      cluster_batch_streamed over
@@ -151,9 +180,10 @@ result line):
      cluster_large_sharded on those 20477 rows at P=4 and P=1: labels and
      n_clusters equal; (d) check_ring_order and check_replica_consistency
      on both meshes (a per-shard value must be caught), and debug_nans
-     around one run at N=2048; (e) no kernel launches in the phase. Each
-     run prints n_clusters, subspace iterations, the final residual, the
-     peak memory and the host seconds per stage, card synced.
+     around one run at N=2048; (e) no refinement kernel launches in the
+     phase, and its subspace solve launches kernels 6-7 on the stripes.
+     Each run prints n_clusters, subspace iterations, the final residual,
+     the peak memory and the host seconds per stage, card synced.
   Each phase prints the seconds elapsed at its end. Together about 10
   minutes on one H100, most of it the host eig and the host side of the
   streams.
@@ -189,6 +219,7 @@ T2D_WARM_RUNS = 2
 N_BIG = 20480
 DC_REPS = 3           # the certified route alone: one cold run, two timed
 MULTI_KS = (4, 7)
+RAGGED_KS = (2, 4, 7)          # the ragged batched-SubspaceIteration leg
 STREAM_STEPS = 1500
 STREAM_WINDOWS = ((1, 50), (51, 100), (101, 600), (601, 1100), (1101, 1500))
 STREAM_L, STREAM_U1, STREAM_U2 = 50, 100, 600
@@ -477,6 +508,7 @@ def main() -> int:
   from spectralcluster_tpu_torch import clusterer as clusterer_lib
   from spectralcluster_tpu_torch import (configs, constraint, observability,
                                          pipeline, prng, streaming, utils)
+  from spectralcluster_tpu_torch import precision as precision_lib
   from spectralcluster_tpu_torch.fixtures import (make_batch,
                                                   make_embeddings,
                                                   make_embeddings_k,
@@ -890,6 +922,193 @@ def main() -> int:
   m, _ = pipeline._symmetric_eig_operand(aff.clone(), cfg, None, None,
                                          ref_ops.ROWNORM_TAIL)
 
+  # The subspace solver's panel product (kernel 6) and its Gram
+  # (ops.eigen.panel_gram: a float64 library product on the card, no
+  # kernel) on the operands the solver gives them: the certified route's
+  # shifted operand m + b·I at N_MAIN by its (N, 16) panel (and by the
+  # probe's 8 and the norm estimate's 1 column), a quarter of its rows (a
+  # row-sharded stripe), and the batched step's (BATCH, N_BATCH) operands
+  # by their panels; the Grams of those panels with their products. Each
+  # sums in another order than cuBLAS, so each output is held to the
+  # float32 bound of a K-term sum, |got − want| ≤ 2·K·2⁻²⁴·(|a|·|x|)
+  # element by element. Their point is the float64 sum, so each output is
+  # also held to one float32 rounding of a float64 sum of the same inputs,
+  # |got − exact| ≤ 2⁻²⁴·|exact| + K·2⁻⁵²·(|a|·|x|): a float32 sum in any
+  # order, or TF32, breaks it on these operands. cuBLAS's float32 error
+  # against that sum is printed beside.
+  op_main = m.clone()
+  op_main.diagonal().add_(float(torch.amax(torch.sum(torch.abs(m), dim=1)))
+                          + 1.0)
+  panel_gen = torch.Generator().manual_seed(pipeline._DC_SEED)
+  q_main = eigen_ops.cholqr2_shifted(
+      eigen_ops.start_panel(n, 16, panel_gen, torch.float32, dev))
+  m_b, _ = pipeline._symmetric_eig_operand(
+      aff_b.clone(), cfg, None, None, ref_ops.ROWNORM_TAIL)
+  q_b = eigen_ops.cholqr2_shifted(eigen_ops.start_panel(
+      N_BATCH, 16, panel_gen, torch.float32, dev).expand(BATCH, -1, -1))
+  accuracy = {}
+
+  def float64_share(got, at, x):
+    """(max |got − exact|, its largest share of the float64 gate's bound
+    2⁻²⁴·|exact| + K·2⁻⁵²·(|a|·|x|)) for got ≈ at @ x: a share above 1
+    is farther from a float64 sum than one float32 rounding."""
+    magnitude = torch.matmul(torch.abs(at).double(), torch.abs(x).double())
+    exact = torch.matmul(at.double(), x.double())
+    err64 = torch.abs(got.double() - exact)
+    bound64 = (2.0**-24 * torch.abs(exact)
+               + at.shape[-1] * 2.0**-52 * magnitude)
+    share = err64 / torch.clamp_min(bound64, torch.finfo(torch.float64).tiny)
+    return float(torch.max(err64)), float(torch.max(share))
+
+  def check_bounded(name, case, got, want, a, x, gram=False):
+    """got against want within the float32 bound of their K-term sums, and
+    within one float32 rounding of a float64 sum of the same inputs."""
+    k_sum = a.shape[-2] if gram else a.shape[-1]
+    at = a.transpose(-1, -2) if gram else a
+    bound = 2.0 * k_sum * 2.0**-24 * torch.matmul(torch.abs(at),
+                                                  torch.abs(x))
+    torch.cuda.synchronize()
+    diff = torch.abs(got - want)
+    err = float(torch.max(diff))
+    err64, share = float64_share(got, at, x)
+    twin_err64, twin_share = float64_share(want, at, x)
+    ok = bool(torch.all(diff <= bound)) and share <= 1.0
+    accuracy[f"{name} {case}"] = {
+        "kernel_vs_float64": err64, "cublas_vs_float64": twin_err64,
+        "float64_bound_share": share,
+        "cublas_float64_bound_share": twin_share}
+    checks.append({"kernel": name, "case": case, "max_abs_err": err,
+                   "tolerance": "|Δ| <= 2·K·2^-24·(|a|·|x|) and "
+                                "|got − exact| <= 2^-24·|exact| + "
+                                "K·2^-52·(|a|·|x|)", "ok": ok,
+                   **accuracy[f"{name} {case}"]})
+    log(json.dumps({"phase": "kernels", **checks[-1]}))
+
+  def float32_gram(a, b):
+    return torch.matmul(a.transpose(-1, -2), b)
+
+  y_main = fused.panel_matmul(op_main, q_main)
+  for cols in (16, 8, 1):
+    check_bounded("panel_matmul", f"N={n},b={cols},certified operand",
+                  fused.panel_matmul(op_main, q_main[:, :cols]),
+                  fused.panel_matmul_plain(op_main, q_main[:, :cols]),
+                  op_main, q_main[:, :cols])
+  stripe = op_main[n // 4:n // 2]
+  check_bounded("panel_matmul", f"rows {n // 4}:{n // 2} of N={n},b=16",
+                fused.panel_matmul(stripe, q_main),
+                fused.panel_matmul_plain(stripe, q_main), stripe, q_main)
+  check_bounded("panel_matmul", f"{batch_case},b=16,batched operand",
+                fused.panel_matmul(m_b, q_b),
+                fused.panel_matmul_plain(m_b, q_b), m_b, q_b)
+  check_bounded("panel_gram", f"N={n},p=r=16,Ritz matrix",
+                eigen_ops.panel_gram(q_main, y_main),
+                float32_gram(q_main, y_main), q_main, y_main, gram=True)
+  check_bounded("panel_gram", f"N={n},p=r=16,CholeskyQR2 Gram",
+                eigen_ops.panel_gram(y_main, y_main),
+                float32_gram(y_main, y_main), y_main, y_main, gram=True)
+  y_b = fused.panel_matmul(m_b, q_b)
+  check_bounded("panel_gram", f"{batch_case},p=r=16,Ritz matrix",
+                eigen_ops.panel_gram(q_b, y_b), float32_gram(q_b, y_b),
+                q_b, y_b, gram=True)
+  # The float64 gate can fail: cuBLAS's float32 product (the twin) and
+  # one TF32 product of the certified operand must each break it.
+  rejected = {
+      "float32": float64_share(fused.panel_matmul_plain(op_main, q_main),
+                               op_main, q_main)[1],
+      "tf32": float64_share(
+          precision_lib.matmul(op_main, q_main, "default"), op_main,
+          q_main)[1]}
+  checks.append({"kernel": "panel_matmul",
+                 "case": f"N={n},b=16,the float64 gate on other sums",
+                 "max_abs_err": 0.0, "float64_bound_share": rejected,
+                 "tolerance": "each share > 1 (rejected)",
+                 "ok": all(v > 1.0 for v in rejected.values())})
+  log(json.dumps({"phase": "kernels", **checks[-1]}))
+  # Kernel 7, the CholeskyQR pass, on the certified route's panel and the
+  # batched step's (whose unshifted operand leaves its panel's Gram ill
+  # conditioned) with their Grams, at both shifts. Both it and the twin
+  # (cuSOLVER's Cholesky, cuBLAS's solve) are float32 factorizations whose
+  # error grows with the shifted Gram's condition, so each is held to the
+  # same pass computed in float64 from the same float32 Gram: the kernel
+  # no farther from it than four times the twin's distance, plus 1e-6;
+  # the same info.
+  def float64_pass(y_in, gram_in, rel):
+    g64 = gram_in.double()
+    delta = rel * torch.clamp_min(torch.amax(
+        torch.diagonal(g64, dim1=-2, dim2=-1), dim=-1), 1e-30)
+    eye = torch.eye(g64.shape[-1], dtype=torch.float64, device=dev)
+    low = torch.linalg.cholesky(g64 + delta[..., None, None] * eye)
+    return torch.linalg.solve_triangular(
+        low, y_in.double().transpose(-1, -2), upper=False).transpose(-1, -2)
+
+  for case, y_in in ((f"N={n},b=16", y_main), (f"{batch_case},b=16", y_b)):
+    gram_in = eigen_ops.panel_gram(y_in, y_in)
+    for rel in (1e-6, 1e-2):
+      q_k, info_k = fused.cholqr_pass(y_in, gram_in, rel)
+      q_p, info_p = fused.cholqr_pass_plain(y_in, gram_in, rel)
+      exact = float64_pass(y_in, gram_in, rel)
+      torch.cuda.synchronize()
+      err_k = float(torch.max(torch.abs(q_k.double() - exact)))
+      err_p = float(torch.max(torch.abs(q_p.double() - exact)))
+      checks.append({
+          "kernel": "cholqr_pass", "case": f"{case},shift={rel}",
+          "max_abs_err": float(torch.max(torch.abs(q_k - q_p))),
+          "kernel_vs_float64": err_k, "cusolver_vs_float64": err_p,
+          "tolerance": "kernel_vs_float64 <= 4·cusolver_vs_float64 + 1e-6",
+          "ok": err_k <= 4 * err_p + 1e-6 and torch.equal(info_k.long(),
+                                                          info_p.long())})
+      log(json.dumps({"phase": "kernels", **checks[-1]}))
+  failed = [c for c in checks if not c["ok"]]
+  if failed:
+    raise SystemExit(f"kernel disagrees with its twin: {failed}")
+  results["panel_accuracy"] = accuracy
+  panel_timed = {
+      # One read of the operand, the panel and the output; 2·M·K·b FLOP.
+      "panel_matmul": (
+          lambda: fused.panel_matmul(op_main, q_main),
+          lambda: fused.panel_matmul_plain(op_main, q_main),
+          lambda: torch.matmul(op_main, q_main),
+          (n * n + 2 * n * 16) * 4, 2 * n * n * 16),
+  }
+  gram_main = eigen_ops.panel_gram(y_main, y_main)
+  panel_timed["cholqr_pass"] = (
+      lambda: fused.cholqr_pass(y_main, gram_main, 1e-6),
+      lambda: fused.cholqr_pass_plain(y_main, gram_main, 1e-6), None,
+      # The panel read, q written, the Gram read; the forward solve's
+      # N·b² FLOP (the (b, b) Cholesky is negligible).
+      (2 * n * 16 + 16 * 16) * 4, n * 16 * 16)
+  no_library["cholqr_pass"] = ("no single PyTorch call: a Cholesky, then a "
+                               "triangular solve")
+  with torch.no_grad():
+    for name, (kern, plain, library, nbytes, nops) in panel_timed.items():
+      bytes_ms = nbytes / bw * 1e3
+      ops_ms = nops / fp32 * 1e3
+      times[name] = {
+          "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+          "library_ms": time_ms(torch, library) if library else None,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+          "shape": f"N={n},b=16",
+      }
+      # The batched step's shape, per launch.
+      if name == "panel_matmul":
+        times[name][f"at_B={BATCH},N={N_BATCH}"] = {
+            "ms": time_ms(torch, lambda: fused.panel_matmul(m_b, q_b)),
+            "library_ms": time_ms(torch, lambda: torch.matmul(m_b, q_b))}
+      log(json.dumps({"phase": "timing", "kernel": name, **times[name]}))
+    # The solver's Gram (no kernel): the float64 product it takes on the
+    # card against cuBLAS's float32 one, both with their casts.
+    grams = results["panel_gram_ms"] = {}
+    for case, (a, y) in ((f"N={n},b=16", (q_main, y_main)),
+                         (f"{batch_case},b=16", (q_b, y_b))):
+      grams[case] = {
+          "float64_ms": time_ms(
+              torch, lambda a=a, y=y: eigen_ops.panel_gram(a, y)),
+          "float32_ms": time_ms(torch, lambda a=a, y=y: float32_gram(a, y))}
+    log(json.dumps({"phase": "timing", "panel_gram": grams}))
+  timed.update(panel_timed)
+  del op_main, q_main, y_main, stripe, m_b, q_b, y_b, gram_main
+
   def subspace():
     return eigen_ops.topk_eigh_subspace(
         m, 8, torch.Generator().manual_seed(42), num_iters=24,
@@ -971,19 +1190,61 @@ def main() -> int:
                        "split")
     return w, split_row(info, n, info["sign_precision"], seconds, res, scale)
 
-  def dc_breakdown(m, n, forced_split):
-    row = {"phase": "dc_breakdown", "n": n}
+  # The certified route as the CPU takes it: both packages' runs of
+  # _certified_iterative_topt on each operand below, built on the CPU
+  # (tools/record_dc_route_reference.py).
+  with open(os.path.join(HERE, "tests", "data",
+                         "reference_dc_route.json")) as f:
+    route_ref = json.load(f)["cases"]
+
+  def certified_route(m, case):
+    """The certified route alone (one cold run, DC_REPS - 1 timed), its
+    residual after each 32-iteration chunk printed beside the route the
+    port took on the CPU and the JAX package's, both recorded for the same
+    operand. Fails if the card's route (accepted or declined) differs from
+    the JAX package's, or if the card runs to the iteration cap where the
+    CPU certified below it."""
     runs = []
     for _ in range(DC_REPS):
       info = {}
       seconds, out = host_s(lambda: dc_ops._certified_iterative_topt(
           m, t_dc, dc_generator(), True, None, info))
       runs.append(seconds)
-    row["certified"] = {
-        "accepted": out is not None, **info, "seconds_cold": runs[0],
-        "seconds": statistics.median(runs[1:])}
+    ref_case = route_ref[case]
+    cpu = {k: ref_case["port"][k] for k in (
+        "accepted", "iters", "res_abs", "res", "res_trace")
+           if k in ref_case["port"]}
+    row = {"accepted": out is not None, **info, "seconds_cold": runs[0],
+           "seconds": statistics.median(runs[1:]),
+           "cpu_recorded": cpu, "jax_recorded": {
+               k: ref_case["jax"][k] for k in ("accepted", "res")}}
+    log(json.dumps({"phase": "dc_route", "case": case,
+                    "accepted": row["accepted"], "iters": info["iters"],
+                    "res_abs": info["res_abs"], "res": info.get("res"),
+                    "res_trace": info["res_trace"],
+                    "cpu_accepted": cpu["accepted"], "cpu_iters": cpu["iters"],
+                    "cpu_res_abs": cpu["res_abs"],
+                    "cpu_res_trace": cpu["res_trace"],
+                    "jax_accepted": ref_case["jax"]["accepted"],
+                    "jax_res": ref_case["jax"]["res"]}))
+    if row["accepted"] != ref_case["jax"]["accepted"]:
+      raise SystemExit(f"dc route, {case}: the card's certified route "
+                       f"{'accepted' if row['accepted'] else 'declined'}, "
+                       "the JAX package's "
+                       + ("accepted" if ref_case["jax"]["accepted"]
+                          else "declined"))
+    cap = dc_ops._SUBSPACE_MAX_ITERS
+    if cpu["iters"] < cap <= info["iters"]:
+      raise SystemExit(f"dc route, {case}: the card ran to the {cap}-"
+                       f"iteration cap where the CPU certified after "
+                       f"{cpu['iters']}")
     if out is not None and not out[2] <= 1e-5:
-      raise SystemExit(f"dc route at N={n}: certified residual {out[2]}")
+      raise SystemExit(f"dc route, {case}: certified residual {out[2]}")
+    return row, out
+
+  def dc_breakdown(m, n, case, split_precisions):
+    row = {"phase": "dc_breakdown", "n": n, "case": case}
+    row["certified"], out = certified_route(m, case)
     eigh_s, (w_all, u_all) = host_s(lambda: torch.linalg.eigh(m))
     row["full_eigh_seconds"] = eigh_s
     # The probe alone, on the t extreme pairs of the full eigh (its cost
@@ -997,45 +1258,49 @@ def main() -> int:
     row["probe"] = {"seconds": statistics.median(p[0] for p in probe_runs),
                     "est_next": probe_runs[-1][1][0],
                     "norm_lo": probe_runs[-1][1][1]}
-    if forced_split:
-      # The split alone at both precisions, held to the certified route.
-      if out is None:
-        raise SystemExit(f"dc route at N={n}: the certified route declined")
-      row["split"] = []
-      for precision in ("highest", "high"):
-        w, split = run_split(m, n, try_iterative_first=False,
-                             sign_precision=precision)
-        split["max_abs_diff_vs_certified"] = err = float(
-            torch.max(torch.abs(w - out[0])))
-        row["split"].append(split)
-        log(json.dumps({"phase": "dc_split", "n": n, **split}))
-        if not err <= 2e-4 * out[3]:
-          raise SystemExit(f"split at N={n}, {precision}: eigenvalues differ "
-                           f"from the certified route's by {err}")
-    else:
-      # The natural decline (the certified route declines first), held to
-      # the full eigh's top t.
-      w, split = run_split(m, n)
-      split["max_abs_diff_vs_eigh"] = err = float(
-          torch.max(torch.abs(w - w_top)))
-      row["split"] = [split]
+    # The split alone (try_iterative_first=False), held to the certified
+    # route's eigenvalues, or to the full eigh's top t where the route
+    # declined.
+    want, what, scale = ((w_top, "the full eigh's", None) if out is None
+                         else (out[0], "the certified route's", out[3]))
+    row["split"] = []
+    for precision in split_precisions:
+      w, split = run_split(m, n, try_iterative_first=False,
+                           sign_precision=precision)
+      split["max_abs_diff_vs_reference"] = err = float(
+          torch.max(torch.abs(w - want)))
+      split["reference"] = what
+      row["split"].append(split)
       log(json.dumps({"phase": "dc_split", "n": n, **split}))
-      if not err <= 2e-4 * split["scale"]:
-        raise SystemExit(f"split at N={n}: eigenvalues differ from the "
-                         f"full eigh's by {err}")
+      if not err <= 2e-4 * (scale or split["scale"]):
+        raise SystemExit(f"split at N={n}, {precision}: eigenvalues differ "
+                         f"from {what} by {err}")
     del w_top, u_top
     log(json.dumps({k: v for k, v in row.items() if k != "split"}))
     return row
 
-  results["dc_breakdown"] = [dc_breakdown(m, N_MAIN, forced_split=True)]
+  def big_operand(x):
+    aff = fused.affinity(torch.as_tensor(x).to(dev))
+    op, _ = pipeline._symmetric_eig_operand(aff, cfg, None, None,
+                                            ref_ops.ROWNORM_TAIL,
+                                            consume_input=True)
+    return op
+
+  results["dc_breakdown"] = [dc_breakdown(m, N_MAIN, f"n{N_MAIN}_k2",
+                                          ("highest", "high"))]
   del m
-  aff = fused.affinity(torch.as_tensor(make_embeddings(N_BIG, D_MAIN)).to(dev))
-  m, _ = pipeline._symmetric_eig_operand(aff, cfg, None, None,
-                                         ref_ops.ROWNORM_TAIL,
-                                         consume_input=True)
-  del aff
-  results["dc_breakdown"].append(dc_breakdown(m, N_BIG, forced_split=False))
+  # At N_BIG the split at the sign chain's default precision only; the
+  # route at k=4 and k=7 alone.
+  m = big_operand(make_embeddings(N_BIG, D_MAIN))
+  results["dc_breakdown"].append(dc_breakdown(
+      m, N_BIG, f"n{N_BIG}_k2", (dc_ops._sign_precision(),)))
   del m
+  results["dc_route_multi"] = {}
+  for k in MULTI_KS:
+    m = big_operand(make_embeddings_k(N_MAIN, k, D_MAIN)[0])
+    results["dc_route_multi"][f"k{k}"], _ = certified_route(
+        m, f"n{N_MAIN}_k{k}")
+    del m
   torch.cuda.empty_cache()
   mark("dc_breakdown")
 
@@ -1046,6 +1311,9 @@ def main() -> int:
                                    "reference_labels_multi.npz"))
   main_kernels = ("affinity", "row_max", "crop_diagonal",
                   "threshold_symmetrize_general")
+  # The subspace solver's kernels: every leg that runs a subspace solve
+  # (SubspaceIteration, the certified route, the split's remainder).
+  solver_kernels = ("panel_matmul", "cholqr_pass")
   # Every dc solve of the pipeline reports its route here; a leg may force
   # the route to decline.
   dc_infos = []
@@ -1125,7 +1393,7 @@ def main() -> int:
     runs[solver.name] = drive(
         solver.name, configs.make_icassp2018_clusterer(
             eigensolver=solver, staged_stage_timings=True),
-        N_MAIN, WARM_RUNS, main_kernels, solver=solver.name)
+        N_MAIN, WARM_RUNS, main_kernels + solver_kernels, solver=solver.name)
   runs["HostGeneral"] = drive(
       "HostGeneral", configs.make_icassp2018_clusterer(
           eigensolver=EigenSolver.HostGeneral),
@@ -1137,16 +1405,17 @@ def main() -> int:
   runs["host_api"] = drive(
       "host_api", configs.make_icassp2018_clusterer(
           post_eigen_cluster_function=run_kmeans),
-      N_MAIN, API_WARM_RUNS, main_kernels, solver="Auto",
+      N_MAIN, API_WARM_RUNS, main_kernels + solver_kernels, solver="Auto",
       post_eigen_cluster_function="run_kmeans")
   # The exact top-k route at the other record sizes and speaker counts.
   auto = configs.make_icassp2018_clusterer(staged_stage_timings=True)
-  runs["Auto_20480"] = drive("Auto_20480", auto, N_BIG, 1, main_kernels,
-                             small_sizes=(), solver="Auto")
+  runs["Auto_20480"] = drive("Auto_20480", auto, N_BIG, 1,
+                             main_kernels + solver_kernels, small_sizes=(),
+                             solver="Auto")
   for k in MULTI_KS:
     emb, _ = make_embeddings_k(N_MAIN, k, D_MAIN)
     runs[f"Auto_k{k}"] = drive(
-        f"Auto_k{k}", auto, N_MAIN, 1, main_kernels, emb=emb,
+        f"Auto_k{k}", auto, N_MAIN, 1, main_kernels + solver_kernels, emb=emb,
         want=ref_multi[f"labels_{N_MAIN}_k{k}"], small_sizes=(),
         solver="Auto", fixture=f"make_embeddings_k(N, k={k})")
   dc_force["decline"] = True
@@ -1159,9 +1428,20 @@ def main() -> int:
       want=ref_multi[f"labels_{N_MAIN}_k4"], small_sizes=(), solver="Auto",
       fixture="make_embeddings_k(N, k=4)", forced="try_iterative_first=False")
   dc_force["decline"] = False
-  if set(runs["Auto_20480"]["dc_routes"]) != {"split"}:
-    raise SystemExit(f"Auto_20480 took {runs['Auto_20480']['dc_routes']}, "
-                     "not the split")
+  # Each Auto leg's dc solves take the route that the JAX package took on
+  # the same operand built on the CPU (tests/data/reference_dc_route.json),
+  # and certify below the iteration cap where the CPU did.
+  for leg, case in (("Auto", f"n{N_MAIN}_k2"), ("Auto_20480", f"n{N_BIG}_k2"),
+                    *((f"Auto_k{k}", f"n{N_MAIN}_k{k}") for k in MULTI_KS)):
+    want = "certified" if route_ref[case]["jax"]["accepted"] else "split"
+    if set(runs[leg]["dc_routes"]) != {want}:
+      raise SystemExit(f"{leg} took {runs[leg]['dc_routes']}, the JAX "
+                       f"package's route is {want}")
+    iters = runs[leg]["dc"]["iters"]
+    cpu_iters = route_ref[case]["port"]["iters"]
+    if cpu_iters < dc_ops._SUBSPACE_MAX_ITERS <= iters:
+      raise SystemExit(f"{leg}: the certified route ran to the iteration cap "
+                       f"where the CPU certified after {cpu_iters}")
   for leg, certified in (("Auto_forced_decline", "Auto"),
                          ("Auto_k4_forced_decline", "Auto_k4")):
     forced = runs[leg]
@@ -1485,6 +1765,13 @@ def main() -> int:
     return {k: (per or per_chunk).get(k, 0) * chunks
             for k in fused.launch_counts()}
 
+  def solver_launches_ok(launches, want):
+    """The refinement kernels as ``want`` says; the subspace solver's
+    kernels at least once (their count follows the iterations)."""
+    return ({k: v for k, v in launches.items() if k not in solver_kernels}
+            == {k: v for k, v in want.items() if k not in solver_kernels}
+            and all(launches[k] for k in solver_kernels))
+
   def ordered_equal(got, want):
     return bool(np.array_equal(utils.enforce_ordered_labels(got),
                                utils.enforce_ordered_labels(want)))
@@ -1692,10 +1979,88 @@ def main() -> int:
           and run["eig_ritz_err_2d"] <= SOLVER_EIG_RTOL):
     raise SystemExit("cluster_batch (SubspaceIteration): Ritz values differ "
                      f"from the 2-D solve's by more than {SOLVER_EIG_RTOL}")
-  if launches != expected(BATCH_WARM_RUNS):
+  if not solver_launches_ok(launches, expected(BATCH_WARM_RUNS)):
     raise SystemExit(f"cluster_batch (SubspaceIteration): launches "
-                     f"{launches}, expected {expected(BATCH_WARM_RUNS)}")
+                     f"{launches}, expected {expected(BATCH_WARM_RUNS)} and "
+                     f"{solver_kernels}")
   mark("batch_subspace")
+
+  # The batched SubspaceIteration on utterances that stop at other
+  # iterations: make_embeddings_k(N_BATCH, k) for k in RAGGED_KS, with the
+  # certified route's solver constants (chunks of 32 iterations, residual
+  # 1e-6, at most 2,048), so each utterance is frozen at its own stop while
+  # the others go on. The same label gates as above, against
+  # tests/data/reference_batch_ragged.npz (the JAX package's labels, id
+  # for id) and the speakers; prints each lane's iterations and the
+  # batched solve's seconds beside the 2-D solves'.
+  ragged_ref = np.load(os.path.join(HERE, "tests", "data",
+                                    "reference_batch_ragged.npz"))
+  rcfg = scfg.replace(subspace_iters=32, subspace_residual_tol=1e-6,
+                      subspace_max_iters=2048, subspace_drift_tol=None)
+  r_utts, r_truths = zip(*(make_embeddings_k(N_BATCH, k, D_MAIN)
+                           for k in RAGGED_KS))
+  r_utts, rb = list(r_utts), len(RAGGED_KS)
+  _, cold_s = timed_call(lambda: batch_lib.cluster_batch(r_utts, rcfg, mesh))
+  fused.reset_launch_counts()
+  labels_r, warm_s = timed_call(
+      lambda: batch_lib.cluster_batch(r_utts, rcfg, mesh))
+  launches = fused.launch_counts()
+  x_r = torch.as_tensor(np.stack(r_utts)).to(dev)
+  nv_r = torch.full((rb,), N_BATCH, dtype=torch.int32, device=dev)
+  step_labels, step_n, step_w, _ = pipeline.spectral_cluster_fixed_k_batched(
+      x_r, np.stack([prng.key(i) for i in range(rb)]), rcfg, n_valid=nv_r)
+  alone, alone_s = synced(lambda: per_utterance_2d(rcfg, x_r))
+  with fp32_precision():
+    m_r, _ = pipeline._symmetric_eig_operand(
+        pipeline.prepare_affinity(x_r, rcfg, nv_r), rcfg, None, nv_r,
+        ref_ops.ROWNORM_TAIL, consume_input=True)
+    for _ in range(2):  # a cold pass, then the timed one
+      stats = {}
+      (w_solve, _), eig_s = synced(
+          lambda: pipeline._subspace(m_r, rcfg, nv_r, True, stats))
+      loop_stats = [{} for _ in range(rb)]
+      loop_w, loop_s = synced(lambda: [
+          pipeline._subspace(mm, rcfg, N_BATCH, True, st)[0]
+          for mm, st in zip(m_r, loop_stats)])
+  del m_r, x_r
+  run = {
+      "leg": "cluster_batch_subspace_ragged", "batch": rb, "n": N_BATCH,
+      "d": D_MAIN, "speakers": list(RAGGED_KS),
+      "eigensolver": "SubspaceIteration, 32 / 1e-6 / 2048",
+      "parity_ids": all(np.array_equal(a, b.astype(a.dtype)) for a, b in
+                        zip(labels_r, ragged_ref["ragged_labels"])),
+      "step_labels_equal_cluster_batch": all(
+          np.array_equal(a, b) for a, b in
+          zip(step_labels.cpu().numpy(), labels_r)),
+      **against_2d(labels_r, step_n, step_w, alone),
+      "gt_match": gt_match(labels_r, r_truths),
+      "cold_wall_s": cold_s, "warm_wall_s": warm_s,
+      "iters_per_utterance": stats["iters"].tolist(),
+      "iters_per_utterance_2d": [st["iters"] for st in loop_stats],
+      "eig_batched_s": eig_s, "eig_2d_loop_s": loop_s,
+      "eig_ritz_err_2d": max(ritz_err(a, b) for a, b in zip(w_solve, loop_w)),
+      "pipeline_2d_loop_s": alone_s, "launches": launches,
+  }
+  results["batch_subspace_ragged"] = run
+  log(json.dumps({"phase": "batch_subspace_ragged", **run}))
+  if not (run["parity_ids"] and run["step_labels_equal_cluster_batch"]
+          and run["gt_match"] == rb):
+    raise SystemExit("cluster_batch (SubspaceIteration, ragged): labels "
+                     "differ from the JAX package's, the batched step's or "
+                     "the speakers")
+  if not (run["labels_equal_2d"] and run["n_clusters_equal_2d"]):
+    raise SystemExit("cluster_batch (SubspaceIteration, ragged): labels or "
+                     "counts differ from the 2-D pipeline's")
+  if not (run["ritz_err_2d"] <= SOLVER_EIG_RTOL
+          and run["eig_ritz_err_2d"] <= SOLVER_EIG_RTOL):
+    raise SystemExit("cluster_batch (SubspaceIteration, ragged): Ritz values "
+                     f"differ from the 2-D solve's by more than "
+                     f"{SOLVER_EIG_RTOL}")
+  if not solver_launches_ok(launches, expected(1)):
+    raise SystemExit(f"cluster_batch (SubspaceIteration, ragged): launches "
+                     f"{launches}, expected {expected(1)} and "
+                     f"{solver_kernels}")
+  mark("batch_subspace_ragged")
 
   # HostGeneral: the whole refinement sequence in batched kernels, kernel
   # 5b once per chunk and never the 2-D kernel 5, then one host eig of the
@@ -1887,19 +2252,25 @@ def main() -> int:
                      f"expected {expected(levels, per_level)}")
   mark("batch_autotuned")
 
-  # 8. The row-sharded path: no kernel may launch in it.
+  # 8. The row-sharded path: no refinement kernel may launch in it; its
+  # subspace solve multiplies each stripe by the panel with the solver's
+  # kernels.
   fused.reset_launch_counts()
   results["sharded"] = sharded_phase(torch, np, dev, ref[f"labels_{N_BIG}"],
                                      log)
   sharded_launches = fused.launch_counts()
   results["sharded"]["launches"] = sharded_launches
   log(json.dumps({"phase": "sharded", "launches": sharded_launches}))
-  if any(sharded_launches.values()):
-    raise SystemExit(f"sharded: kernels launched {sharded_launches}")
+  if (any(v for k, v in sharded_launches.items() if k not in solver_kernels)
+      or not all(sharded_launches[k] for k in solver_kernels)):
+    raise SystemExit(f"sharded: kernels launched {sharded_launches}, "
+                     f"expected {solver_kernels} only")
   mark("sharded")
   batch_launches = {
       "cluster_batch": results["batch"]["launches"],
       "cluster_batch_subspace": results["batch_subspace"]["launches"],
+      "cluster_batch_subspace_ragged":
+          results["batch_subspace_ragged"]["launches"],
       "cluster_batch_host_general": results["batch_host_general"]["launches"],
       "cluster_batch_streamed": results["batch_streamed"]["launches"],
       "cluster_batch_autotuned": results["batch_autotuned"]["launches"]}
@@ -1912,6 +2283,16 @@ def main() -> int:
           "fused.py:148-218 threshold_symmetrize_general_pallas",
       "row_wise_normalize": "fused.py:262-283 row_wise_normalize_pallas",
   }
+  # The solver's kernels replace XLA operations of the JAX package, not
+  # Pallas kernels.
+  solver_sources = {
+      "cholqr_pass": "spectralcluster_tpu/ops/eigen.py:282-286 (XLA "
+                     "Cholesky and triangular solve of cholqr2_shifted; no "
+                     "Pallas kernel)",
+      "panel_matmul": "spectralcluster_tpu/ops/eigen.py:415-427 (XLA dot: "
+                      "the subspace iteration's (N, N) x (N, b) product; "
+                      "no Pallas kernel)",
+  }
   kernels = []
   for name in timed:
     err = max(c["max_abs_err"] for c in checks if c["kernel"] == name)
@@ -1919,8 +2300,10 @@ def main() -> int:
     kernel = {
         "name": name, "route": "cuda",
         "source": "spectralcluster_tpu_torch/csrc/fused.cu",
-        "replaces": "spectralcluster_tpu/kernels/" + sources[base] + (
-            " under vmap (parallel/batch.py:38-122)" if base != name else ""),
+        "replaces": solver_sources[name] if name in solver_sources else (
+            "spectralcluster_tpu/kernels/" + sources[base] + (
+                " under vmap (parallel/batch.py:38-122)" if base != name
+                else "")),
         "launches": (sum(r["launches"][name] for r in runs.values())
                      + sum(r["launches"][name]
                            for r in results["streaming"].values())

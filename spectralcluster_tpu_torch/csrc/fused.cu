@@ -1,20 +1,26 @@
-// Hand-written Hopper (sm_90a) kernels for the refinement hot path.
+// Hand-written Hopper (sm_90a) kernels for the refinement hot path and the
+// subspace solver.
 //
-// Each kernel computes what one Pallas TPU kernel of
+// Kernels 1-5 each compute what one Pallas TPU kernel of
 // spectralcluster_tpu/kernels/fused.py computes; none is carried over block
-// by block. The plain PyTorch twin of each kernel sits beside its wrapper in
+// by block. Kernels 6-7 compute what the JAX package's subspace solver
+// leaves to XLA (its panel product, a CholeskyQR pass). The
+// plain PyTorch twin of each kernel sits beside its wrapper in
 // spectralcluster_tpu_torch/kernels/fused.py and defines the semantics.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsct_fused.so fused.cu
 // (kernels/build.py does this at first use). No --use_fast_math: every
 // division and square root stays IEEE, and the products are float32 FMAs
-// on the CUDA cores, never TF32 tensor cores.
+// on the CUDA cores (kernel 6: float64 tensor-core MMAs of float32
+// inputs), never TF32 tensor cores.
 //
-// Interface: plain C. Every sct_* function but the two reports
-// (sct_resident_blocks, sct_affinity_batched_schedule) launches one kernel
-// on the given stream, does not synchronize, allocates nothing, and returns
-// cudaGetLastError() so the caller sees a refused launch.
+// Interface: plain C. Every sct_* function but the reports and queries
+// (sct_resident_blocks, sct_affinity_batched_schedule,
+// sct_panel_matmul_splits) launches its kernels (one, or for 6 a pass per
+// 16 columns and the sum of its partials) on the given stream, does
+// not synchronize, allocates nothing, and returns cudaGetLastError() so
+// the caller sees a refused launch.
 //
 // Batched forms (sct_*_batched). The JAX package's batched step runs each
 // Pallas kernel under vmap, which adds a leading grid axis over the
@@ -32,6 +38,8 @@
 // 67 TFLOP/s float32 on the CUDA cores. N = 10240, d = 256 on the main path.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -46,6 +54,10 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ int cdiv_device(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 // ---------------------------------------------------------------------------
 // 1. Cosine affinity: out = (xn xnᵀ + 1) / 2, one triangle of tile pairs.
@@ -1145,6 +1157,336 @@ bool rows_fit(int b, int n) {
   return b >= 1 && (long long)b * n <= 2147483647LL;
 }
 
+
+// ---------------------------------------------------------------------------
+// 6. The subspace solver's panel product: y = a x, a (m, k) float32, x (k, c).
+//
+// Replaces no Pallas kernel: the JAX package's subspace iteration computes
+// it as an XLA dot (spectralcluster_tpu/ops/eigen.py:415-427, the residual
+// of ops/dc.py:1080). Its rounding error is noise that every iteration
+// puts back into the panel, and it sets how far the solver's residual
+// falls: with cuBLAS's float32 product the certified route of ops/dc.py
+// declines at N=20480 (its residual settles near 9e-6 of the operand's
+// scale, above the 1e-5 limit of res_abs), and at N=10240 it runs to its
+// iteration cap where a float64 product certifies within 200 iterations.
+// Accumulation: every product of two float32 values is exact in float64;
+// each output is a float64 sum over each of S ranges of k, the S partial
+// sums are added in range order in float64, and the total is rounded to
+// float32 once (x is converted to float64 as it is staged). The orders are
+// fixed, so the result does not depend on the launch. No TF32, no
+// --use_fast_math.
+// Bound: one read of a (m·k·4 bytes: 0.42 GB at N=10240 -> 0.125 ms at
+// 3.35 TB/s); its 2·m·k·c float64 operations (3.4 GFLOP at c=16 -> 0.05
+// ms on the card's float64 tensor cores, 67 TFLOP/s) cost less. Design: a
+// block takes kPanelBlockRows rows (64 a warp) and one of S ranges of k,
+// S chosen so that the grid holds about two blocks per SM. Per
+// kPanelTileK-deep slice the block stages x's rows (converted to float64,
+// shared by its 8 warps; x is read at its own strides, so the solver's
+// transposed panels need no copy) and each warp its 64 rows of a
+// (coalesced 64-byte row segments) in shared memory; each warp then runs
+// float64 tensor-core MMAs (m8n8k4: 8 rows by 8 columns by 4 of k, its A
+// fragment converted from the staged float32 values) over its 64 x C
+// output. The S float64 partials go to scratch, and a second kernel adds
+// them. A launch covers up to kPanelCols columns.
+// ---------------------------------------------------------------------------
+
+constexpr int kPanelWarps = 8;
+constexpr int kPanelThreads = 32 * kPanelWarps;
+constexpr int kPanelWarpRows = 64;
+constexpr int kPanelBlockRows = kPanelWarps * kPanelWarpRows;
+constexpr int kPanelTileK = 16;
+constexpr int kPanelCols = 16;
+
+// The k ranges a (batch, m, k) product is cut into: about two blocks per
+// SM in all, each range a whole number of kPanelTileK slices.
+int panel_splits(int batch, int m, int k) {
+  const long long row_blocks = (long long)batch * cdiv(m, kPanelBlockRows);
+  const long long want = cdiv(2 * sm_count(), (int)std::min<long long>(
+      row_blocks, 1 << 30));
+  const int slices = cdiv(k, kPanelTileK);
+  const long long s = std::max<long long>(1, std::min<long long>(want,
+                                                                 slices));
+  const int per = cdiv(slices, (int)s);
+  return cdiv(slices, per);
+}
+
+// a: the batch's matrices at stride_a, rows lda apart; x: (k, c_all)
+// float32 per matrix at stride_x, entry (i, j) at i·x_row + j·x_col,
+// columns [col0, col0 + C) used; partial: (splits, batch, m, c_all)
+// float64. Block (row block, split, matrix).
+template <int C>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_matmul_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                    double* __restrict__ partial, int batch, int m, int k,
+                    long long lda, long long stride_a, long long x_row,
+                    long long x_col, long long stride_x, int c_all, int col0,
+                    int per) {
+  __shared__ float tile[kPanelWarps][kPanelWarpRows][kPanelTileK + 1];
+  __shared__ __align__(16) double xs[kPanelTileK][kPanelCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int split = blockIdx.y;
+  const int z = blockIdx.z;
+  const int row0 = blockIdx.x * kPanelBlockRows + warp * kPanelWarpRows;
+  a += z * stride_a;
+  x += z * stride_x + col0 * x_col;
+  const int k_lo = min(k, split * per);
+  const int k_hi = min(k, k_lo + per);
+  // The warp's 64 x 16 output as float64 MMA tiles (m8n8k4): 8 row
+  // groups by kGroups column groups of 8, two values a lane each.
+  constexpr int kGroups = (C + 7) / 8;
+  double acc[kPanelWarpRows / 8][kGroups][2];
+#pragma unroll
+  for (int g = 0; g < kPanelWarpRows / 8; ++g) {
+#pragma unroll
+    for (int cg = 0; cg < kGroups; ++cg) acc[g][cg][0] = acc[g][cg][1] = 0.0;
+  }
+  // Lane l loads column l % 16 of rows l / 16, l / 16 + 2, ...: each load
+  // instruction reads two 64-byte row segments.
+  const int lcol = lane % kPanelTileK;
+  const int lrow = lane / kPanelTileK;
+  // The MMA fragments' lane roles: A row and B column (group), A column
+  // and B row (thread in group).
+  const int group = lane >> 2;
+  const int tig = lane & 3;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kPanelTileK) {
+    const int kk = k0 + lcol;
+    const bool k_in = kk < k_hi;
+    float v[kPanelWarpRows / 2];
+#pragma unroll
+    for (int i = 0; i < kPanelWarpRows / 2; ++i) {
+      const int row = row0 + 2 * i + lrow;
+      v[i] = (k_in && row < m) ? __ldcs(a + row * lda + kk) : 0.0f;
+    }
+    if (threadIdx.x < kPanelTileK * kPanelCols) {
+      // x's rows k0.. in float64, zero past k_hi and past column C.
+      const int t = threadIdx.x % kPanelTileK;
+      const int c = threadIdx.x / kPanelTileK;
+      xs[t][c] = (k0 + t < k_hi && c < C)
+                     ? static_cast<double>(__ldg(x + (k0 + t) * x_row +
+                                                 c * x_col))
+                     : 0.0;
+    }
+#pragma unroll
+    for (int i = 0; i < kPanelWarpRows / 2; ++i) {
+      tile[warp][2 * i + lrow][lcol] = v[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kPanelTileK; ks += 4) {
+      double bf[kGroups];
+#pragma unroll
+      for (int cg = 0; cg < kGroups; ++cg) bf[cg] = xs[ks + tig][cg * 8 + group];
+#pragma unroll
+      for (int g = 0; g < kPanelWarpRows / 8; ++g) {
+        const double af = static_cast<double>(tile[warp][g * 8 + group][ks + tig]);
+#pragma unroll
+        for (int cg = 0; cg < kGroups; ++cg) {
+          asm volatile(
+              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+              "{%0, %1}, {%2}, {%3}, {%0, %1};"
+              : "+d"(acc[g][cg][0]), "+d"(acc[g][cg][1])
+              : "d"(af), "d"(bf[cg]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+  double* out = partial + ((long long)split * batch + z) * m * c_all + col0;
+#pragma unroll
+  for (int g = 0; g < kPanelWarpRows / 8; ++g) {
+    const int row = row0 + g * 8 + group;
+#pragma unroll
+    for (int cg = 0; cg < kGroups; ++cg) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = cg * 8 + 2 * tig + i;
+        if (row < m && col < C) {
+          out[(long long)row * c_all + col] = acc[g][cg][i];
+        }
+      }
+    }
+  }
+}
+
+// y: the float32 rounding of the splits' partials added in split order.
+__global__ void panel_finish_kernel(const double* __restrict__ partial,
+                                    float* __restrict__ y, long long count,
+                                    int splits) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  double s = 0.0;
+  for (int j = 0; j < splits; ++j) s += partial[j * count + e];
+  y[e] = static_cast<float>(s);
+}
+
+template <int C>
+void launch_panel_group(const float* a, const float* x, double* partial,
+                        int batch, int m, int k, long long lda,
+                        long long stride_a, long long x_row, long long x_col,
+                        long long stride_x, int c_all, int col0, int splits,
+                        int per, cudaStream_t stream) {
+  const dim3 grid(cdiv(m, kPanelBlockRows), splits, batch);
+  panel_matmul_kernel<C><<<grid, kPanelThreads, 0, stream>>>(
+      a, x, partial, batch, m, k, lda, stride_a, x_row, x_col, stride_x,
+      c_all, col0, per);
+}
+
+cudaError_t launch_panel_matmul(const float* a, const float* x,
+                                double* partial, float* y, int batch, int m,
+                                int k, long long lda, long long stride_a,
+                                int c_all, long long x_row, long long x_col,
+                                long long stride_x, cudaStream_t stream) {
+  if (batch < 1 || batch > kMaxGridYZ || m < 1 || k < 1 || c_all < 1 ||
+      lda < k) {
+    return cudaErrorInvalidValue;
+  }
+  const int splits = panel_splits(batch, m, k);
+  const int per = cdiv(cdiv(k, kPanelTileK), splits) * kPanelTileK;
+  for (int col0 = 0; col0 < c_all; col0 += kPanelCols) {
+    const int c = min(kPanelCols, c_all - col0);
+    switch (c) {
+#define SCT_PANEL_CASE(C)                                                   \
+  case C:                                                                   \
+    launch_panel_group<C>(a, x, partial, batch, m, k, lda, stride_a,       \
+                          x_row, x_col, stride_x, c_all, col0, splits,     \
+                          per, stream);                                    \
+    break;
+      SCT_PANEL_CASE(1) SCT_PANEL_CASE(2) SCT_PANEL_CASE(3)
+      SCT_PANEL_CASE(4) SCT_PANEL_CASE(5) SCT_PANEL_CASE(6)
+      SCT_PANEL_CASE(7) SCT_PANEL_CASE(8) SCT_PANEL_CASE(9)
+      SCT_PANEL_CASE(10) SCT_PANEL_CASE(11) SCT_PANEL_CASE(12)
+      SCT_PANEL_CASE(13) SCT_PANEL_CASE(14) SCT_PANEL_CASE(15)
+      SCT_PANEL_CASE(16)
+#undef SCT_PANEL_CASE
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const long long count = (long long)batch * m * c_all;
+  panel_finish_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+      partial, y, count, splits);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 7. One shifted CholeskyQR pass: q = y L⁻ᵀ, L Lᵀ = g + δ·I,
+//    δ = rel · max(diag g), for a (k, b) panel y and its Gram g.
+//
+// Replaces no Pallas kernel: the JAX package's cholqr2_shifted
+// (spectralcluster_tpu/ops/eigen.py:280-304) runs a Cholesky and a
+// triangular solve through XLA. The pass leaves q short of orthonormal by
+// δ·(g + δI)⁻¹, about 1e-6, which is where the subspace solver's residual
+// test stops (1e-6), so the rounding of L's diagonal and of the solve
+// decides whether the certified route of ops/dc.py stops before its
+// iteration cap. This kernel rounds as LAPACK's unblocked float32 routines
+// do: each entry of L one fmaf chain in k order and one correctly rounded
+// division or square root (spotf2), and each row of q solved forward the
+// same way (strsm); cuSOLVER's and cuBLAS's float32 routines round
+// otherwise. IEEE float32 only, no --use_fast_math.
+// Bound: one read of y and one write of q (2·k·b·4 bytes: 2.6 MB at
+// N=20480, b=16 -> 0.8 µs); the (b, b) Cholesky is sequential. Design: the
+// first warp of every block factors g + δI in shared memory (column by
+// column, lanes over the rows below the diagonal), then each thread solves
+// one row of y, its b values in registers, and writes q transposed ((b, k)
+// row-major), so a warp's stores of one column are coalesced. The failed
+// column (1-based, 0 when none), as LAPACK's info, goes to `info`.
+// ---------------------------------------------------------------------------
+
+constexpr int kQrThreads = 256;
+
+template <int BMAX>
+__global__ void __launch_bounds__(kQrThreads)
+cholqr_pass_kernel(const float* __restrict__ y, const float* __restrict__ g,
+                   float* __restrict__ qt, int* __restrict__ info, int k,
+                   int b, long long y_batch, long long y_row, long long y_col,
+                   float delta_rel) {
+  __shared__ float l[BMAX][BMAX + 1];
+  __shared__ int failed;
+  const int z = blockIdx.y;
+  y += (long long)z * y_batch;
+  g += (long long)z * b * b;
+  qt += (long long)z * b * k;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float gmax = 0.0f;
+    for (int j = 0; j < b; ++j) gmax = fmaxf(gmax, g[j * b + j]);
+    const float delta = delta_rel * fmaxf(gmax, 1e-30f);
+    for (int e = lane; e < b * b; e += 32) {
+      const int i = e / b, j = e % b;
+      if (i >= j) l[i][j] = g[i * b + j] + (i == j ? delta : 0.0f);
+    }
+    if (lane == 0) failed = 0;
+    __syncwarp();
+    for (int j = 0; j < b; ++j) {
+      if (lane == 0 && failed == 0) {
+        float s = l[j][j];
+        for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], l[j][c], s);
+        if (!(s > 0.0f)) {
+          failed = j + 1;
+          l[j][j] = s;
+        } else {
+          l[j][j] = sqrtf(s);
+        }
+      }
+      __syncwarp();
+      if (failed) break;
+      for (int i = j + 1 + lane; i < b; i += 32) {
+        float s = l[i][j];
+        for (int c = 0; c < j; ++c) s = fmaf(-l[i][c], l[j][c], s);
+        l[i][j] = s / l[j][j];
+      }
+      __syncwarp();
+    }
+    if (failed) {
+      // Past the failed column L is undefined, as LAPACK leaves it: NaN,
+      // so every row of q is NaN and the caller's finiteness check sees it.
+      for (int e = lane; e < b * b; e += 32) {
+        const int i = e / b, j = e % b;
+        if (i >= j && j + 1 >= failed) l[i][j] = __int_as_float(0x7fc00000);
+      }
+    }
+    if (blockIdx.x == 0 && lane == 0) info[z] = failed;
+  }
+  __syncthreads();
+  const int row = blockIdx.x * kQrThreads + threadIdx.x;
+  if (row >= k) return;
+  const float* yr = y + (long long)row * y_row;
+  float x[BMAX];
+#pragma unroll
+  for (int j = 0; j < BMAX; ++j) {
+    if (j < b) {
+      float s = yr[j * y_col];
+#pragma unroll
+      for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], x[c], s);
+      x[j] = s / l[j][j];
+      qt[(long long)j * k + row] = x[j];
+    }
+  }
+}
+
+cudaError_t launch_cholqr_pass(const float* y, const float* g, float* qt,
+                               int* info, int batch, int k, int b,
+                               long long y_batch, long long y_row,
+                               long long y_col, float delta_rel,
+                               cudaStream_t stream) {
+  if (batch < 1 || batch > kMaxGridYZ || k < 1 || b < 1 || b > 64) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(cdiv(k, kQrThreads), batch);
+  if (b <= 16) {
+    cholqr_pass_kernel<16><<<grid, kQrThreads, 0, stream>>>(
+        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+  } else if (b <= 32) {
+    cholqr_pass_kernel<32><<<grid, kQrThreads, 0, stream>>>(
+        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+  } else {
+    cholqr_pass_kernel<64><<<grid, kQrThreads, 0, stream>>>(
+        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1280,6 +1622,39 @@ int sct_row_wise_normalize_batched(const float* a, float* out, int b, int n,
                                     static_cast<cudaStream_t>(stream)>>>(
       a, out, n, n, n_valids, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The k ranges sct_panel_matmul cuts a (batch, m, k) product into: the
+// wrapper allocates splits x batch x m x c float64 of scratch for them.
+int sct_panel_matmul_splits(int batch, int m, int k) {
+  return (batch < 1 || m < 1 || k < 1) ? 0 : panel_splits(batch, m, k);
+}
+
+// a: batch matrices of (m, k) float32 at stride_a, rows lda apart; x: batch
+// panels of (k, c) float32 at stride_x, entry (i, j) at i·x_row + j·x_col;
+// partial: scratch of sct_panel_matmul_splits(batch, m, k) x batch x m x c
+// float64; y: batch matrices of (m, c) float32, contiguous. One launch per
+// 16 columns, then one that adds the partials.
+int sct_panel_matmul(const float* a, const float* x, double* partial,
+                     float* y, int batch, int m, int k, long long lda,
+                     long long stride_a, int c, long long x_row,
+                     long long x_col, long long stride_x, void* stream) {
+  return static_cast<int>(launch_panel_matmul(
+      a, x, partial, y, batch, m, k, lda, stride_a, c, x_row, x_col,
+      stride_x, static_cast<cudaStream_t>(stream)));
+}
+
+// y: batch panels of (k, b), entry (i, j) of panel z at z·y_batch + i·y_row
+// + j·y_col; g: their (b, b) Grams, contiguous; qt: batch matrices of
+// (b, k), q transposed; info: batch int32, the failed column of each
+// Cholesky (0: none). b ≤ 64.
+int sct_cholqr_pass(const float* y, const float* g, float* qt, int* info,
+                    int batch, int k, int b, long long y_batch,
+                    long long y_row, long long y_col, float delta_rel,
+                    void* stream) {
+  return static_cast<int>(launch_cholqr_pass(
+      y, g, qt, info, batch, k, b, y_batch, y_row, y_col, delta_rel,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -30,6 +30,7 @@ _LIB: typing.Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # Every pointer and the stream are c_void_p: an undeclared argument would be
 # passed as a 32-bit int and cut the pointer.
 _SIGNATURES = {
@@ -44,6 +45,10 @@ _SIGNATURES = {
                                          _P),
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
     "sct_row_wise_normalize_batched": (_P, _P, _I, _I, _P, _I, _P),
+    "sct_panel_matmul": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _L, _L,
+                         _P),
+    "sct_panel_matmul_splits": (_I, _I, _I),
+    "sct_cholqr_pass": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P),
     "sct_resident_blocks": (_I, _P),
     "sct_affinity_batched_schedule": (_I, _I, _P, _P, _P),
 }

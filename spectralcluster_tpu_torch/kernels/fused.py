@@ -15,6 +15,21 @@ Five wrappers, one per Pallas kernel of the JAX package
     symmetry structure reaches it (EigenSolver.HostGeneral, or a sequence
     that the symmetric eigensolvers cannot absorb).
 
+and two kernels that replace no Pallas kernel, the subspace solver's
+product and its orthonormalization, which the JAX package leaves to XLA:
+
+  * ``panel_matmul`` — ``mat @ x`` of an (N, N) operand (or a row stripe
+    of one) by its (N, b) panel, from float32 inputs, each output a
+    float64 sum of exact products rounded once to float32;
+  * ``cholqr_pass`` — one shifted CholeskyQR pass of a panel given its
+    Gram: the (b, b) Cholesky of the shifted Gram and the triangular solve
+    of every row, rounded as LAPACK's float32 routines round.
+
+On the card cuBLAS's and cuSOLVER's float32 routines for these shapes
+round so that the certified top-k route of ``ops/dc.py`` did not stop
+where the same code stops on the CPU (``csrc/fused.cu`` says how; the
+solver's Grams are ``ops.eigen.panel_gram``).
+
 Each kernel also has a batched wrapper (``affinity_batched``,
 ``row_max_batched``, ``crop_diagonal_batched``,
 ``threshold_symmetrize_general_batched``, ``row_wise_normalize_batched``):
@@ -30,7 +45,9 @@ per matrix, and serve the 2-D and the batched wrappers alike. A
 wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises, and never falls back. Each wrapper carries a
 plain integer ``launches`` that it increments where it launches its kernel
-and nowhere else (``reset_launch_counts`` / ``launch_counts``).
+and nowhere else, by the number of kernels launched (``panel_matmul``
+launches more than one per call; ``reset_launch_counts`` /
+``launch_counts``).
 """
 
 from __future__ import annotations
@@ -192,6 +209,25 @@ def threshold_symmetrize_general_plain(
   return out
 
 
+def panel_matmul_plain(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """mat @ x: (M, K) by (K, b) -> (M, b), or a (B, ·) batch of both."""
+  return torch.matmul(mat, x)
+
+
+def cholqr_pass_plain(y: torch.Tensor, gram: torch.Tensor,
+                      delta_rel: float) -> typing.Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+  """One shifted CholeskyQR pass: (y L⁻ᵀ, info) for L Lᵀ = gram + δ·I,
+  δ = delta_rel·max(diag gram); ``info`` is ``cholesky_ex``'s (0 where the
+  factorization succeeded). A (B, N, b) batch takes (B, b, b) Grams."""
+  eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
+  delta = delta_rel * torch.clamp_min(
+      torch.amax(torch.diagonal(gram, dim1=-2, dim2=-1), dim=-1), 1e-30)
+  r, info = torch.linalg.cholesky_ex(gram + delta[..., None, None] * eye)
+  q = torch.linalg.solve_triangular(r, y.transpose(-1, -2), upper=False)
+  return q.transpose(-1, -2), info
+
+
 def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """Every entry divided by its row's max over columns < n_valid.
 
@@ -213,6 +249,8 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 # 16-deep k slices, and refuses any other padding.
 AFFINITY_TILE = 128
 AFFINITY_DEPTH = 16
+# The columns of one panel_matmul launch (kPanelCols in csrc/fused.cu).
+PANEL_COLS = 16
 
 
 def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
@@ -437,10 +475,97 @@ def row_wise_normalize_batched(mat: torch.Tensor,
   return out
 
 
+def panel_matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """mat @ x for a tall (M, K) float32 matrix and a narrow (K, b) panel ->
+  (M, b); a (B, M, K) batch takes a (B, K, b) panel (see the twin).
+
+  The matrix is read in place where its rows are contiguous (a row stripe
+  of a larger matrix included), the panel in place at its own strides.
+  Each output is the float64 sum of exact products, rounded once, so it
+  lies within the float32 bound of the twin's sum. One launch per
+  ``PANEL_COLS`` columns of the panel and one that adds the k ranges'
+  float64 partials (scratch the wrapper allocates), each counted.
+  """
+  if _is_cpu(mat):
+    return panel_matmul_plain(mat, x)
+  if mat.dim() not in (2, 3) or x.dim() != mat.dim():
+    raise ValueError("panel_matmul: expected (M, K) @ (K, b) or (B, M, K) @ "
+                     f"(B, K, b), got {tuple(mat.shape)} @ {tuple(x.shape)}")
+  batch = mat.shape[0] if mat.dim() == 3 else 1
+  m, k = mat.shape[-2:]
+  b = x.shape[-1]
+  if x.shape[-2] != k or (mat.dim() == 3 and x.shape[0] != batch):
+    raise ValueError(f"panel_matmul: shapes {tuple(mat.shape)} @ "
+                     f"{tuple(x.shape)} do not match")
+  for name, t in (("matrix", mat), ("panel", x)):
+    if t.dtype != torch.float32:
+      raise TypeError(f"panel_matmul {name}: expected float32, got {t.dtype}")
+  if x.device != mat.device:
+    raise ValueError(f"panel_matmul: panel on {x.device}, matrix on "
+                     f"{mat.device}")
+  if mat.stride(-1) != 1 or (m > 1 and mat.stride(-2) < k):
+    mat = mat.contiguous()
+  lda = mat.stride(-2) if m > 1 else k
+  stride_a = mat.stride(0) if mat.dim() == 3 else m * lda
+  out = mat.new_empty(mat.shape[:-1] + (b,))
+  if not (batch and m and k and b):
+    return out.zero_()
+  partial = mat.new_empty(
+      (_lib().sct_panel_matmul_splits(batch, m, k), batch, m, b),
+      dtype=torch.float64)
+  _launch("sct_panel_matmul", mat.data_ptr(), x.data_ptr(),
+          partial.data_ptr(), out.data_ptr(), batch, m, k, lda, stride_a, b,
+          x.stride(-2), x.stride(-1), x.stride(0) if x.dim() == 3 else 0,
+          _stream(mat))
+  panel_matmul.launches += -(-b // PANEL_COLS) + 1
+  return out
+
+
+def cholqr_pass(y: torch.Tensor, gram: torch.Tensor,
+                delta_rel: float) -> typing.Tuple[torch.Tensor, torch.Tensor]:
+  """One shifted CholeskyQR pass of a float32 (N, b) panel given its
+  (b, b) Gram (see the twin); (B, N, b) and (B, b, b) for a batch.
+
+  The panel is read in place, row-major or transposed; q is returned as
+  the transpose of a contiguous (b, N) matrix, the layout of the twin's
+  triangular solve, and ``info`` as int32 on the card. b ≤ 64.
+  """
+  if _is_cpu(y):
+    return cholqr_pass_plain(y, gram, delta_rel)
+  if y.dim() not in (2, 3) or gram.dim() != y.dim():
+    raise ValueError("cholqr_pass: expected (N, b) and (b, b) or (B, N, b) "
+                     f"and (B, b, b), got {tuple(y.shape)}, "
+                     f"{tuple(gram.shape)}")
+  batch = y.shape[0] if y.dim() == 3 else 1
+  k, b = y.shape[-2:]
+  if tuple(gram.shape[-2:]) != (b, b) or (y.dim() == 3
+                                          and gram.shape[0] != batch):
+    raise ValueError(f"cholqr_pass: Gram {tuple(gram.shape)} for a panel "
+                     f"{tuple(y.shape)}")
+  if b > 64:
+    raise ValueError(f"cholqr_pass: at most 64 columns, got {b}")
+  for name, t in (("panel", y), ("Gram", gram)):
+    if t.dtype != torch.float32:
+      raise TypeError(f"cholqr_pass {name}: expected float32, got {t.dtype}")
+  if gram.device != y.device:
+    raise ValueError(f"cholqr_pass: Gram on {gram.device}, panel on "
+                     f"{y.device}")
+  gram = gram.contiguous()
+  qt = y.new_empty(y.shape[:-2] + (b, k))
+  info = torch.zeros(y.shape[:-2], dtype=torch.int32, device=y.device)
+  if batch and k and b:
+    _launch("sct_cholqr_pass", y.data_ptr(), gram.data_ptr(), qt.data_ptr(),
+            info.data_ptr(), batch, k, b,
+            y.stride(0) if y.dim() == 3 else 0, y.stride(-2), y.stride(-1),
+            float(delta_rel), _stream(y))
+    cholqr_pass.launches += 1
+  return qt.transpose(-1, -2), info
+
+
 WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
             row_wise_normalize, affinity_batched, row_max_batched,
             crop_diagonal_batched, threshold_symmetrize_general_batched,
-            row_wise_normalize_batched)
+            row_wise_normalize_batched, panel_matmul, cholqr_pass)
 
 
 def reset_launch_counts():

@@ -85,6 +85,7 @@ import typing
 import torch
 
 from spectralcluster_tpu_torch import precision as precision_lib
+from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import eigen as eigen_ops
 from spectralcluster_tpu_torch.precision import fp32_precision
 
@@ -200,7 +201,7 @@ def _subspace(m, t, generator, descend, n_valid, norm_bound=math.inf,
       stats=stats)
   del op
   w = (w_s - b) if descend else (b - w_s)
-  rt = torch.matmul(mm, v) - v * w[None, :]
+  rt = fused.panel_matmul(mm, v) - v * w[None, :]
   res_abs = torch.amax(torch.linalg.norm(rt, dim=0))
   return w, v, float(res_abs), float(b)
 
@@ -225,27 +226,30 @@ def _probe_next(m, v, w, n_valid, bnorm: float, generator, descend):
   g = eigen_ops.start_panel(n, _PROBES, generator, m.dtype, m.device)
   g = _unit_columns(torch.where(valid[:, None], g, 0.0))
   for _ in range(_PROBE_STEPS):
-    g = _unit_columns(torch.matmul(op, g))
-  rayleigh = torch.amax(torch.sum(g * torch.matmul(op, g), dim=0))
+    g = _unit_columns(fused.panel_matmul(op, g))
+  rayleigh = torch.amax(torch.sum(g * fused.panel_matmul(op, g), dim=0))
   del op
   est_next = (rayleigh - bnorm) if descend else (bnorm - rayleigh)
   pv = eigen_ops.start_panel(n, 1, generator, m.dtype, m.device)
   pv = _unit_columns(torch.where(valid[:, None], pv, 0.0))
   for _ in range(_NORM_STEPS):
-    pv = _unit_columns(torch.matmul(mm, pv))
-  norm_lo = torch.linalg.norm(torch.matmul(mm, pv))
+    pv = _unit_columns(fused.panel_matmul(mm, pv))
+  norm_lo = torch.linalg.norm(fused.panel_matmul(mm, pv))
   return float(est_next), float(norm_lo)
 
 
 def _certified_iterative_topt(m, t, generator, descend, n_valid, info=None):
   """Certified subspace solve + completeness probe. Returns (w, v, res,
-  scale) like eigh_topk_dc, or None to decline."""
+  scale) like eigh_topk_dc, or None to decline. ``info`` receives the
+  iterations, res_abs, the shift and the solver's residual after each
+  chunk ("res_trace", relative to the shifted operand's scale)."""
   gen_solve, gen_probe = _split(generator)
   stats = {}
   w, v, res_abs, b = _subspace(m, t, gen_solve, descend, n_valid,
                                stats=stats)
   if info is not None:
-    info.update(iters=stats["iters"], res_abs=res_abs, shift=b)
+    info.update(iters=stats["iters"], res_abs=res_abs, shift=b,
+                res_trace=stats["res"])
   if not math.isfinite(res_abs) or res_abs > _ITER_ACCEPT_RES * b:
     return None
   est_next, norm_lo = _probe_next(m, v, w, n_valid, b, gen_probe, descend)

@@ -33,6 +33,7 @@ import typing
 import numpy as np
 import torch
 
+from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.types import EPS, EigenGapType
 from spectralcluster_tpu_torch.utils import per_matrix, valid_mask
 
@@ -263,6 +264,23 @@ def apply_padding_sentinels(mat: torch.Tensor, n_valid,
 # ---------------------------------------------------------------------------
 
 
+def panel_gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """aᵀ b of two float32 panels, (N, p) and (N, r) -> (p, r), or a (B, ·)
+  batch of both: the subspace solver's Grams (CholeskyQR2's and the
+  Rayleigh–Ritz matrix).
+
+  On the card the float64 product of the float32 inputs, rounded once to
+  float32: each product is exact and the sum float64, as in
+  ``kernels.fused.panel_matmul``; cuBLAS's float32 sum is too coarse for
+  the certified route's stop test. The casts move a few MB at b ≤ 16. On
+  the CPU the float32 product, whose bits the CPU path keeps.
+  """
+  at = a.transpose(-1, -2)
+  if a.is_cuda:
+    return torch.matmul(at.double(), b.double()).float()
+  return torch.matmul(at, b)
+
+
 def cholqr2_shifted(y: torch.Tensor) -> torch.Tensor:
   """Orthonormalize a tall-skinny panel with shift-stabilized CholeskyQR2.
 
@@ -275,24 +293,15 @@ def cholqr2_shifted(y: torch.Tensor) -> torch.Tensor:
   raising; both passes are computed and selected on the device, so no host
   sync is needed. A (B, N, b) stack of panels is orthonormalized panel by
   panel: each one's rescue is decided by its own ``info`` and values, as
-  under JAX's vmap.
+  under JAX's vmap. The Gram is ``panel_gram`` and each pass
+  ``kernels.fused.cholqr_pass``: its twin on the CPU, the kernel on the
+  card.
   """
-  b = y.shape[-1]
-  eye = torch.eye(b, dtype=y.dtype, device=y.device)
-
-  def one_pass(y, delta_rel):
-    yt = y.transpose(-1, -2)
-    gram = torch.matmul(yt, y)
-    delta = delta_rel * torch.clamp_min(
-        torch.amax(torch.diagonal(gram, dim1=-2, dim2=-1), dim=-1), 1e-30)
-    r, info = torch.linalg.cholesky_ex(gram + delta[..., None, None] * eye)
-    q = torch.linalg.solve_triangular(r, yt, upper=False).transpose(-1, -2)
-    return q, info
-
   for _ in range(2):
-    y1, info = one_pass(y, 1e-6)
+    gram = panel_gram(y, y)
+    y1, info = fused.cholqr_pass(y, gram, 1e-6)
     ok = (info == 0) & torch.all(torch.isfinite(y1), dim=(-2, -1))
-    y2, _ = one_pass(y, 1e-2)
+    y2, _ = fused.cholqr_pass(y, gram, 1e-2)
     y = torch.where(ok[..., None, None], y1, y2)
   return y
 
@@ -365,7 +374,15 @@ def topk_eigh_subspace(
   tolerance, or, with ``drift_tol``, until the Ritz values moved by at most
   drift_tol·max|λ| over the last chunk. The host reads whether to go on
   once per chunk. A ``stats`` dict receives the number of iterations run
-  under "iters".
+  under "iters" and, with ``residual_tol``, the residual after the first
+  ``num_iters`` and after each chunk under "res" (floats; per chunk a list
+  over the batch for a (B, N, N) batch).
+
+  Every (N, N) by (N, b) product is ``kernels.fused.panel_matmul`` and
+  every Gram of two panels ``panel_gram`` (CholeskyQR2's passes are
+  ``kernels.fused.cholqr_pass``): on the CPU the kernels' twins and the
+  float32 Gram, on the card the hand-written kernels and the float64
+  Gram.
 
   A (B, N, N) batch (``shift`` then None or (B,)) is JAX's vmap of this
   solver: (B, N, b) panels from the one start panel, and each matrix keeps
@@ -380,9 +397,9 @@ def topk_eigh_subspace(
     if shift is None:
       shift = torch.amax(torch.sum(torch.abs(mat), dim=-1), dim=-1)
     s = shift[..., None, None] if isinstance(shift, torch.Tensor) else shift
-    op = lambda x: s * x - torch.matmul(mat, x)
+    op = lambda x: s * x - fused.panel_matmul(mat, x)
   else:
-    op = lambda x: torch.matmul(mat, x)
+    op = lambda x: fused.panel_matmul(mat, x)
 
   def iterate(q, steps):
     for _ in range(steps):
@@ -391,8 +408,8 @@ def topk_eigh_subspace(
 
   def rayleigh_ritz(q):
     """Ritz pairs of the ORIGINAL matrix + worst relative top-k residual."""
-    mq = torch.matmul(mat, q)
-    t = q.transpose(-1, -2) @ mq
+    mq = fused.panel_matmul(mat, q)
+    t = panel_gram(q, mq)
     t = 0.5 * (t + t.transpose(-1, -2))
     # The (b, b) Ritz problem is solved in float64: once the basis has
     # collapsed onto a low-rank top, t carries float32 denormals, on which
@@ -422,6 +439,7 @@ def topk_eigh_subspace(
       return ((res.double() > residual_tol) & (drift.double() > dtol)
               & (it < max_iters))
 
+    trace = [res]
     going = going_on()
     while bool(torch.any(going)):
       q_new = iterate(q, num_iters)
@@ -434,7 +452,10 @@ def topk_eigh_subspace(
       res = torch.where(going, res_new, res)
       drift = torch.where(going, drift_new, drift)
       it = torch.where(going, it + num_iters, it)
+      trace.append(res)
       going = going_on()
+    if stats is not None:
+      stats["res"] = torch.stack(trace).cpu().tolist()
   if stats is not None:
     stats["iters"] = int(it) if mat.dim() == 2 else it
   w, v, _ = rayleigh_ritz(q)
@@ -443,26 +464,22 @@ def topk_eigh_subspace(
 
 def _cholqr2_sharded(group, ys):
   """``cholqr2_shifted`` on a panel split by rows over ``group``: the
-  (b, b) Gram is all-reduced, its Cholesky factor computed once per
-  process, and each shard solves its own rows. The 1e-2 rescue is taken
-  when any shard's rows of the 1e-6 pass are not finite."""
-  b = ys[0].shape[1]
+  (b, b) Gram is all-reduced, and each shard factors it (the same factor
+  on every shard) and solves its own rows (``kernels.fused.cholqr_pass``).
+  The 1e-2 rescue is taken when any shard's rows of the 1e-6 pass are not
+  finite."""
 
-  def one_pass(ys, delta_rel):
-    gram = group.all_reduce([torch.matmul(y.T, y) for y in ys])
-    eye = torch.eye(b, dtype=gram.dtype, device=gram.device)
-    delta = delta_rel * torch.clamp_min(torch.amax(torch.diagonal(gram)),
-                                        1e-30)
-    r, info = torch.linalg.cholesky_ex(gram + delta * eye)
-    return [torch.linalg.solve_triangular(r.to(y.device), y.T,
-                                          upper=False).T for y in ys], info
+  def one_pass(ys, gram, delta_rel):
+    out = [fused.cholqr_pass(y, gram.to(y.device), delta_rel) for y in ys]
+    return [q for q, _ in out], out[0][1]
 
   for _ in range(2):
-    y1, info = one_pass(ys, 1e-6)
+    gram = group.all_reduce([panel_gram(y, y) for y in ys])
+    y1, info = one_pass(ys, gram, 1e-6)
     bad = group.all_reduce(
         [(~torch.all(torch.isfinite(y))).to(y.dtype) for y in y1], "max")
-    ok = (info == 0) & (bad == 0)
-    y2, _ = one_pass(ys, 1e-2)
+    ok = (info.to(bad.device) == 0) & (bad == 0)
+    y2, _ = one_pass(ys, gram, 1e-2)
     ys = [torch.where(ok.to(a.device), a, c) for a, c in zip(y1, y2)]
   return ys
 
@@ -526,7 +543,7 @@ def topk_eigh_subspace_sharded(
 
   def matmul(q):
     panel = group.all_gather(q)
-    return [torch.matmul(x, panel.to(x.device)) for x in mats]
+    return [fused.panel_matmul(x, panel.to(x.device)) for x in mats]
 
   def op(q):
     mq = matmul(q)
@@ -541,7 +558,7 @@ def topk_eigh_subspace_sharded(
 
   def rayleigh_ritz(q):
     mq = matmul(q)
-    t = group.all_reduce([a.T @ b for a, b in zip(q, mq)])
+    t = group.all_reduce([panel_gram(a, b) for a, b in zip(q, mq)])
     t = 0.5 * (t + t.T)
     # float64, as in topk_eigh_subspace.
     w_small, u_small = torch.linalg.eigh(t.double())

@@ -10,6 +10,7 @@ pairs' subspaces equal to 1e-4 in their smallest principal cosine.
 """
 
 import ast
+import json
 import os
 import warnings
 
@@ -24,13 +25,17 @@ from spectralcluster_tpu import pipeline as j_pipeline
 from spectralcluster_tpu import types as j_types
 from spectralcluster_tpu.ops import dc as j_dc
 from spectralcluster_tpu.ops import eigen as j_eigen
+from spectralcluster_tpu_torch import configs
 from spectralcluster_tpu_torch import convert
 from spectralcluster_tpu_torch import pipeline
 from spectralcluster_tpu_torch import utils
-from spectralcluster_tpu_torch.fixtures import make_embeddings_k
+from spectralcluster_tpu_torch.fixtures import (make_embeddings,
+                                                make_embeddings_k)
+from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.observability import StageTimings
 from spectralcluster_tpu_torch.ops import dc
 from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+from spectralcluster_tpu_torch.ops import refinement
 
 torch.set_num_threads(1)
 
@@ -359,3 +364,175 @@ def test_make_embeddings_k_is_the_bench_fixture(n, k):
   want_x, want_labels = scope["make_embeddings_k"](n, k)
   np.testing.assert_array_equal(x, want_x)
   np.testing.assert_array_equal(labels, want_labels)
+
+
+# ---------------------------------------------------------------------------
+# The subspace solver's product and Gram (kernel 6 and a float64 product
+# on the card) and the certified route on the smoke's fixtures, against the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _gamma_bound(a, x):
+  """The float32 bound of a K-term sum, 2·K·2⁻²⁴·(|a|·|x|), elementwise."""
+  a, x = np.abs(a.astype(np.float64)), np.abs(x.astype(np.float64))
+  return 2.0 * a.shape[-1] * 2.0**-24 * (a @ x)
+
+
+@pytest.mark.parametrize("shape", [(300, 300, 16), (301, 257, 9),
+                                   (3, 128, 128, 16), (75, 300, 1)])
+def test_panel_matmul_twin_against_jax(shape):
+  # On the CPU the wrapper is its twin, torch.matmul, bit for bit (the
+  # solver's CPU path keeps its bits); both sum within the float32 bound of
+  # a K-term sum of JAX's float32 dot on the same numpy input.
+  rng = np.random.RandomState(5)
+  *lead, m, k, b = shape
+  a = rng.randn(*lead, m, k).astype(np.float32)
+  x = rng.randn(*lead, k, b).astype(np.float32)
+  got = fused.panel_matmul(torch.as_tensor(a), torch.as_tensor(x))
+  torch.testing.assert_close(got, torch.matmul(torch.as_tensor(a),
+                                               torch.as_tensor(x)),
+                             rtol=0, atol=0)
+  want = np.asarray(jnp.matmul(jnp.asarray(a), jnp.asarray(x),
+                               preferred_element_type=jnp.float32))
+  assert np.all(np.abs(got.numpy() - want) <= _gamma_bound(a, x))
+
+
+def test_panel_matmul_reads_a_row_stripe():
+  # A stripe of rows of a larger matrix (the row-sharded solver's operand)
+  # gives the stripe's rows of the whole product.
+  rng = np.random.RandomState(6)
+  a = torch.as_tensor(rng.randn(256, 256).astype(np.float32))
+  x = torch.as_tensor(rng.randn(256, 16).astype(np.float32))
+  torch.testing.assert_close(fused.panel_matmul(a[64:128], x),
+                             torch.matmul(a, x)[64:128], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(512, 16, 16), (300, 16, 8),
+                                   (4, 256, 16, 16), (257, 19, 3)])
+def test_panel_gram_twin_against_jax(shape):
+  # On the CPU the solver's Gram is the float32 torch.matmul, bit for bit;
+  # within the float32 bound of a K-term sum of JAX's float32 dot.
+  rng = np.random.RandomState(7)
+  *lead, k, p, r = shape
+  a = rng.randn(*lead, k, p).astype(np.float32)
+  b = rng.randn(*lead, k, r).astype(np.float32)
+  got = eigen_ops.panel_gram(torch.as_tensor(a), torch.as_tensor(b))
+  at = torch.as_tensor(a).transpose(-1, -2)
+  torch.testing.assert_close(got, torch.matmul(at, torch.as_tensor(b)),
+                             rtol=0, atol=0)
+  a_t = np.swapaxes(a, -1, -2)
+  want = np.asarray(jnp.matmul(jnp.asarray(a_t), jnp.asarray(b),
+                               preferred_element_type=jnp.float32))
+  assert np.all(np.abs(got.numpy() - want) <= _gamma_bound(a_t, b))
+
+
+def _smoke_operand(x):
+  """chip_smoke.py's certified-route operand (fused.affinity, then the
+  ROWNORM_TAIL operand), on the CPU, as numpy."""
+  cfg = pipeline.PipelineConfig(
+      refinement_options=configs.icassp2018_refinement_options(),
+      min_clusters=2, max_clusters=7)
+  m, _ = pipeline._symmetric_eig_operand(
+      fused.affinity(torch.as_tensor(x)), cfg, None, None,
+      refinement.ROWNORM_TAIL, consume_input=True)
+  return m.numpy()
+
+
+@pytest.mark.parametrize("k", [2, 4, 7])
+def test_certified_route_on_smoke_fixtures_matches_jax(k):
+  # The smoke's route gate cut to N=512: both packages' certified route on
+  # the same float32 operand take the same route, the port's residual trace
+  # has one entry per 32-iteration chunk and, where the solve stopped
+  # before the cap, ends at or under the solver's tolerance. Eigenvalues
+  # within 2e-4·scale of JAX's (float32 solves from different panels).
+  x = make_embeddings(512) if k == 2 else make_embeddings_k(512, k)[0]
+  m = _smoke_operand(x)
+  info = {}
+  ours = dc._certified_iterative_topt(
+      torch.as_tensor(m), 8, _gen(pipeline._DC_SEED), True, None, info)
+  theirs = j_dc._certified_iterative_topt(
+      jnp.asarray(m), 8, jax.random.PRNGKey(17), True, None)
+  assert (ours is None) == (theirs is None)
+  trace = info["res_trace"]
+  assert len(trace) == info["iters"] // dc._SUBSPACE_ITERS
+  if info["iters"] < dc._SUBSPACE_MAX_ITERS:
+    assert trace[-1] <= dc._SUBSPACE_RESIDUAL_TOL < min(trace[:-1] or [1.0])
+  if ours is not None:
+    np.testing.assert_allclose(ours[0].numpy(), np.asarray(theirs[0]),
+                               atol=2e-4 * ours[3])
+    assert ours[2] <= dc._ITER_ACCEPT_RES and theirs[2] <= j_dc._ITER_ACCEPT_RES
+
+
+def test_subspace_residual_trace_batched():
+  # A (B, N, N) batch reports its trace per chunk and per matrix; a matrix
+  # frozen at its stop keeps its last residual.
+  rng = np.random.RandomState(8)
+  mats = []
+  for r in (0.9, 0.995):
+    q, _ = np.linalg.qr(rng.randn(128, 128))
+    mats.append((q * r ** np.arange(128)) @ q.T)
+  mats = torch.as_tensor(np.stack(mats).astype(np.float32))
+  stats = {}
+  eigen_ops.topk_eigh_subspace(mats, 4, _gen(), num_iters=8,
+                               residual_tol=1e-4, max_iters=256, stats=stats)
+  trace = np.asarray(stats["res"])
+  iters = stats["iters"].numpy()
+  assert trace.shape == (int(iters.max()) // 8, 2)
+  for lane in range(2):
+    stop = int(iters[lane]) // 8 - 1
+    assert np.all(trace[stop:, lane] == trace[stop, lane])
+
+
+def test_recorded_route_reference_agrees():
+  # tests/data/reference_dc_route.json (tools/record_dc_route_reference.py):
+  # on each of the smoke's operands built on the CPU, the port took the JAX
+  # package's route, below the iteration cap, and certified.
+  with open(os.path.join(REPO, "tests", "data",
+                         "reference_dc_route.json")) as f:
+    record = json.load(f)
+  assert record["constants"] == {
+      "iter_accept_res": dc._ITER_ACCEPT_RES,
+      "subspace_iters": dc._SUBSPACE_ITERS,
+      "subspace_residual_tol": dc._SUBSPACE_RESIDUAL_TOL,
+      "subspace_max_iters": dc._SUBSPACE_MAX_ITERS}
+  assert set(record["cases"]) == {"n10240_k2", "n20480_k2", "n10240_k4",
+                                  "n10240_k7"}
+  for case in record["cases"].values():
+    port, jax_route = case["port"], case["jax"]
+    assert port["accepted"] == jax_route["accepted"]
+    assert port["iters"] < dc._SUBSPACE_MAX_ITERS
+    assert len(port["res_trace"]) == port["iters"] // dc._SUBSPACE_ITERS
+    if port["accepted"]:
+      assert port["res"] <= dc._ITER_ACCEPT_RES
+      assert jax_route["res"] <= j_dc._ITER_ACCEPT_RES
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_cholqr_pass_twin_against_jax(batch):
+  # CholeskyQR2 through the pass's twin (cholesky_ex and a triangular
+  # solve) against JAX's cholqr2_shifted on the same numpy panel, each
+  # panel of a batch alone: the same orthonormal basis within 1e-5 (float32
+  # Cholesky and solves in other orders), orthonormal to 1e-5.
+  rng = np.random.RandomState(9)
+  lead = () if batch is None else (batch,)
+  y = (rng.randn(*lead, 300, 16) * np.logspace(0, 3, 16)).astype(np.float32)
+  got = eigen_ops.cholqr2_shifted(torch.as_tensor(y)).numpy()
+  for i in range(1 if batch is None else batch):
+    yi, gi = (y, got) if batch is None else (y[i], got[i])
+    want = np.asarray(j_eigen.cholqr2_shifted(jnp.asarray(yi)))
+    np.testing.assert_allclose(gi, want, atol=1e-5)
+    np.testing.assert_allclose(gi.T @ gi, np.eye(16), atol=1e-5)
+  gram = eigen_ops.panel_gram(torch.as_tensor(y), torch.as_tensor(y))
+  q, info = fused.cholqr_pass(torch.as_tensor(y), gram, 1e-6)
+  q_plain, info_plain = fused.cholqr_pass_plain(torch.as_tensor(y), gram, 1e-6)
+  torch.testing.assert_close(q, q_plain, rtol=0, atol=0)
+  assert torch.equal(info, info_plain) and not bool(torch.any(info))
+
+
+def test_cholqr_pass_reports_a_failed_factorization():
+  # An indefinite Gram: info names the failed column, as cholesky_ex does,
+  # and CholeskyQR2 then takes the 1e-2 rescue.
+  y = torch.as_tensor(np.random.RandomState(10).randn(64, 4).astype(
+      np.float32))
+  _, info = fused.cholqr_pass(y, -torch.eye(4), 1e-6)
+  assert int(info) == 1

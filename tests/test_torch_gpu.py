@@ -452,13 +452,15 @@ def test_cluster_batch_card_matches_cpu(cuda):
   for a, b in zip(got, want):
     np.testing.assert_array_equal(utils.enforce_ordered_labels(a),
                                   utils.enforce_ordered_labels(b))
-  # One chunk on one card: each batched kernel once (row_max twice).
+  # One chunk on one card: each batched kernel once (row_max twice); the
+  # batched eigh runs none of the subspace solver's kernels.
   assert counts == {"affinity": 0, "row_max": 0, "crop_diagonal": 0,
                     "threshold_symmetrize_general": 0,
                     "row_wise_normalize": 0, "affinity_batched": 1,
                     "row_max_batched": 2, "crop_diagonal_batched": 1,
                     "threshold_symmetrize_general_batched": 1,
-                    "row_wise_normalize_batched": 0}
+                    "row_wise_normalize_batched": 0, "panel_matmul": 0,
+                    "cholqr_pass": 0}
 
 
 def test_cluster_batch_streamed_card_matches_serial(cuda):
@@ -549,7 +551,8 @@ def test_batched_solvers_card_match_the_2d_pipeline(cuda, eigensolver):
 @pytest.mark.parametrize("n,use_ring", [(512, False), (509, True)])
 def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
   # Four in-process shards on the card against four on the CPU (509: 3 pad
-  # rows): the same labels, the reference's at 512, and no kernel launch.
+  # rows): the same labels, the reference's at 512, no refinement kernel
+  # launch, and the subspace solver's kernels on every stripe.
   cfg = pipeline.PipelineConfig(
       refinement_options=configs.icassp2018_refinement_options(),
       min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300)
@@ -558,7 +561,10 @@ def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
   got, got_n = sharded.cluster_large_sharded(
       x, cfg, mesh_lib.make_mesh(dp=1, mp=4, devices=[cuda] * 4),
       use_ring_affinity=use_ring)
-  assert not any(fused.launch_counts().values())
+  counts = fused.launch_counts()
+  solver = ("panel_matmul", "cholqr_pass")
+  assert not any(v for k, v in counts.items() if k not in solver)
+  assert all(counts[k] for k in solver)
   want, want_n = sharded.cluster_large_sharded(
       x, cfg, mesh_lib.make_mesh(dp=1, mp=4,
                                  devices=[torch.device("cpu")] * 4),
@@ -569,3 +575,85 @@ def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
   for labels in (got, want):
     np.testing.assert_array_equal(utils.enforce_ordered_labels(labels),
                                   ref["labels_512"][:n])
+
+
+# The subspace solver's kernels (6-7) and its Gram. Each output of kernel 6
+# and of the card's Gram is a float64 sum of exact products rounded once,
+# so it lies within the float32 bound of the twin's K-term sum,
+# 2·K·2⁻²⁴·(|a|·|x|), and within one float32 rounding of a float64
+# product (plus the float64 sum's own bound, K·2⁻⁵²·(|a|·|x|)).
+def _within_sum_bound(got, want, a, x):
+  magnitude = torch.matmul(torch.abs(a).double(), torch.abs(x).double())
+  k = a.shape[-1]
+  assert bool(torch.all(torch.abs(got - want).double()
+                        <= 2.0 * k * 2.0**-24 * magnitude))
+  exact = torch.matmul(a.double(), x.double())
+  assert bool(torch.all(torch.abs(got.double() - exact)
+                        <= 2.0**-24 * torch.abs(exact)
+                        + k * 2.0**-52 * magnitude))
+
+
+@pytest.mark.parametrize("shape", [(20480, 20480, 16), (10240, 10240, 8),
+                                   (1000, 1000, 1), (999, 1001, 17),
+                                   (16, 1024, 1024, 16), (2, 37, 37, 5),
+                                   (5120, 20480, 16)])
+def test_panel_matmul(cuda, shape):
+  *lead, m, k, b = shape
+  gen = torch.Generator(cuda).manual_seed(3)
+  a = torch.randn((*lead, m, k), generator=gen, device=cuda)
+  x = torch.randn((*lead, k, b), generator=gen, device=cuda)
+  got = fused.panel_matmul(a, x)
+  _within_sum_bound(got, fused.panel_matmul_plain(a, x), a, x)
+
+
+def test_panel_matmul_stripe_and_transposed_panel(cuda):
+  # A row stripe of a larger matrix, and a panel that is the transpose of a
+  # contiguous matrix (the solver's layout): the stripe's rows of the whole
+  # product, bit for bit.
+  gen = torch.Generator(cuda).manual_seed(4)
+  a = torch.randn((4096, 4096), generator=gen, device=cuda)
+  x = torch.randn((16, 4096), generator=gen, device=cuda).T
+  whole = fused.panel_matmul(a, x)
+  assert torch.equal(fused.panel_matmul(a[1024:2048], x), whole[1024:2048])
+  assert torch.equal(whole, fused.panel_matmul(a, x.contiguous()))
+
+
+@pytest.mark.parametrize("shape", [(20480, 16, 16), (10240, 16, 8),
+                                   (16, 1024, 16, 16), (999, 19, 3),
+                                   (1, 40, 40)])
+def test_panel_gram(cuda, shape):
+  *lead, k, p, r = shape
+  gen = torch.Generator(cuda).manual_seed(5)
+  a = torch.randn((*lead, k, p), generator=gen, device=cuda)
+  b = torch.randn((*lead, k, r), generator=gen, device=cuda)
+  got = eigen.panel_gram(a, b)
+  at = a.transpose(-1, -2)
+  _within_sum_bound(got, torch.matmul(at, b), at, b)
+
+
+@pytest.mark.parametrize("shape", [(20480, 16), (3, 1024, 16), (999, 19),
+                                   (300, 40)])
+@pytest.mark.parametrize("delta_rel", [1e-6, 1e-2])
+def test_cholqr_pass(cuda, shape, delta_rel):
+  # One pass against cuSOLVER's Cholesky and cuBLAS's solve: float32
+  # factorizations in other orders, within 1e-5; the same info.
+  gen = torch.Generator(cuda).manual_seed(6)
+  y = torch.randn(shape, generator=gen, device=cuda)
+  gram = eigen.panel_gram(y, y)
+  q, info = fused.cholqr_pass(y, gram, delta_rel)
+  q_plain, info_plain = fused.cholqr_pass_plain(y, gram, delta_rel)
+  torch.testing.assert_close(q, q_plain, rtol=0, atol=1e-5)
+  assert torch.equal(info.long(), info_plain.long()) and not bool(info.any())
+  # The transposed layout of the same panel gives the same bits.
+  q_t, _ = fused.cholqr_pass(y.transpose(-1, -2).contiguous()
+                             .transpose(-1, -2), gram, delta_rel)
+  assert torch.equal(q_t, q)
+
+
+def test_cholqr_pass_failed_factorization(cuda):
+  y = torch.randn((4096, 16), device=cuda)
+  bad = -torch.eye(16, device=cuda)
+  q, info = fused.cholqr_pass(y, bad, 1e-6)
+  _, info_plain = fused.cholqr_pass_plain(y, bad, 1e-6)
+  assert int(info) == int(info_plain) == 1
+  assert not bool(torch.isfinite(q).all())

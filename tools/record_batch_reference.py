@@ -24,12 +24,20 @@ chunk) on a mesh of one CPU device, seed 0:
     ``fixtures.make_batch(4)`` (the float64 host eig is ~1 s per
     utterance).
 
+``ragged`` writes ``tests/data/reference_batch_ragged.npz``, the labels of
+the batched SubspaceIteration on utterances that stop at other iterations:
+``ragged_labels`` (3, 1024) and ``ragged_truth``, ``cluster_batch`` on
+``make_embeddings_k(1024, k)`` for k = 2, 4, 7 (``RAGGED_KS``) with that
+bench's config and the certified route's solver constants
+(``ragged_config``: chunks of 32 iterations, residual 1e-6, at most 2,048),
+on a mesh of one CPU device, seed 0.
+
 ``chip_smoke.py`` holds the port's batch drivers on the card against these
 files, and the CPU tests hold a few utterances of each. Prints the JAX
 package's AHC backend and the seconds each batch took.
 
-Usage: ./run_cpu.sh python tools/record_batch_reference.py [batch|solvers]
-(both when no argument is given)
+Usage: ./run_cpu.sh python tools/record_batch_reference.py
+[batch|solvers|ragged] (all three when no argument is given)
 """
 
 import os
@@ -47,11 +55,14 @@ from spectralcluster_tpu.parallel import batch as batch_lib  # noqa: E402
 from spectralcluster_tpu.parallel import mesh as mesh_lib  # noqa: E402
 from spectralcluster_tpu.types import EigenSolver, LaplacianType  # noqa: E402
 from spectralcluster_tpu_torch.fixtures import (make_batch,  # noqa: E402
+                                                make_embeddings_k,
                                                 make_t2d_fixture)
 
 OUT = os.path.join(REPO, "tests", "data", "reference_batch.npz")
 OUT_SOLVERS = os.path.join(REPO, "tests", "data",
                            "reference_batch_solvers.npz")
+OUT_RAGGED = os.path.join(REPO, "tests", "data", "reference_batch_ragged.npz")
+RAGGED_KS = (2, 4, 7)
 BATCH, N, D, T2D_BATCH = 16, 1024, 256, 4
 HOST_GENERAL_BATCH = 4
 
@@ -62,6 +73,16 @@ def batch_config(eigensolver=EigenSolver.Auto):
       refinement_options=configs.icassp2018_refinement_options(),
       min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300,
       eigensolver=eigensolver)
+
+
+def ragged_config():
+  """The bench's SubspaceIteration with the certified route's solver
+  constants (spectralcluster_tpu/ops/dc.py:1076-1077): utterances whose
+  residual settles near the float32 floor run on after the others
+  stop."""
+  return batch_config(EigenSolver.SubspaceIteration).replace(
+      subspace_iters=32, subspace_residual_tol=1e-6, subspace_max_iters=2048,
+      subspace_drift_tol=None)
 
 
 def t2d_config():
@@ -114,16 +135,33 @@ def record_solvers():
   print(f"wrote {OUT_SOLVERS}", flush=True)
 
 
+def record_ragged():
+  mesh = mesh_lib.make_mesh(dp=1, mp=1, devices=jax.devices()[:1])
+  utts, truths = zip(*(make_embeddings_k(N, k, D) for k in RAGGED_KS))
+  t0 = time.time()
+  labels = batch_lib.cluster_batch(list(utts), ragged_config(), mesh)
+  print(f"cluster_batch SubspaceIteration (ragged) {len(utts)} x N={N}: "
+        f"{time.time() - t0:.1f} s", flush=True)
+  os.makedirs(os.path.dirname(OUT_RAGGED), exist_ok=True)
+  np.savez_compressed(OUT_RAGGED,
+                      ragged_labels=np.stack(labels).astype(np.int16),
+                      ragged_truth=np.stack(truths).astype(np.int16))
+  print(f"wrote {OUT_RAGGED}", flush=True)
+
+
 def main():
   which = sys.argv[1] if len(sys.argv) > 1 else "all"
-  if which not in ("batch", "solvers", "all"):
-    raise SystemExit(f"unknown record {which!r}: batch, solvers or all")
+  if which not in ("batch", "solvers", "ragged", "all"):
+    raise SystemExit(f"unknown record {which!r}: batch, solvers, ragged or "
+                     "all")
   print(f"AHC backend: {'native' if ahc._native_ok() else 'numpy'}",
         flush=True)
   if which in ("batch", "all"):
     record_batch()
   if which in ("solvers", "all"):
     record_solvers()
+  if which in ("ragged", "all"):
+    record_ragged()
 
 
 if __name__ == "__main__":
