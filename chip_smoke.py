@@ -28,17 +28,27 @@ result line):
      kernel's bit for bit; 1b and 2b also at the streamed chunk's B=64,
      N=1024, 1b there also against its transpose. The subspace solver's
      kernels on the operands it gives them: the panel product (6) on the
-     certified route's shifted operand at N=10240 by 16, 8 and 1 columns,
-     on a quarter of its rows and on the batched operands, and the solver's
-     float64 Gram (``ops.eigen.panel_gram``, no kernel) of the Ritz matrix
-     and of CholeskyQR2, each within the float32 bound of a K-term sum of
-     the twin (|Δ| ≤ 2·K·2⁻²⁴·(|a|·|x|)) and within one float32 rounding
-     of a float64 sum of the same inputs (|got − exact| ≤ 2⁻²⁴·|exact| +
-     K·2⁻⁵²·(|a|·|x|): a float32 or TF32 sum fails it), cuBLAS's error
-     against that sum printed beside; the CholeskyQR pass (7) at both
-     shifts no farther from the same pass computed in float64 than four
-     times the twin's distance (cuSOLVER's Cholesky, cuBLAS's solve) plus
-     1e-6, the same info. Then times (CUDA events
+     certified route's shifted operand at N=10240 (and, in 3b, at 20480)
+     by 16, 8 and 1 columns, on a quarter of its rows (at 20480 the
+     5120-row stripe of four shards) and on the batched operands, and the
+     solver's float64 Gram (``ops.eigen.panel_gram``, no kernel) of the
+     Ritz matrix and of CholeskyQR2, each within the float32 bound of a
+     K-term sum of the twin (|Δ| ≤ 2·K·2⁻²⁴·(|a|·|x|)) and within one
+     float32 rounding of a float64 sum of the same inputs (|got − exact|
+     ≤ 2⁻²⁴·|exact| + K·2⁻⁵²·(|a|·|x|): a float32 or TF32 sum fails it),
+     cuBLAS's error against that sum printed beside, kernel 6 also equal
+     bit for bit across two calls and to its C entry called alone, and
+     timed per operand and width through its wrapper, alone and against
+     cuBLAS's float32 product, with its k split; the CholeskyQR pass pair
+     (7, both shifts in one launch): each pass equal bit for bit to the
+     single-pass kernel at its shift, no farther from the same pass
+     computed in float64 than four times the twin's distance (cuSOLVER's
+     Cholesky, cuBLAS's solve) plus 1e-6, the same info, its flag that of
+     its own outputs, one Inf in one panel of a batch flagging that panel
+     alone, its workspace zero after each launch; timed alone and through
+     its wrapper beside the two single passes it replaces, and one
+     CholeskyQR2 each way; then the solver's launches per iteration (48
+     iterations less 24). Then times (CUDA events
      around 10 calls back to back behind one untimed call, median of 20
      such means after warm-up) of each kernel, its twin and a one-call
      library yardstick where one exists (the affinity's `addmm` timed with the row normalization, as
@@ -987,19 +997,80 @@ def main() -> int:
   def float32_gram(a, b):
     return torch.matmul(a.transpose(-1, -2), b)
 
-  y_main = fused.panel_matmul(op_main, q_main)
-  for cols in (16, 8, 1):
-    check_bounded("panel_matmul", f"N={n},b={cols},certified operand",
-                  fused.panel_matmul(op_main, q_main[:, :cols]),
-                  fused.panel_matmul_plain(op_main, q_main[:, :cols]),
-                  op_main, q_main[:, :cols])
+  # Kernel 6 alone: its C entry on buffers made beforehand, no wrapper.
+  def panel_alone(op, x):
+    batch = op.shape[0] if op.dim() == 3 else 1
+    rows, depth = op.shape[-2:]
+    out = torch.empty(op.shape[:-1] + (x.shape[-1],), device=dev)
+    args = (op.data_ptr(), x.data_ptr(), out.data_ptr(), batch, rows, depth,
+            op.stride(-2), op.stride(0) if op.dim() == 3 else 0, x.shape[-1],
+            x.stride(-2), x.stride(-1), x.stride(0) if x.dim() == 3 else 0,
+            stream)
+
+    def run():
+      rc = lib.sct_panel_matmul(*args)
+      if rc:
+        raise SystemExit(f"sct_panel_matmul: CUDA error {rc}")
+    return run, out
+
+  def panel_split(op, cols):
+    """The k split (cluster size) the kernel takes for op by cols, and the
+    card's resident blocks of that kernel."""
+    splits, resident = ctypes.c_int(0), ctypes.c_int(0)
+    vec = int(op.data_ptr() % 16 == 0 and op.stride(-2) % 4 == 0
+              and (op.dim() == 2 or op.stride(0) % 4 == 0))
+    rc = lib.sct_panel_matmul_schedule(
+        op.shape[0] if op.dim() == 3 else 1, op.shape[-2], op.shape[-1],
+        cols, vec, ctypes.byref(splits), ctypes.byref(resident))
+    if rc:
+      raise SystemExit(f"sct_panel_matmul_schedule: CUDA error {rc}")
+    return {"k_split": splits.value, "resident_blocks": resident.value}
+
+  panel_rows = results["panel_matmul_cases"] = {}
+
+  def panel_case(case, op, q):
+    """Kernel 6 on op by q's first 16, 8 and 1 columns (the iterations',
+    the probe's and the norm steps' widths): the gates of check_bounded;
+    two calls and the kernel alone equal bit for bit; the wrapper's, the
+    kernel's alone and cuBLAS's float32 product's times beside the bound
+    (one read of op, x and y; 2·M·K·b operations)."""
+    for cols in (16, 8, 1):
+      x = q[..., :cols]
+      label = f"{case},b={cols}"
+      got = fused.panel_matmul(op, x)
+      check_bounded("panel_matmul", label, got,
+                    fused.panel_matmul_plain(op, x), op, x)
+      run, out = panel_alone(op, x)
+      run()
+      again = fused.panel_matmul(op, x)
+      torch.cuda.synchronize()
+      checks.append({"kernel": "panel_matmul",
+                     "case": f"{label},two calls and the kernel alone",
+                     "max_abs_err": float(torch.max(torch.abs(got - again))),
+                     "tolerance": "equal bits",
+                     "ok": torch.equal(got, again) and torch.equal(got, out)})
+      log(json.dumps({"phase": "kernels", **checks[-1]}))
+      batch = op.shape[0] if op.dim() == 3 else 1
+      rows, depth = op.shape[-2:]
+      bytes_ms = batch * (rows * depth + (rows + depth) * cols) * 4 / bw * 1e3
+      ops_ms = 2 * batch * rows * depth * cols / fp32 * 1e3
+      row = {"ms": time_ms(torch, lambda: fused.panel_matmul(op, x)),
+             "kernel_alone_ms": time_ms(torch, run),
+             "library_ms": time_ms(torch, lambda: torch.matmul(op, x)),
+             "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             **panel_split(op, cols)}
+      row["share_of_bound"] = row["bound_ms"] / row["ms"]
+      panel_rows[label] = row
+      log(json.dumps({"phase": "timing", "kernel": "panel_matmul",
+                      "case": label, **row}))
+      del got, again, out
+
+  panel_case(f"N={n},certified operand", op_main, q_main)
   stripe = op_main[n // 4:n // 2]
-  check_bounded("panel_matmul", f"rows {n // 4}:{n // 2} of N={n},b=16",
-                fused.panel_matmul(stripe, q_main),
-                fused.panel_matmul_plain(stripe, q_main), stripe, q_main)
-  check_bounded("panel_matmul", f"{batch_case},b=16,batched operand",
-                fused.panel_matmul(m_b, q_b),
-                fused.panel_matmul_plain(m_b, q_b), m_b, q_b)
+  panel_case(f"rows {n // 4}:{n // 2} of N={n}", stripe, q_main)
+  panel_case(f"{batch_case},batched operand", m_b, q_b)
+  y_main = fused.panel_matmul(op_main, q_main)
   check_bounded("panel_gram", f"N={n},p=r=16,Ritz matrix",
                 eigen_ops.panel_gram(q_main, y_main),
                 float32_gram(q_main, y_main), q_main, y_main, gram=True)
@@ -1024,14 +1095,18 @@ def main() -> int:
                  "tolerance": "each share > 1 (rejected)",
                  "ok": all(v > 1.0 for v in rejected.values())})
   log(json.dumps({"phase": "kernels", **checks[-1]}))
-  # Kernel 7, the CholeskyQR pass, on the certified route's panel and the
-  # batched step's (whose unshifted operand leaves its panel's Gram ill
-  # conditioned) with their Grams, at both shifts. Both it and the twin
-  # (cuSOLVER's Cholesky, cuBLAS's solve) are float32 factorizations whose
-  # error grows with the shifted Gram's condition, so each is held to the
-  # same pass computed in float64 from the same float32 Gram: the kernel
-  # no farther from it than four times the twin's distance, plus 1e-6;
-  # the same info.
+  # Kernel 7, the CholeskyQR passes at both shifts in one launch, on the
+  # certified route's panel and the batched step's (whose unshifted
+  # operand leaves its panel's Gram ill conditioned) with their Grams.
+  # Each of the pair's passes must equal the single-pass kernel at its
+  # shift bit for bit (the same factorization and solve code), and info;
+  # and each is held to the same pass computed in float64 from the same
+  # float32 Gram: no farther from it than four times the twin's distance
+  # (cuSOLVER's Cholesky, cuBLAS's solve; both float32 factorizations
+  # whose error grows with the shifted Gram's condition), plus 1e-6. No
+  # panel is flagged but where the first pass failed or left a non-finite
+  # value; then one with an Inf in its last row must be, alone, and the
+  # flag's workspace is zero after every launch.
   def float64_pass(y_in, gram_in, rel):
     g64 = gram_in.double()
     delta = rel * torch.clamp_min(torch.amax(
@@ -1041,27 +1116,50 @@ def main() -> int:
     return torch.linalg.solve_triangular(
         low, y_in.double().transpose(-1, -2), upper=False).transpose(-1, -2)
 
+  tickets = fused._qr_tickets(dev)
   for case, y_in in ((f"N={n},b=16", y_main), (f"{batch_case},b=16", y_b)):
     gram_in = eigen_ops.panel_gram(y_in, y_in)
-    for rel in (1e-6, 1e-2):
-      q_k, info_k = fused.cholqr_pass(y_in, gram_in, rel)
+    q1, q2, info_k, bad_k = fused.cholqr_pass_pair(y_in, gram_in, 1e-6, 1e-2)
+    for rel, q_k in ((1e-6, q1), (1e-2, q2)):
+      q_s, info_s = fused.cholqr_pass(y_in, gram_in, rel)
       q_p, info_p = fused.cholqr_pass_plain(y_in, gram_in, rel)
       exact = float64_pass(y_in, gram_in, rel)
       torch.cuda.synchronize()
       err_k = float(torch.max(torch.abs(q_k.double() - exact)))
       err_p = float(torch.max(torch.abs(q_p.double() - exact)))
+      same = torch.equal(q_k, q_s) and (rel != 1e-6 or torch.equal(
+          info_k, info_s))
       checks.append({
-          "kernel": "cholqr_pass", "case": f"{case},shift={rel}",
+          "kernel": "cholqr_pass_pair", "case": f"{case},shift={rel}",
           "max_abs_err": float(torch.max(torch.abs(q_k - q_p))),
           "kernel_vs_float64": err_k, "cusolver_vs_float64": err_p,
-          "tolerance": "kernel_vs_float64 <= 4·cusolver_vs_float64 + 1e-6",
-          "ok": err_k <= 4 * err_p + 1e-6 and torch.equal(info_k.long(),
-                                                          info_p.long())})
+          "equal_to_the_single_pass": same,
+          "tolerance": "bits of the single pass; kernel_vs_float64 <= "
+                       "4·cusolver_vs_float64 + 1e-6",
+          "ok": same and err_k <= 4 * err_p + 1e-6
+                and torch.equal(info_k.long(), info_p.long())
+                and torch.equal(bad_k, (info_k != 0) | ~torch.all(
+                    torch.isfinite(q1), dim=(-2, -1)))
+                and not bool(torch.any(tickets))})
       log(json.dumps({"phase": "kernels", **checks[-1]}))
+  y_inf = y_b.clone()
+  y_inf[1, -1, 3] = torch.inf
+  _, _, _, bad_inf = fused.cholqr_pass_pair(
+      y_inf, eigen_ops.panel_gram(y_b, y_b), 1e-6, 1e-2)
+  want_bad = [i == 1 for i in range(BATCH)]
+  checks.append({"kernel": "cholqr_pass_pair",
+                 "case": f"{batch_case},an Inf in panel 1's last row",
+                 "max_abs_err": 0.0, "flags": bad_inf.tolist(),
+                 "tolerance": "panel 1 flagged alone; workspace zero",
+                 "ok": bad_inf.tolist() == want_bad
+                       and not bool(torch.any(tickets))})
+  log(json.dumps({"phase": "kernels", **checks[-1]}))
+  del y_inf
   failed = [c for c in checks if not c["ok"]]
   if failed:
     raise SystemExit(f"kernel disagrees with its twin: {failed}")
   results["panel_accuracy"] = accuracy
+  gram_main = eigen_ops.panel_gram(y_main, y_main)
   panel_timed = {
       # One read of the operand, the panel and the output; 2·M·K·b FLOP.
       "panel_matmul": (
@@ -1069,16 +1167,16 @@ def main() -> int:
           lambda: fused.panel_matmul_plain(op_main, q_main),
           lambda: torch.matmul(op_main, q_main),
           (n * n + 2 * n * 16) * 4, 2 * n * n * 16),
+      # The panel read, both q written, the Gram read; the two forward
+      # solves' 2·N·b² FLOP (the (b, b) Choleskys are negligible).
+      "cholqr_pass_pair": (
+          lambda: fused.cholqr_pass_pair(y_main, gram_main, 1e-6, 1e-2),
+          lambda: fused.cholqr_pass_pair_plain(y_main, gram_main, 1e-6,
+                                               1e-2),
+          None, (3 * n * 16 + 16 * 16) * 4, 2 * n * 16 * 16),
   }
-  gram_main = eigen_ops.panel_gram(y_main, y_main)
-  panel_timed["cholqr_pass"] = (
-      lambda: fused.cholqr_pass(y_main, gram_main, 1e-6),
-      lambda: fused.cholqr_pass_plain(y_main, gram_main, 1e-6), None,
-      # The panel read, q written, the Gram read; the forward solve's
-      # N·b² FLOP (the (b, b) Cholesky is negligible).
-      (2 * n * 16 + 16 * 16) * 4, n * 16 * 16)
-  no_library["cholqr_pass"] = ("no single PyTorch call: a Cholesky, then a "
-                               "triangular solve")
+  no_library["cholqr_pass_pair"] = ("no single PyTorch call: two Choleskys "
+                                    "and two triangular solves")
   with torch.no_grad():
     for name, (kern, plain, library, nbytes, nops) in panel_timed.items():
       bytes_ms = nbytes / bw * 1e3
@@ -1090,12 +1188,73 @@ def main() -> int:
           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
           "shape": f"N={n},b=16",
       }
-      # The batched step's shape, per launch.
       if name == "panel_matmul":
+        case = panel_rows[f"N={n},certified operand,b=16"]
+        times[name]["kernel_alone_ms"] = case["kernel_alone_ms"]
+        batched = panel_rows[f"{batch_case},batched operand,b=16"]
         times[name][f"at_B={BATCH},N={N_BATCH}"] = {
-            "ms": time_ms(torch, lambda: fused.panel_matmul(m_b, q_b)),
-            "library_ms": time_ms(torch, lambda: torch.matmul(m_b, q_b))}
+            k: batched[k] for k in ("ms", "kernel_alone_ms", "library_ms",
+                                    "bound_ms")}
       log(json.dumps({"phase": "timing", "kernel": name, **times[name]}))
+    # Kernel 7 alone (its C entry on buffers made beforehand) beside its
+    # wrapper, and the parent's way of running a CholeskyQR pass: the
+    # single-pass kernel at each shift, alone and through its wrapper.
+    # Then one CholeskyQR2 (two Grams, two pairs, two selections) against
+    # the same with two single passes, isfinite, all and where per pass.
+    qt2 = torch.empty((2, 16, n), device=dev)
+    qt1 = torch.empty((16, n), device=dev)
+    info_b = torch.empty((), dtype=torch.int32, device=dev)
+    bad_b = torch.empty((), dtype=torch.bool, device=dev)
+    yargs = (1, n, 16, 0, y_main.stride(0), y_main.stride(1))
+
+    def pair_alone():
+      rc = lib.sct_cholqr_pass_pair(
+          y_main.data_ptr(), gram_main.data_ptr(), qt2.data_ptr(),
+          info_b.data_ptr(), bad_b.data_ptr(), tickets.data_ptr(), *yargs,
+          1e-6, 1e-2, stream)
+      if rc:
+        raise SystemExit(f"sct_cholqr_pass_pair: CUDA error {rc}")
+
+    def single_alone(rel):
+      rc = lib.sct_cholqr_pass(y_main.data_ptr(), gram_main.data_ptr(),
+                               qt1.data_ptr(), info_b.data_ptr(), *yargs,
+                               rel, stream)
+      if rc:
+        raise SystemExit(f"sct_cholqr_pass: CUDA error {rc}")
+
+    def cholqr2_two_launches(y):
+      for _ in range(2):
+        gram = eigen_ops.panel_gram(y, y)
+        y1, info = fused.cholqr_pass(y, gram, 1e-6)
+        ok = (info == 0) & torch.all(torch.isfinite(y1), dim=(-2, -1))
+        y2, _ = fused.cholqr_pass(y, gram, 1e-2)
+        y = torch.where(ok[..., None, None], y1, y2)
+      return y
+
+    pair_alone()
+    torch.cuda.synchronize()
+    if not (torch.equal(qt2[0].T, fused.cholqr_pass_pair(
+        y_main, gram_main, 1e-6, 1e-2)[0]) and not bool(tickets.any())):
+      raise SystemExit("sct_cholqr_pass_pair alone disagrees with its "
+                       "wrapper")
+    if not torch.equal(eigen_ops.cholqr2_shifted(y_main),
+                       cholqr2_two_launches(y_main)):
+      raise SystemExit("CholeskyQR2 through the pair differs from the two "
+                       "single passes")
+    times["cholqr_pass_pair"].update({
+        "kernel_alone_ms": time_ms(torch, pair_alone),
+        "two_single_passes_ms": time_ms(torch, lambda: (
+            fused.cholqr_pass(y_main, gram_main, 1e-6),
+            fused.cholqr_pass(y_main, gram_main, 1e-2))),
+        "two_single_passes_alone_ms": time_ms(torch, lambda: (
+            single_alone(1e-6), single_alone(1e-2))),
+        "cholqr2_ms": time_ms(torch,
+                              lambda: eigen_ops.cholqr2_shifted(y_main)),
+        "cholqr2_two_launches_ms": time_ms(
+            torch, lambda: cholqr2_two_launches(y_main))})
+    log(json.dumps({"phase": "timing", "kernel": "cholqr_pass_pair",
+                    **times["cholqr_pass_pair"]}))
+    del qt2, qt1
     # The solver's Gram (no kernel): the float64 product it takes on the
     # card against cuBLAS's float32 one, both with their casts.
     grams = results["panel_gram_ms"] = {}
@@ -1107,6 +1266,23 @@ def main() -> int:
           "float32_ms": time_ms(torch, lambda a=a, y=y: float32_gram(a, y))}
     log(json.dumps({"phase": "timing", "panel_gram": grams}))
   timed.update(panel_timed)
+
+  # Launches per solver iteration: the subspace solver's launches at 48
+  # iterations less those at 24 (the start and Rayleigh–Ritz cancel), by
+  # 24.
+  def solver_launches(iters):
+    fused.reset_launch_counts()
+    eigen_ops.topk_eigh_subspace(m, 8, torch.Generator().manual_seed(42),
+                                 num_iters=iters)
+    torch.cuda.synchronize()
+    return fused.launch_counts()
+
+  short, long_ = solver_launches(24), solver_launches(48)
+  results["launches_per_solver_iteration"] = {
+      k: (long_[k] - short[k]) / 24 for k in ("panel_matmul", "cholqr_pass",
+                                              "cholqr_pass_pair")}
+  log(json.dumps({"phase": "kernels", "launches_per_solver_iteration":
+                  results["launches_per_solver_iteration"]}))
   del op_main, q_main, y_main, stripe, m_b, q_b, y_b, gram_main
 
   def subspace():
@@ -1294,7 +1470,24 @@ def main() -> int:
   m = big_operand(make_embeddings(N_BIG, D_MAIN))
   results["dc_breakdown"].append(dc_breakdown(
       m, N_BIG, f"n{N_BIG}_k2", (dc_ops._sign_precision(),)))
+  # Kernel 6 at N_BIG as at N_MAIN: the certified route's shifted operand,
+  # and a quarter of its rows (a stripe of the row-sharded path at four
+  # shards).
+  op_big = m.clone()
+  op_big.diagonal().add_(float(torch.amax(torch.sum(torch.abs(m), dim=1)))
+                         + 1.0)
   del m
+  q_big = eigen_ops.cholqr2_shifted(eigen_ops.start_panel(
+      N_BIG, 16, dc_generator(), torch.float32, dev))
+  with torch.no_grad():
+    panel_case(f"N={N_BIG},certified operand", op_big, q_big)
+    panel_case(f"rows {N_BIG // 4}:{N_BIG // 2} of N={N_BIG}",
+               op_big[N_BIG // 4:N_BIG // 2], q_big)
+  del op_big, q_big
+  torch.cuda.empty_cache()
+  failed = [c for c in checks if not c["ok"]]
+  if failed:
+    raise SystemExit(f"kernel disagrees with its twin: {failed}")
   results["dc_route_multi"] = {}
   for k in MULTI_KS:
     m = big_operand(make_embeddings_k(N_MAIN, k, D_MAIN)[0])
@@ -1313,7 +1506,7 @@ def main() -> int:
                   "threshold_symmetrize_general")
   # The subspace solver's kernels: every leg that runs a subspace solve
   # (SubspaceIteration, the certified route, the split's remainder).
-  solver_kernels = ("panel_matmul", "cholqr_pass")
+  solver_kernels = ("panel_matmul", "cholqr_pass_pair")
   # Every dc solve of the pipeline reports its route here; a leg may force
   # the route to decline.
   dc_infos = []
@@ -2286,9 +2479,9 @@ def main() -> int:
   # The solver's kernels replace XLA operations of the JAX package, not
   # Pallas kernels.
   solver_sources = {
-      "cholqr_pass": "spectralcluster_tpu/ops/eigen.py:282-286 (XLA "
-                     "Cholesky and triangular solve of cholqr2_shifted; no "
-                     "Pallas kernel)",
+      "cholqr_pass_pair": "spectralcluster_tpu/ops/eigen.py:280-304 (XLA "
+                          "Cholesky and triangular solve of cholqr2_shifted "
+                          "at both shifts; no Pallas kernel)",
       "panel_matmul": "spectralcluster_tpu/ops/eigen.py:415-427 (XLA dot: "
                       "the subspace iteration's (N, N) x (N, b) product; "
                       "no Pallas kernel)",
@@ -2338,6 +2531,25 @@ def main() -> int:
     if name == "threshold_symmetrize_general":
       kernel["launches_per_t2d_predict"] = (
           runs["t2d"]["launches_per_predict"][name])
+    if name in solver_kernels:
+      # Per call of each cell that runs the subspace solver.
+      kernel["launches_by_cell"] = {
+          "Auto_10240_predict": kernel["launches_per_predict"],
+          "Auto_20480_predict": kernel["launches_auto_20480_predict"],
+          "SubspaceIteration_10240_predict": (
+              runs["SubspaceIteration"]["launches"][name]
+              / runs["SubspaceIteration"]["warm_runs"]),
+          "t2d_predict": runs["t2d"]["launches_per_predict"][name],
+          "stream_step_past_L": kernel["launches_per_stream_step_past_L"],
+          "batch_chunk": kernel["launches_per_batch_chunk"],
+          "subspace_batch_chunk": (
+              batch_launches["cluster_batch_subspace"][name]
+              / BATCH_WARM_RUNS),
+          "ragged_subspace_batch_chunk":
+              batch_launches["cluster_batch_subspace_ragged"][name],
+          "sharded_phase": sharded_launches[name],
+          "per_solver_iteration":
+              results["launches_per_solver_iteration"][name]}
     kernels.append(kernel)
   results["kernels"] = kernels
   results["paths"] = runs

@@ -17,10 +17,10 @@
 //
 // Interface: plain C. Every sct_* function but the reports and queries
 // (sct_resident_blocks, sct_affinity_batched_schedule,
-// sct_panel_matmul_splits) launches its kernels (one, or for 6 a pass per
-// 16 columns and the sum of its partials) on the given stream, does
-// not synchronize, allocates nothing, and returns cudaGetLastError() so
-// the caller sees a refused launch.
+// sct_panel_matmul_schedule) launches its kernel (one launch, or for 6 one
+// per 32 columns) on the given stream, does not synchronize, allocates
+// nothing, and returns cudaGetLastError() so the caller sees a refused
+// launch.
 //
 // Batched forms (sct_*_batched). The JAX package's batched step runs each
 // Pallas kernel under vmap, which adds a leading grid axis over the
@@ -37,6 +37,7 @@
 // Card figures used below (H100 SXM data sheet): 3.35 TB/s HBM3,
 // 67 TFLOP/s float32 on the CUDA cores. N = 10240, d = 256 on the main path.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -44,6 +45,8 @@
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -1172,318 +1175,572 @@ bool rows_fit(int b, int n) {
 // Accumulation: every product of two float32 values is exact in float64;
 // each output is a float64 sum over each of S ranges of k, the S partial
 // sums are added in range order in float64, and the total is rounded to
-// float32 once (x is converted to float64 as it is staged). The orders are
-// fixed, so the result does not depend on the launch. No TF32, no
+// float32 once. The orders are fixed by the shape (no atomics), so the
+// result does not depend on the run or the launch. No TF32, no
 // --use_fast_math.
 // Bound: one read of a (m·k·4 bytes: 0.42 GB at N=10240 -> 0.125 ms at
-// 3.35 TB/s); its 2·m·k·c float64 operations (3.4 GFLOP at c=16 -> 0.05
-// ms on the card's float64 tensor cores, 67 TFLOP/s) cost less. Design: a
-// block takes kPanelBlockRows rows (64 a warp) and one of S ranges of k,
-// S chosen so that the grid holds about two blocks per SM. Per
-// kPanelTileK-deep slice the block stages x's rows (converted to float64,
-// shared by its 8 warps; x is read at its own strides, so the solver's
-// transposed panels need no copy) and each warp its 64 rows of a
-// (coalesced 64-byte row segments) in shared memory; each warp then runs
-// float64 tensor-core MMAs (m8n8k4: 8 rows by 8 columns by 4 of k, its A
-// fragment converted from the staged float32 values) over its 64 x C
-// output. The S float64 partials go to scratch, and a second kernel adds
-// them. A launch covers up to kPanelCols columns.
+// 3.35 TB/s). Its 2·m·k·c float64 operations (3.4 GFLOP at c=16 -> 0.05
+// ms at the float64 tensor-core peak, 67 TFLOP/s) cost less, but only if
+// the MMAs overlap the loads. Design:
+//  * a goes from device memory straight into registers, each lane four
+//    16-byte loads per 32-deep tile of its warp's 16 rows, kPanelStages
+//    tiles ahead of the MMAs: no shared memory and no barrier between a
+//    load of a and its use, and ~80 KB in flight per SM at two blocks.
+//  * sm_90's float64 MMA m16n8k8. Inside a 32-deep tile the order of k is
+//    permuted so that each lane's A fragments are its own loads: lane
+//    (g, t) holds columns 4t..4t+3 and 16+4t..16+4t+3 of rows g and g+8,
+//    and MMA s of the tile takes column 4t+s as its k index t and column
+//    16+4t+s as t+4. Each element of a is converted to float64 once. The
+//    sums cover the same products in another fixed order.
+//  * x is staged kPanelStages tiles at a time in shared memory, converted
+//    to float64 and laid out in that fragment order (one 16-byte shared
+//    load per lane per MMA), in two buffers: one barrier per chunk. x is
+//    read at its own strides, so the solver's transposed panels need no
+//    copy.
+//  * the k split: a thread-block cluster of S blocks (grid y), one range
+//    of k each. At the end each block puts its float64 partial sums in its
+//    own shared memory, and block r of the cluster adds the S partials of
+//    its share of the outputs in rank order through distributed shared
+//    memory, then rounds once. One launch, no scratch. S ≤ 8 is chosen so
+//    that the launch fills the card's resident blocks in whole waves; each
+//    block walks its range from its own starting tile, spread over the row
+//    blocks, so that the blocks that run at once read different columns.
+//  * up to 32 columns (four 8-column MMA groups) per launch.
+// A row pitch or base that is not 16-byte aligned (an odd-width operand)
+// takes the same kernel with 4-byte loads (VEC false).
 // ---------------------------------------------------------------------------
 
 constexpr int kPanelWarps = 8;
 constexpr int kPanelThreads = 32 * kPanelWarps;
-constexpr int kPanelWarpRows = 64;
+constexpr int kPanelWarpRows = 16;
 constexpr int kPanelBlockRows = kPanelWarps * kPanelWarpRows;
-constexpr int kPanelTileK = 16;
-constexpr int kPanelCols = 16;
+constexpr int kPanelTileK = 32;
+constexpr int kPanelStages = 3;
+constexpr int kPanelChunkK = kPanelStages * kPanelTileK;
+constexpr int kPanelCols = 32;
+constexpr int kPanelMaxSplit = 8;
 
-// The k ranges a (batch, m, k) product is cut into: about two blocks per
-// SM in all, each range a whole number of kPanelTileK slices.
-int panel_splits(int batch, int m, int k) {
-  const long long row_blocks = (long long)batch * cdiv(m, kPanelBlockRows);
-  const long long want = cdiv(2 * sm_count(), (int)std::min<long long>(
-      row_blocks, 1 << 30));
-  const int slices = cdiv(k, kPanelTileK);
-  const long long s = std::max<long long>(1, std::min<long long>(want,
-                                                                 slices));
-  const int per = cdiv(slices, (int)s);
-  return cdiv(slices, per);
+// x's chunk in fragment order, two buffers: [buffer][tile][MMA s][column
+// group][lane] = (b0, b1). 12 KB per column group; the block's float64
+// partial sums ((kPanelBlockRows, 8·NG), 8 KB per group) reuse it.
+template <int NG>
+struct PanelSmem {
+  double2 x[2][kPanelStages][4][NG][32];
+};
+
+// One warp's 32-deep tile of a: columns 4t.. and 16+4t.. (lo, hi) of rows
+// g (0) and g+8 (1).
+struct PanelTile {
+  float4 lo0, hi0, lo1, hi1;
+};
+
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void panel_load(PanelTile& p, const float* r0,
+                                           const float* r1, int k0, int k_hi,
+                                           int tig) {
+  const int c0 = k0 + 4 * tig;
+  const int c1 = c0 + 16;
+  if (VEC && k0 + kPanelTileK <= k_hi) {
+    p.lo0 = __ldcs(reinterpret_cast<const float4*>(r0 + c0));
+    p.hi0 = __ldcs(reinterpret_cast<const float4*>(r0 + c1));
+    p.lo1 = __ldcs(reinterpret_cast<const float4*>(r1 + c0));
+    p.hi1 = __ldcs(reinterpret_cast<const float4*>(r1 + c1));
+  } else {
+    // Past k_hi the tile is zero: x is zero there too, and 0·0 adds an
+    // exact zero.
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool in0 = c0 + i < k_hi, in1 = c1 + i < k_hi;
+      v[0][i] = in0 ? __ldcs(r0 + c0 + i) : 0.0f;
+      v[1][i] = in1 ? __ldcs(r0 + c1 + i) : 0.0f;
+      v[2][i] = in0 ? __ldcs(r1 + c0 + i) : 0.0f;
+      v[3][i] = in1 ? __ldcs(r1 + c1 + i) : 0.0f;
+    }
+    p.lo0 = make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+    p.hi0 = make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
+    p.lo1 = make_float4(v[2][0], v[2][1], v[2][2], v[2][3]);
+    p.hi1 = make_float4(v[3][0], v[3][1], v[3][2], v[3][3]);
+  }
+}
+
+// d += a b for a 16 x 8 x 8 float64 MMA; A fragment (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4), B (t, g), (t+4, g), D (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1) for lane 4g + t.
+__device__ __forceinline__ void mma_f64_16x8x8(double (&d)[4], double a0,
+                                               double a1, double a2,
+                                               double a3, double b0,
+                                               double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
 
 // a: the batch's matrices at stride_a, rows lda apart; x: (k, c_all)
 // float32 per matrix at stride_x, entry (i, j) at i·x_row + j·x_col,
-// columns [col0, col0 + C) used; partial: (splits, batch, m, c_all)
-// float64. Block (row block, split, matrix).
-template <int C>
-__global__ void __launch_bounds__(kPanelThreads)
+// columns [col0, col0 + 8·NG) used; y: (batch, m, c_all) float32. Block
+// (row block, split, matrix); the splits of a row block form a cluster.
+template <int NG, bool VEC>
+__global__ void __launch_bounds__(kPanelThreads, NG <= 2 ? 2 : 1)
 panel_matmul_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                    double* __restrict__ partial, int batch, int m, int k,
-                    long long lda, long long stride_a, long long x_row,
-                    long long x_col, long long stride_x, int c_all, int col0,
-                    int per) {
-  __shared__ float tile[kPanelWarps][kPanelWarpRows][kPanelTileK + 1];
-  __shared__ __align__(16) double xs[kPanelTileK][kPanelCols];
+                    float* __restrict__ y, int m, int k, long long lda,
+                    long long stride_a, long long x_row, long long x_col,
+                    long long stride_x, int c_all, int col0, int per_tiles) {
+  __shared__ PanelSmem<NG> smem;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int split = blockIdx.y;
-  const int z = blockIdx.z;
-  const int row0 = blockIdx.x * kPanelBlockRows + warp * kPanelWarpRows;
-  a += z * stride_a;
-  x += z * stride_x + col0 * x_col;
-  const int k_lo = min(k, split * per);
-  const int k_hi = min(k, k_lo + per);
-  // The warp's 64 x 16 output as float64 MMA tiles (m8n8k4): 8 row
-  // groups by kGroups column groups of 8, two values a lane each.
-  constexpr int kGroups = (C + 7) / 8;
-  double acc[kPanelWarpRows / 8][kGroups][2];
-#pragma unroll
-  for (int g = 0; g < kPanelWarpRows / 8; ++g) {
-#pragma unroll
-    for (int cg = 0; cg < kGroups; ++cg) acc[g][cg][0] = acc[g][cg][1] = 0.0;
-  }
-  // Lane l loads column l % 16 of rows l / 16, l / 16 + 2, ...: each load
-  // instruction reads two 64-byte row segments.
-  const int lcol = lane % kPanelTileK;
-  const int lrow = lane / kPanelTileK;
-  // The MMA fragments' lane roles: A row and B column (group), A column
-  // and B row (thread in group).
   const int group = lane >> 2;
   const int tig = lane & 3;
-  for (int k0 = k_lo; k0 < k_hi; k0 += kPanelTileK) {
-    const int kk = k0 + lcol;
-    const bool k_in = kk < k_hi;
-    float v[kPanelWarpRows / 2];
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int z = blockIdx.z;
+  const int c = min(8 * NG, c_all - col0);
+  a += z * stride_a;
+  x += z * stride_x + col0 * x_col;
+  // Rows past m repeat row m - 1; their sums are never written.
+  const int row0 = blockIdx.x * kPanelBlockRows + warp * kPanelWarpRows;
+  const float* r0 = a + (long long)min(row0 + group, m - 1) * lda;
+  const float* r1 = a + (long long)min(row0 + group + 8, m - 1) * lda;
+  const int k_lo = min(k, split * per_tiles * kPanelTileK);
+  const int k_hi = min(k, k_lo + per_tiles * kPanelTileK);
+  const int tiles = cdiv_device(k_hi - k_lo, kPanelTileK);
+  const int chunks = cdiv_device(tiles, kPanelStages);
+  // The block walks its range's tiles from its own starting tile, the row
+  // blocks' starts spread evenly over the range, so that the blocks that
+  // run at once read different columns of a and rows of x (at b=16,
+  // 13-17% faster at N=10240 and 20480 than one start for all;
+  // tools/panel_matmul_sweep.py).
+  const int rot =
+      tiles > 0 ? (int)((long long)(blockIdx.x + z * gridDim.x) * tiles /
+                        ((long long)gridDim.x * gridDim.z))
+                : 0;
+  auto tile_k0 = [&](int step) {
+    const int t = step + rot;
+    return k_lo + (t < tiles ? t : t - tiles) * kPanelTileK;
+  };
+
+  // x's chunk: kPanelChunkK x 8·NG values, kPanelThreads apart, k fastest.
+  constexpr int kXPer = kPanelChunkK * 8 * NG / kPanelThreads;
+  float xv[kXPer];
+  auto x_load = [&](int ch) {
 #pragma unroll
-    for (int i = 0; i < kPanelWarpRows / 2; ++i) {
-      const int row = row0 + 2 * i + lrow;
-      v[i] = (k_in && row < m) ? __ldcs(a + row * lda + kk) : 0.0f;
+    for (int i = 0; i < kXPer; ++i) {
+      const int e = threadIdx.x + i * kPanelThreads;
+      const int kk = e % kPanelChunkK, j = e / kPanelChunkK;
+      const int step = ch * kPanelStages + kk / kPanelTileK;
+      const int row = step < tiles ? tile_k0(step) + kk % kPanelTileK : k_hi;
+      xv[i] = (row < k_hi && j < c)
+                  ? __ldg(x + (long long)row * x_row + (long long)j * x_col)
+                  : 0.0f;
     }
-    if (threadIdx.x < kPanelTileK * kPanelCols) {
-      // x's rows k0.. in float64, zero past k_hi and past column C.
-      const int t = threadIdx.x % kPanelTileK;
-      const int c = threadIdx.x / kPanelTileK;
-      xs[t][c] = (k0 + t < k_hi && c < C)
-                     ? static_cast<double>(__ldg(x + (k0 + t) * x_row +
-                                                 c * x_col))
-                     : 0.0;
+  };
+  auto x_store = [&](int buf) {
+    double* base = reinterpret_cast<double*>(&smem.x[buf][0][0][0][0]);
+#pragma unroll
+    for (int i = 0; i < kXPer; ++i) {
+      const int e = threadIdx.x + i * kPanelThreads;
+      const int kk = e % kPanelChunkK, j = e / kPanelChunkK;
+      const int tile = kk / kPanelTileK, r = kk % kPanelTileK;
+      const int half = r >> 4, t = (r & 15) >> 2, s = r & 3;
+      const int n = j >> 3, g = j & 7;
+      base[(((tile * 4 + s) * NG + n) * 32 + g * 4 + t) * 2 + half] =
+          static_cast<double>(xv[i]);
     }
+  };
+
+  double acc[NG][4];
 #pragma unroll
-    for (int i = 0; i < kPanelWarpRows / 2; ++i) {
-      tile[warp][2 * i + lrow][lcol] = v[i];
-    }
-    __syncthreads();
+  for (int n = 0; n < NG; ++n) {
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
+  }
+  PanelTile pre[kPanelStages];
 #pragma unroll
-    for (int ks = 0; ks < kPanelTileK; ks += 4) {
-      double bf[kGroups];
+  for (int d = 0; d < kPanelStages; ++d) {
+    if (d < tiles) panel_load<VEC>(pre[d], r0, r1, tile_k0(d), k_hi, tig);
+  }
+  if (chunks > 0) {
+    x_load(0);
+    x_store(0);
+  }
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch & 1;
+    const bool next = ch + 1 < chunks;
+    if (next) x_load(ch + 1);
 #pragma unroll
-      for (int cg = 0; cg < kGroups; ++cg) bf[cg] = xs[ks + tig][cg * 8 + group];
+    for (int d = 0; d < kPanelStages; ++d) {
+      const int tile = ch * kPanelStages + d;
+      if (tile < tiles) {
+        const double2(&xs)[4][NG][32] = smem.x[buf][d];
 #pragma unroll
-      for (int g = 0; g < kPanelWarpRows / 8; ++g) {
-        const double af = static_cast<double>(tile[warp][g * 8 + group][ks + tig]);
+        for (int s = 0; s < 4; ++s) {
+          const double a0 = f4_at(pre[d].lo0, s), a1 = f4_at(pre[d].lo1, s);
+          const double a2 = f4_at(pre[d].hi0, s), a3 = f4_at(pre[d].hi1, s);
 #pragma unroll
-        for (int cg = 0; cg < kGroups; ++cg) {
-          asm volatile(
-              "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-              "{%0, %1}, {%2}, {%3}, {%0, %1};"
-              : "+d"(acc[g][cg][0]), "+d"(acc[g][cg][1])
-              : "d"(af), "d"(bf[cg]));
+          for (int n = 0; n < NG; ++n) {
+            const double2 bb = xs[s][n][lane];
+            mma_f64_16x8x8(acc[n], a0, a1, a2, a3, bb.x, bb.y);
+          }
+        }
+        if (tile + kPanelStages < tiles) {
+          panel_load<VEC>(pre[d], r0, r1, tile_k0(tile + kPanelStages), k_hi,
+                          tig);
         }
       }
     }
+    if (next) x_store(buf ^ 1);
     __syncthreads();
   }
-  double* out = partial + ((long long)split * batch + z) * m * c_all + col0;
+
+  // The block's partial sums, (kPanelBlockRows, 8·NG) float64, in the x
+  // buffers (free after the loop's last barrier).
+  constexpr int kW = 8 * NG;
+  double* part = reinterpret_cast<double*>(&smem);
+  const int prow = warp * kPanelWarpRows + group;
 #pragma unroll
-  for (int g = 0; g < kPanelWarpRows / 8; ++g) {
-    const int row = row0 + g * 8 + group;
-#pragma unroll
-    for (int cg = 0; cg < kGroups; ++cg) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int col = cg * 8 + 2 * tig + i;
-        if (row < m && col < C) {
-          out[(long long)row * c_all + col] = acc[g][cg][i];
-        }
+  for (int n = 0; n < NG; ++n) {
+    const int col = 8 * n + 2 * tig;
+    part[prow * kW + col] = acc[n][0];
+    part[prow * kW + col + 1] = acc[n][1];
+    part[(prow + 8) * kW + col] = acc[n][2];
+    part[(prow + 8) * kW + col + 1] = acc[n][3];
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // Block `split` (its rank in the cluster) adds its share of the outputs
+  // over the cluster's blocks in rank order, and rounds once.
+  constexpr int kTotal = kPanelBlockRows * kW;
+  const int share = cdiv_device(kTotal, splits);
+  const int e_hi = min(kTotal, (split + 1) * share);
+  for (int e = split * share + threadIdx.x; e < e_hi; e += kPanelThreads) {
+    const int r = e / kW, col = e % kW;
+    const int row = blockIdx.x * kPanelBlockRows + r;
+    if (row < m && col < c) {
+      double sum = 0.0;
+      for (int j = 0; j < splits; ++j) {
+        sum += cluster.map_shared_rank(part, j)[e];
       }
+      y[((long long)z * m + row) * c_all + col0 + col] =
+          static_cast<float>(sum);
     }
   }
+  // No block leaves while the others read its shared memory.
+  cluster.sync();
 }
 
-// y: the float32 rounding of the splits' partials added in split order.
-__global__ void panel_finish_kernel(const double* __restrict__ partial,
-                                    float* __restrict__ y, long long count,
-                                    int splits) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= count) return;
-  double s = 0.0;
-  for (int j = 0; j < splits; ++j) s += partial[j * count + e];
-  y[e] = static_cast<float>(s);
+cudaLaunchConfig_t panel_config(dim3 grid, cudaLaunchAttribute* attr,
+                                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kPanelThreads);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = grid.y;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-template <int C>
-void launch_panel_group(const float* a, const float* x, double* partial,
-                        int batch, int m, int k, long long lda,
-                        long long stride_a, long long x_row, long long x_col,
-                        long long stride_x, int c_all, int col0, int splits,
-                        int per, cudaStream_t stream) {
-  const dim3 grid(cdiv(m, kPanelBlockRows), splits, batch);
-  panel_matmul_kernel<C><<<grid, kPanelThreads, 0, stream>>>(
-      a, x, partial, batch, m, k, lda, stride_a, x_row, x_col, stride_x,
-      c_all, col0, per);
+// Blocks of the kernel resident on the card at once, asked once per
+// kernel (the card's SMs if the query fails).
+template <int NG, bool VEC>
+int panel_resident_blocks() {
+  static const int blocks = [] {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, panel_matmul_kernel<NG, VEC>, kPanelThreads, 0) !=
+            cudaSuccess ||
+        per_sm < 1) {
+      cudaGetLastError();
+      per_sm = 1;
+    }
+    return per_sm * sm_count();
+  }();
+  return blocks;
 }
 
-cudaError_t launch_panel_matmul(const float* a, const float* x,
-                                double* partial, float* y, int batch, int m,
-                                int k, long long lda, long long stride_a,
-                                int c_all, long long x_row, long long x_col,
-                                long long stride_x, cudaStream_t stream) {
+// The k split S of a launch of `blocks` row blocks over `tiles` 32-deep
+// tiles: the S ≤ kPanelMaxSplit (each range at least kPanelStages tiles)
+// whose launch fills the most of its last wave of resident blocks, a
+// larger S only where it fills 5% more. S = 3 and 6 are left out: at
+// N=10240 and 20480 and on a 5120-row stripe of 20480 they ran 1.05-1.56x
+// slower than the S chosen (tools/panel_matmul_sweep.py times every S).
+template <int NG, bool VEC>
+int panel_splits(long long blocks, int tiles) {
+  const long long slots = panel_resident_blocks<NG, VEC>();
+  int best = 1;
+  double best_fill = -1.0;
+  for (int s = 1; s <= kPanelMaxSplit; ++s) {
+    if (s > 1 && tiles < s * kPanelStages) break;
+    if (s % 3 == 0) continue;
+    const long long launched = blocks * s;
+    const long long waves = (launched + slots - 1) / slots;
+    const double fill = (double)launched / (double)(waves * slots);
+    if (fill > best_fill + 0.05) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+template <int NG, bool VEC>
+cudaError_t launch_panel_group(const float* a, const float* x, float* y,
+                               int batch, int m, int k, long long lda,
+                               long long stride_a, long long x_row,
+                               long long x_col, long long stride_x, int c_all,
+                               int col0, cudaStream_t stream,
+                               int* splits_out) {
+  const int row_blocks = cdiv(m, kPanelBlockRows);
+  const int tiles = cdiv(k, kPanelTileK);
+  const int splits = panel_splits<NG, VEC>((long long)row_blocks * batch,
+                                           tiles);
+  if (splits_out != nullptr) {
+    splits_out[0] = splits;
+    splits_out[1] = panel_resident_blocks<NG, VEC>();
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = panel_config(
+      dim3(row_blocks, splits, batch), &attr, stream);
+  return cudaLaunchKernelEx(&cfg, panel_matmul_kernel<NG, VEC>, a, x, y, m,
+                            k, lda, stride_a, x_row, x_col, stride_x, c_all,
+                            col0, cdiv(tiles, splits));
+}
+
+// One launch per kPanelCols columns; vec: a's rows start 16-byte aligned.
+// With splits_out set nothing is launched: the first launch's k split and
+// the card's resident blocks of its kernel are written there.
+cudaError_t launch_panel_matmul(const float* a, const float* x, float* y,
+                                int batch, int m, int k, long long lda,
+                                long long stride_a, int c_all,
+                                long long x_row, long long x_col,
+                                long long stride_x, bool vec,
+                                cudaStream_t stream,
+                                int* splits_out = nullptr) {
   if (batch < 1 || batch > kMaxGridYZ || m < 1 || k < 1 || c_all < 1 ||
       lda < k) {
     return cudaErrorInvalidValue;
   }
-  const int splits = panel_splits(batch, m, k);
-  const int per = cdiv(cdiv(k, kPanelTileK), splits) * kPanelTileK;
   for (int col0 = 0; col0 < c_all; col0 += kPanelCols) {
-    const int c = min(kPanelCols, c_all - col0);
-    switch (c) {
-#define SCT_PANEL_CASE(C)                                                   \
-  case C:                                                                   \
-    launch_panel_group<C>(a, x, partial, batch, m, k, lda, stride_a,       \
-                          x_row, x_col, stride_x, c_all, col0, splits,     \
-                          per, stream);                                    \
+    const int groups = cdiv(std::min(kPanelCols, c_all - col0), 8);
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (groups * 2 + (vec ? 1 : 0)) {
+#define SCT_PANEL_CASE(NG)                                                  \
+  case NG * 2:                                                              \
+    err = launch_panel_group<NG, false>(a, x, y, batch, m, k, lda,          \
+                                        stride_a, x_row, x_col, stride_x,   \
+                                        c_all, col0, stream, splits_out);   \
+    break;                                                                  \
+  case NG * 2 + 1:                                                          \
+    err = launch_panel_group<NG, true>(a, x, y, batch, m, k, lda,           \
+                                       stride_a, x_row, x_col, stride_x,    \
+                                       c_all, col0, stream, splits_out);    \
     break;
-      SCT_PANEL_CASE(1) SCT_PANEL_CASE(2) SCT_PANEL_CASE(3)
-      SCT_PANEL_CASE(4) SCT_PANEL_CASE(5) SCT_PANEL_CASE(6)
-      SCT_PANEL_CASE(7) SCT_PANEL_CASE(8) SCT_PANEL_CASE(9)
-      SCT_PANEL_CASE(10) SCT_PANEL_CASE(11) SCT_PANEL_CASE(12)
-      SCT_PANEL_CASE(13) SCT_PANEL_CASE(14) SCT_PANEL_CASE(15)
-      SCT_PANEL_CASE(16)
+      SCT_PANEL_CASE(1) SCT_PANEL_CASE(2) SCT_PANEL_CASE(3) SCT_PANEL_CASE(4)
 #undef SCT_PANEL_CASE
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || splits_out != nullptr) return err;
   }
-  const long long count = (long long)batch * m * c_all;
-  panel_finish_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
-      partial, y, count, splits);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// 7. One shifted CholeskyQR pass: q = y L⁻ᵀ, L Lᵀ = g + δ·I,
-//    δ = rel · max(diag g), for a (k, b) panel y and its Gram g.
+// 7. Shifted CholeskyQR passes: q = y L⁻ᵀ, L Lᵀ = g + δ·I,
+//    δ = rel · max(diag g), for a (k, b) panel y and its Gram g; the pair
+//    form computes the 1e-6 pass and its 1e-2 rescue in one launch.
 //
 // Replaces no Pallas kernel: the JAX package's cholqr2_shifted
 // (spectralcluster_tpu/ops/eigen.py:280-304) runs a Cholesky and a
-// triangular solve through XLA. The pass leaves q short of orthonormal by
-// δ·(g + δI)⁻¹, about 1e-6, which is where the subspace solver's residual
-// test stops (1e-6), so the rounding of L's diagonal and of the solve
-// decides whether the certified route of ops/dc.py stops before its
-// iteration cap. This kernel rounds as LAPACK's unblocked float32 routines
-// do: each entry of L one fmaf chain in k order and one correctly rounded
-// division or square root (spotf2), and each row of q solved forward the
-// same way (strsm); cuSOLVER's and cuBLAS's float32 routines round
-// otherwise. IEEE float32 only, no --use_fast_math.
-// Bound: one read of y and one write of q (2·k·b·4 bytes: 2.6 MB at
-// N=20480, b=16 -> 0.8 µs); the (b, b) Cholesky is sequential. Design: the
-// first warp of every block factors g + δI in shared memory (column by
-// column, lanes over the rows below the diagonal), then each thread solves
-// one row of y, its b values in registers, and writes q transposed ((b, k)
-// row-major), so a warp's stores of one column are coalesced. The failed
-// column (1-based, 0 when none), as LAPACK's info, goes to `info`.
+// triangular solve through XLA, at the 1e-6 shift and at the 1e-2 one, and
+// takes the second where the first failed or left a non-finite value. The
+// pass leaves q short of orthonormal by δ·(g + δI)⁻¹, about 1e-6, which is
+// where the subspace solver's residual test stops (1e-6), so the rounding
+// of L's diagonal and of the solve decides whether the certified route of
+// ops/dc.py stops before its iteration cap. This kernel rounds as LAPACK's
+// unblocked float32 routines do: each entry of L one fmaf chain in k order
+// and one correctly rounded division or square root (spotf2), and each row
+// of q solved forward the same way (strsm); cuSOLVER's and cuBLAS's float32
+// routines round otherwise. IEEE float32 only, no --use_fast_math.
+// Bound: one read of y and one write of each q (3·k·b·4 bytes for the
+// pair: 3.9 MB at N=20480, b=16 -> 1.2 µs); the (b, b) Choleskys are
+// sequential. Design: in every block warp 0 factors g + δI and, in the
+// pair form, warp 1 g + δ'I, in shared memory (column by column, lanes
+// over the rows below the diagonal); then each thread reads one row of y
+// once into registers, solves it against each factor and writes each q
+// transposed ((b, k) row-major), so a warp's stores of one column are
+// coalesced. The failed column of the first factor (1-based, 0 when none),
+// as LAPACK's info, goes to `info`. The pair form also writes `bad`: 1
+// where the first pass failed or left a non-finite value in the panel. Its
+// blocks OR their rows' finiteness into a word of `ticket` (an integer OR:
+// no order); the last block of the panel to count itself in (an integer
+// counter in the same workspace) writes `bad` and resets both words, so
+// the workspace is zero between launches and nothing is filled per call.
+// Launches on one workspace must run in stream order.
 // ---------------------------------------------------------------------------
 
 constexpr int kQrThreads = 256;
 
+// Warp 0's lanes of a block factor g + δI into l, δ = rel·max(diag g)
+// (spotf2's rounding); failed is the failed column, 1-based, 0 if none.
 template <int BMAX>
-__global__ void __launch_bounds__(kQrThreads)
-cholqr_pass_kernel(const float* __restrict__ y, const float* __restrict__ g,
-                   float* __restrict__ qt, int* __restrict__ info, int k,
-                   int b, long long y_batch, long long y_row, long long y_col,
-                   float delta_rel) {
-  __shared__ float l[BMAX][BMAX + 1];
-  __shared__ int failed;
-  const int z = blockIdx.y;
-  y += (long long)z * y_batch;
-  g += (long long)z * b * b;
-  qt += (long long)z * b * k;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float gmax = 0.0f;
-    for (int j = 0; j < b; ++j) gmax = fmaxf(gmax, g[j * b + j]);
-    const float delta = delta_rel * fmaxf(gmax, 1e-30f);
+__device__ void cholqr_factor(float (&l)[BMAX][BMAX + 1], int& failed,
+                              const float* __restrict__ g, int b,
+                              float delta_rel, int lane) {
+  float gmax = 0.0f;
+  for (int j = 0; j < b; ++j) gmax = fmaxf(gmax, g[j * b + j]);
+  const float delta = delta_rel * fmaxf(gmax, 1e-30f);
+  for (int e = lane; e < b * b; e += 32) {
+    const int i = e / b, j = e % b;
+    if (i >= j) l[i][j] = g[i * b + j] + (i == j ? delta : 0.0f);
+  }
+  if (lane == 0) failed = 0;
+  __syncwarp();
+  for (int j = 0; j < b; ++j) {
+    if (lane == 0 && failed == 0) {
+      float s = l[j][j];
+      for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], l[j][c], s);
+      if (!(s > 0.0f)) {
+        failed = j + 1;
+        l[j][j] = s;
+      } else {
+        l[j][j] = sqrtf(s);
+      }
+    }
+    __syncwarp();
+    if (failed) break;
+    for (int i = j + 1 + lane; i < b; i += 32) {
+      float s = l[i][j];
+      for (int c = 0; c < j; ++c) s = fmaf(-l[i][c], l[j][c], s);
+      l[i][j] = s / l[j][j];
+    }
+    __syncwarp();
+  }
+  if (failed) {
+    // Past the failed column L is undefined, as LAPACK leaves it: NaN,
+    // so every row of q is NaN and the caller's finiteness check sees it.
     for (int e = lane; e < b * b; e += 32) {
       const int i = e / b, j = e % b;
-      if (i >= j) l[i][j] = g[i * b + j] + (i == j ? delta : 0.0f);
+      if (i >= j && j + 1 >= failed) l[i][j] = __int_as_float(0x7fc00000);
     }
-    if (lane == 0) failed = 0;
-    __syncwarp();
-    for (int j = 0; j < b; ++j) {
-      if (lane == 0 && failed == 0) {
-        float s = l[j][j];
-        for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], l[j][c], s);
-        if (!(s > 0.0f)) {
-          failed = j + 1;
-          l[j][j] = s;
-        } else {
-          l[j][j] = sqrtf(s);
-        }
-      }
-      __syncwarp();
-      if (failed) break;
-      for (int i = j + 1 + lane; i < b; i += 32) {
-        float s = l[i][j];
-        for (int c = 0; c < j; ++c) s = fmaf(-l[i][c], l[j][c], s);
-        l[i][j] = s / l[j][j];
-      }
-      __syncwarp();
-    }
-    if (failed) {
-      // Past the failed column L is undefined, as LAPACK leaves it: NaN,
-      // so every row of q is NaN and the caller's finiteness check sees it.
-      for (int e = lane; e < b * b; e += 32) {
-        const int i = e / b, j = e % b;
-        if (i >= j && j + 1 >= failed) l[i][j] = __int_as_float(0x7fc00000);
-      }
-    }
-    if (blockIdx.x == 0 && lane == 0) info[z] = failed;
   }
-  __syncthreads();
-  const int row = blockIdx.x * kQrThreads + threadIdx.x;
-  if (row >= k) return;
-  const float* yr = y + (long long)row * y_row;
-  float x[BMAX];
+  __syncwarp();
+}
+
+// The forward solve of one row, y L⁻ᵀ, in strsm's order.
+template <int BMAX>
+__device__ __forceinline__ void cholqr_solve(const float (&l)[BMAX][BMAX + 1],
+                                             const float (&yv)[BMAX],
+                                             float (&xo)[BMAX], int b) {
 #pragma unroll
   for (int j = 0; j < BMAX; ++j) {
     if (j < b) {
-      float s = yr[j * y_col];
+      float s = yv[j];
 #pragma unroll
-      for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], x[c], s);
-      x[j] = s / l[j][j];
-      qt[(long long)j * k + row] = x[j];
+      for (int c = 0; c < j; ++c) s = fmaf(-l[j][c], xo[c], s);
+      xo[j] = s / l[j][j];
     }
   }
 }
 
+// qt: the first pass's q of each panel ((b, k), batch of them), then in
+// the pair form the rescue's.
+template <int BMAX, bool kPair>
+__global__ void __launch_bounds__(kQrThreads)
+cholqr_pass_kernel(const float* __restrict__ y, const float* __restrict__ g,
+                   float* __restrict__ qt, int* __restrict__ info,
+                   unsigned char* __restrict__ bad,
+                   unsigned* __restrict__ ticket, int batch, int k, int b,
+                   long long y_batch, long long y_row, long long y_col,
+                   float delta_rel, float rescue_rel) {
+  __shared__ float l[kPair ? 2 : 1][BMAX][BMAX + 1];
+  __shared__ int failed[2];
+  const int z = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  y += (long long)z * y_batch;
+  g += (long long)z * b * b;
+  if (warp == 0) {
+    cholqr_factor<BMAX>(l[0], failed[0], g, b, delta_rel, lane);
+    if (blockIdx.x == 0 && lane == 0) info[z] = failed[0];
+  } else if (kPair && warp == 1) {
+    cholqr_factor<BMAX>(l[kPair ? 1 : 0], failed[1], g, b, rescue_rel, lane);
+  }
+  __syncthreads();
+  const int row = blockIdx.x * kQrThreads + threadIdx.x;
+  bool nonfinite = false;
+  if (row < k) {
+    const float* yr = y + (long long)row * y_row;
+    float yv[BMAX], xo[BMAX];
+#pragma unroll
+    for (int j = 0; j < BMAX; ++j) {
+      if (j < b) yv[j] = yr[j * y_col];
+    }
+    float* q = qt + (long long)z * b * k + row;
+    cholqr_solve<BMAX>(l[0], yv, xo, b);
+#pragma unroll
+    for (int j = 0; j < BMAX; ++j) {
+      if (j < b) {
+        q[(long long)j * k] = xo[j];
+        nonfinite |= !isfinite(xo[j]);
+      }
+    }
+    if (kPair) {
+      q += (long long)batch * b * k;
+      cholqr_solve<BMAX>(l[kPair ? 1 : 0], yv, xo, b);
+#pragma unroll
+      for (int j = 0; j < BMAX; ++j) {
+        if (j < b) q[(long long)j * k] = xo[j];
+      }
+    }
+  }
+  if (kPair) {
+    const int any = __syncthreads_or(nonfinite);
+    if (threadIdx.x == 0) {
+      unsigned* count = ticket + 2 * z;
+      unsigned* seen = count + 1;
+      if (any) atomicOr(seen, 1u);
+      __threadfence();
+      if (atomicAdd(count, 1u) == gridDim.x - 1) {
+        const unsigned found = atomicExch(seen, 0u);
+        atomicExch(count, 0u);
+        bad[z] = (found != 0u || failed[0] != 0) ? 1 : 0;
+      }
+    }
+  }
+}
+
+template <bool kPair>
 cudaError_t launch_cholqr_pass(const float* y, const float* g, float* qt,
-                               int* info, int batch, int k, int b,
+                               int* info, unsigned char* bad,
+                               unsigned* ticket, int batch, int k, int b,
                                long long y_batch, long long y_row,
                                long long y_col, float delta_rel,
-                               cudaStream_t stream) {
-  if (batch < 1 || batch > kMaxGridYZ || k < 1 || b < 1 || b > 64) {
+                               float rescue_rel, cudaStream_t stream) {
+  if (batch < 1 || batch > kMaxGridYZ || k < 1 || b < 1 || b > 64 ||
+      (kPair && (bad == nullptr || ticket == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(cdiv(k, kQrThreads), batch);
+#define SCT_QR_LAUNCH(BMAX)                                                 \
+  cholqr_pass_kernel<BMAX, kPair><<<grid, kQrThreads, 0, stream>>>(         \
+      y, g, qt, info, bad, ticket, batch, k, b, y_batch, y_row, y_col,      \
+      delta_rel, rescue_rel)
   if (b <= 16) {
-    cholqr_pass_kernel<16><<<grid, kQrThreads, 0, stream>>>(
-        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+    SCT_QR_LAUNCH(16);
   } else if (b <= 32) {
-    cholqr_pass_kernel<32><<<grid, kQrThreads, 0, stream>>>(
-        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+    SCT_QR_LAUNCH(32);
   } else {
-    cholqr_pass_kernel<64><<<grid, kQrThreads, 0, stream>>>(
-        y, g, qt, info, k, b, y_batch, y_row, y_col, delta_rel);
+    SCT_QR_LAUNCH(64);
   }
+#undef SCT_QR_LAUNCH
   return cudaGetLastError();
 }
 
@@ -1624,24 +1881,33 @@ int sct_row_wise_normalize_batched(const float* a, float* out, int b, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The k ranges sct_panel_matmul cuts a (batch, m, k) product into: the
-// wrapper allocates splits x batch x m x c float64 of scratch for them.
-int sct_panel_matmul_splits(int batch, int m, int k) {
-  return (batch < 1 || m < 1 || k < 1) ? 0 : panel_splits(batch, m, k);
-}
-
 // a: batch matrices of (m, k) float32 at stride_a, rows lda apart; x: batch
 // panels of (k, c) float32 at stride_x, entry (i, j) at i·x_row + j·x_col;
-// partial: scratch of sct_panel_matmul_splits(batch, m, k) x batch x m x c
-// float64; y: batch matrices of (m, c) float32, contiguous. One launch per
-// 16 columns, then one that adds the partials.
-int sct_panel_matmul(const float* a, const float* x, double* partial,
-                     float* y, int batch, int m, int k, long long lda,
-                     long long stride_a, int c, long long x_row,
-                     long long x_col, long long stride_x, void* stream) {
+// y: batch matrices of (m, c) float32, contiguous. One launch per 32
+// columns.
+int sct_panel_matmul(const float* a, const float* x, float* y, int batch,
+                     int m, int k, long long lda, long long stride_a, int c,
+                     long long x_row, long long x_col, long long stride_x,
+                     void* stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 4 == 0 &&
+                   (batch == 1 || stride_a % 4 == 0);
   return static_cast<int>(launch_panel_matmul(
-      a, x, partial, y, batch, m, k, lda, stride_a, c, x_row, x_col,
-      stride_x, static_cast<cudaStream_t>(stream)));
+      a, x, y, batch, m, k, lda, stride_a, c, x_row, x_col, stride_x, vec,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The k split (the cluster size) that sct_panel_matmul takes for a
+// (batch, m, k) product by c <= 32 columns, 16-byte aligned rows or not,
+// and the card's resident blocks of that kernel, for reports.
+int sct_panel_matmul_schedule(int batch, int m, int k, int c, int vec,
+                              int* splits, int* resident) {
+  int out[2] = {0, 0};
+  const cudaError_t err = launch_panel_matmul(
+      nullptr, nullptr, nullptr, batch, m, k, k, (long long)m * k, c, c, 1,
+      0, vec != 0, nullptr, out);
+  *splits = out[0];
+  *resident = out[1];
+  return static_cast<int>(err);
 }
 
 // y: batch panels of (k, b), entry (i, j) of panel z at z·y_batch + i·y_row
@@ -1652,9 +1918,24 @@ int sct_cholqr_pass(const float* y, const float* g, float* qt, int* info,
                     int batch, int k, int b, long long y_batch,
                     long long y_row, long long y_col, float delta_rel,
                     void* stream) {
-  return static_cast<int>(launch_cholqr_pass(
-      y, g, qt, info, batch, k, b, y_batch, y_row, y_col, delta_rel,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_cholqr_pass<false>(
+      y, g, qt, info, nullptr, nullptr, batch, k, b, y_batch, y_row, y_col,
+      delta_rel, 0.0f, static_cast<cudaStream_t>(stream)));
+}
+
+// The pass at delta_rel and at rescue_rel in one launch, from one read of
+// y: qt holds 2·batch matrices of (b, k), the first pass's then the
+// rescue's; info the first pass's failed column; bad (batch bytes) 1 where
+// the first pass failed or left a non-finite value; ticket: 2·batch
+// uint32, zero before the launch and zero after it. b ≤ 64.
+int sct_cholqr_pass_pair(const float* y, const float* g, float* qt,
+                         int* info, unsigned char* bad, unsigned* ticket,
+                         int batch, int k, int b, long long y_batch,
+                         long long y_row, long long y_col, float delta_rel,
+                         float rescue_rel, void* stream) {
+  return static_cast<int>(launch_cholqr_pass<true>(
+      y, g, qt, info, bad, ticket, batch, k, b, y_batch, y_row, y_col,
+      delta_rel, rescue_rel, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -45,10 +45,11 @@ _SIGNATURES = {
                                          _P),
     "sct_row_wise_normalize": (_P, _P, _I, _I, _I, _P),
     "sct_row_wise_normalize_batched": (_P, _P, _I, _I, _P, _I, _P),
-    "sct_panel_matmul": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _L, _L,
-                         _P),
-    "sct_panel_matmul_splits": (_I, _I, _I),
+    "sct_panel_matmul": (_P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _L, _L, _P),
+    "sct_panel_matmul_schedule": (_I, _I, _I, _I, _I, _P, _P),
     "sct_cholqr_pass": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _F, _P),
+    "sct_cholqr_pass_pair": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                             _F, _F, _P),
     "sct_resident_blocks": (_I, _P),
     "sct_affinity_batched_schedule": (_I, _I, _P, _P, _P),
 }
@@ -105,12 +106,25 @@ def build(sources: typing.Sequence[str] = SOURCES) -> str:
   return path
 
 
+def kernel_key(mangled: str) -> str:
+  """A kernel's unmangled name with its bool and int template arguments:
+  ..._14row_max_kernelILb1ELb0EEEv... -> row_max_kernel<true,false>,
+  ..._19panel_matmul_kernelILi2ELb1EEEv... -> panel_matmul_kernel<2,true>;
+  the mangled name where it has other arguments."""
+  name = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[bi]\d+E)+)E)?E", mangled)
+  if not name:
+    return mangled
+  args = re.findall(r"L([bi])(\d+)E", name.group(2) or "")
+  return name.group(1) + ("<" + ",".join(
+      ("true" if v == "1" else "false") if t == "b" else v
+      for t, v in args) + ">" if args else "")
+
+
 def ptxas_report(lib_path: str) -> typing.Dict[str, typing.Dict[str, int]]:
   """Registers, static shared memory and spill bytes per kernel.
 
   Read from the ``-Xptxas -v`` lines that ``build`` keeps in
-  ``<library>.log``; kernels are keyed by their unmangled names, bool
-  template arguments included (``row_max_kernel<true,false>``).
+  ``<library>.log``; kernels are keyed by ``kernel_key``.
   """
   report: typing.Dict[str, typing.Dict[str, int]] = {}
   current = None
@@ -119,17 +133,7 @@ def ptxas_report(lib_path: str) -> typing.Dict[str, typing.Dict[str, int]]:
       entry = re.search(r"(?:entry function '|properties for )(\S+?)'?$",
                         line.strip())
       if entry:
-        # e.g. ..._14row_max_kernelILb1ELb0EEEv... ->
-        # row_max_kernel<true,false>
-        name = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?E",
-                         entry.group(1))
-        key = entry.group(1)
-        if name:
-          flags = re.findall(r"Lb([01])E", name.group(2) or "")
-          key = name.group(1) + (
-              "<" + ",".join("true" if f == "1" else "false" for f in flags)
-              + ">" if flags else "")
-        current = report.setdefault(key, {})
+        current = report.setdefault(kernel_key(entry.group(1)), {})
         continue
       if current is None:
         continue

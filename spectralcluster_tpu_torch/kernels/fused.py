@@ -23,7 +23,9 @@ product and its orthonormalization, which the JAX package leaves to XLA:
     float64 sum of exact products rounded once to float32;
   * ``cholqr_pass`` — one shifted CholeskyQR pass of a panel given its
     Gram: the (b, b) Cholesky of the shifted Gram and the triangular solve
-    of every row, rounded as LAPACK's float32 routines round.
+    of every row, rounded as LAPACK's float32 routines round;
+    ``cholqr_pass_pair`` the pass at two shifts in one launch, with a flag
+    per panel for whether the first failed (what CholeskyQR2 runs).
 
 On the card cuBLAS's and cuSOLVER's float32 routines for these shapes
 round so that the certified top-k route of ``ops/dc.py`` did not stop
@@ -46,7 +48,7 @@ wrapper takes the twin only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises, and never falls back. Each wrapper carries a
 plain integer ``launches`` that it increments where it launches its kernel
 and nowhere else, by the number of kernels launched (``panel_matmul``
-launches more than one per call; ``reset_launch_counts`` /
+launches one per 32 columns of its panel; ``reset_launch_counts`` /
 ``launch_counts``).
 """
 
@@ -129,11 +131,18 @@ def _vec(mat: torch.Tensor) -> int:
   return int(mat.shape[1] % 4 == 0 and mat.data_ptr() % 16 == 0)
 
 
+# The library's entry points, looked up once: the solver's kernels run
+# for a few microseconds, so the host's work per call counts.
+_ENTRIES: typing.Dict[str, typing.Any] = {}
+
+
 def _launch(fn_name: str, *args):
-  lib = _lib()
-  rc = getattr(lib, fn_name)(*args)
+  fn = _ENTRIES.get(fn_name)
+  if fn is None:
+    fn = _ENTRIES.setdefault(fn_name, getattr(_lib(), fn_name))
+  rc = fn(*args)
   if rc != 0:
-    msg = lib.sct_error_string(rc).decode()
+    msg = _lib().sct_error_string(rc).decode()
     raise RuntimeError(f"{fn_name}: CUDA error {rc}: {msg}")
 
 
@@ -228,6 +237,19 @@ def cholqr_pass_plain(y: torch.Tensor, gram: torch.Tensor,
   return q.transpose(-1, -2), info
 
 
+def cholqr_pass_pair_plain(
+    y: torch.Tensor, gram: torch.Tensor, delta_rel: float, rescue_rel: float
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The pass at ``delta_rel`` and at ``rescue_rel`` (two
+  ``cholqr_pass_plain`` calls): (q, q_rescue, info, bad), ``info`` the
+  first pass's and ``bad`` True for a panel whose first pass failed or
+  left a non-finite value ((B,) for a batch)."""
+  q, info = cholqr_pass_plain(y, gram, delta_rel)
+  q_rescue, _ = cholqr_pass_plain(y, gram, rescue_rel)
+  bad = (info != 0) | ~torch.all(torch.isfinite(q), dim=(-2, -1))
+  return q, q_rescue, info, bad
+
+
 def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   """Every entry divided by its row's max over columns < n_valid.
 
@@ -250,7 +272,7 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
 AFFINITY_TILE = 128
 AFFINITY_DEPTH = 16
 # The columns of one panel_matmul launch (kPanelCols in csrc/fused.cu).
-PANEL_COLS = 16
+PANEL_COLS = 32
 
 
 def affinity_operand(xn: torch.Tensor) -> torch.Tensor:
@@ -483,8 +505,7 @@ def panel_matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   of a larger matrix included), the panel in place at its own strides.
   Each output is the float64 sum of exact products, rounded once, so it
   lies within the float32 bound of the twin's sum. One launch per
-  ``PANEL_COLS`` columns of the panel and one that adds the k ranges'
-  float64 partials (scratch the wrapper allocates), each counted.
+  ``PANEL_COLS`` columns of the panel, each counted; no scratch.
   """
   if _is_cpu(mat):
     return panel_matmul_plain(mat, x)
@@ -510,15 +531,35 @@ def panel_matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   out = mat.new_empty(mat.shape[:-1] + (b,))
   if not (batch and m and k and b):
     return out.zero_()
-  partial = mat.new_empty(
-      (_lib().sct_panel_matmul_splits(batch, m, k), batch, m, b),
-      dtype=torch.float64)
-  _launch("sct_panel_matmul", mat.data_ptr(), x.data_ptr(),
-          partial.data_ptr(), out.data_ptr(), batch, m, k, lda, stride_a, b,
-          x.stride(-2), x.stride(-1), x.stride(0) if x.dim() == 3 else 0,
-          _stream(mat))
-  panel_matmul.launches += -(-b // PANEL_COLS) + 1
+  _launch("sct_panel_matmul", mat.data_ptr(), x.data_ptr(), out.data_ptr(),
+          batch, m, k, lda, stride_a, b, x.stride(-2), x.stride(-1),
+          x.stride(0) if x.dim() == 3 else 0, _stream(mat))
+  panel_matmul.launches += -(-b // PANEL_COLS)
   return out
+
+
+def _cholqr_args(name: str, y: torch.Tensor,
+                 gram: torch.Tensor) -> typing.Tuple[int, int, int]:
+  """(batch, N, b) of a CholeskyQR pass's panel and Gram on the card, or
+  raises on what the kernel does not take."""
+  if y.dim() not in (2, 3) or gram.dim() != y.dim():
+    raise ValueError(f"{name}: expected (N, b) and (b, b) or (B, N, b) "
+                     f"and (B, b, b), got {tuple(y.shape)}, "
+                     f"{tuple(gram.shape)}")
+  batch = y.shape[0] if y.dim() == 3 else 1
+  k, b = y.shape[-2:]
+  if tuple(gram.shape[-2:]) != (b, b) or (y.dim() == 3
+                                          and gram.shape[0] != batch):
+    raise ValueError(f"{name}: Gram {tuple(gram.shape)} for a panel "
+                     f"{tuple(y.shape)}")
+  if b > 64:
+    raise ValueError(f"{name}: at most 64 columns, got {b}")
+  for what, t in (("panel", y), ("Gram", gram)):
+    if t.dtype != torch.float32:
+      raise TypeError(f"{name} {what}: expected float32, got {t.dtype}")
+  if gram.device != y.device:
+    raise ValueError(f"{name}: Gram on {gram.device}, panel on {y.device}")
+  return batch, k, b
 
 
 def cholqr_pass(y: torch.Tensor, gram: torch.Tensor,
@@ -532,40 +573,72 @@ def cholqr_pass(y: torch.Tensor, gram: torch.Tensor,
   """
   if _is_cpu(y):
     return cholqr_pass_plain(y, gram, delta_rel)
-  if y.dim() not in (2, 3) or gram.dim() != y.dim():
-    raise ValueError("cholqr_pass: expected (N, b) and (b, b) or (B, N, b) "
-                     f"and (B, b, b), got {tuple(y.shape)}, "
-                     f"{tuple(gram.shape)}")
-  batch = y.shape[0] if y.dim() == 3 else 1
-  k, b = y.shape[-2:]
-  if tuple(gram.shape[-2:]) != (b, b) or (y.dim() == 3
-                                          and gram.shape[0] != batch):
-    raise ValueError(f"cholqr_pass: Gram {tuple(gram.shape)} for a panel "
-                     f"{tuple(y.shape)}")
-  if b > 64:
-    raise ValueError(f"cholqr_pass: at most 64 columns, got {b}")
-  for name, t in (("panel", y), ("Gram", gram)):
-    if t.dtype != torch.float32:
-      raise TypeError(f"cholqr_pass {name}: expected float32, got {t.dtype}")
-  if gram.device != y.device:
-    raise ValueError(f"cholqr_pass: Gram on {gram.device}, panel on "
-                     f"{y.device}")
+  batch, k, b = _cholqr_args("cholqr_pass", y, gram)
   gram = gram.contiguous()
   qt = y.new_empty(y.shape[:-2] + (b, k))
-  info = torch.zeros(y.shape[:-2], dtype=torch.int32, device=y.device)
+  info = torch.empty(y.shape[:-2], dtype=torch.int32, device=y.device)
   if batch and k and b:
     _launch("sct_cholqr_pass", y.data_ptr(), gram.data_ptr(), qt.data_ptr(),
             info.data_ptr(), batch, k, b,
             y.stride(0) if y.dim() == 3 else 0, y.stride(-2), y.stride(-1),
             float(delta_rel), _stream(y))
     cholqr_pass.launches += 1
+  else:
+    info.zero_()
   return qt.transpose(-1, -2), info
+
+
+# The pair's workspace on each card: 2 uint32 per panel (a counter and an
+# OR) for the largest batch a launch takes (the grid's 65535), zero at rest:
+# every launch leaves it as it found it.
+_QR_TICKETS: typing.Dict[int, torch.Tensor] = {}
+
+
+def _qr_tickets(device: torch.device) -> torch.Tensor:
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  tickets = _QR_TICKETS.get(index)
+  if tickets is None:
+    tickets = _QR_TICKETS.setdefault(index, torch.zeros(
+        2 * 65535, dtype=torch.int32, device=device))
+  return tickets
+
+
+def cholqr_pass_pair(
+    y: torch.Tensor, gram: torch.Tensor, delta_rel: float, rescue_rel: float
+) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The pass at ``delta_rel`` and at ``rescue_rel`` in one launch (see the
+  twin): (q, q_rescue, info, bad), each q as ``cholqr_pass`` returns it,
+  each equal bit for bit to that pass alone; ``info`` the first pass's
+  (int32) and ``bad`` (bool) True for a panel whose first pass failed or
+  left a non-finite value. The panel is read once, in place. b ≤ 64.
+  """
+  if _is_cpu(y):
+    return cholqr_pass_pair_plain(y, gram, delta_rel, rescue_rel)
+  batch, k, b = _cholqr_args("cholqr_pass_pair", y, gram)
+  gram = gram.contiguous()
+  lead = y.shape[:-2]
+  qt = y.new_empty((2,) + lead + (b, k))
+  info = torch.empty(lead, dtype=torch.int32, device=y.device)
+  bad = torch.empty(lead, dtype=torch.bool, device=y.device)
+  if batch and k and b:
+    _launch("sct_cholqr_pass_pair", y.data_ptr(), gram.data_ptr(),
+            qt.data_ptr(), info.data_ptr(), bad.data_ptr(),
+            _qr_tickets(y.device).data_ptr(), batch, k, b,
+            y.stride(0) if y.dim() == 3 else 0, y.stride(-2), y.stride(-1),
+            float(delta_rel), float(rescue_rel), _stream(y))
+    cholqr_pass_pair.launches += 1
+  else:
+    info.zero_()
+    bad.zero_()
+  return qt[0].transpose(-1, -2), qt[1].transpose(-1, -2), info, bad
 
 
 WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
             row_wise_normalize, affinity_batched, row_max_batched,
             crop_diagonal_batched, threshold_symmetrize_general_batched,
-            row_wise_normalize_batched, panel_matmul, cholqr_pass)
+            row_wise_normalize_batched, panel_matmul, cholqr_pass,
+            cholqr_pass_pair)
 
 
 def reset_launch_counts():

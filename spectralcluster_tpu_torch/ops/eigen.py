@@ -293,16 +293,14 @@ def cholqr2_shifted(y: torch.Tensor) -> torch.Tensor:
   raising; both passes are computed and selected on the device, so no host
   sync is needed. A (B, N, b) stack of panels is orthonormalized panel by
   panel: each one's rescue is decided by its own ``info`` and values, as
-  under JAX's vmap. The Gram is ``panel_gram`` and each pass
-  ``kernels.fused.cholqr_pass``: its twin on the CPU, the kernel on the
-  card.
+  under JAX's vmap. The Gram is ``panel_gram`` and both shifts of a pass
+  are ``kernels.fused.cholqr_pass_pair``, with the rescue's flag: its twin
+  on the CPU, one launch on the card.
   """
   for _ in range(2):
     gram = panel_gram(y, y)
-    y1, info = fused.cholqr_pass(y, gram, 1e-6)
-    ok = (info == 0) & torch.all(torch.isfinite(y1), dim=(-2, -1))
-    y2, _ = fused.cholqr_pass(y, gram, 1e-2)
-    y = torch.where(ok[..., None, None], y1, y2)
+    y1, y2, _, bad = fused.cholqr_pass_pair(y, gram, 1e-6, 1e-2)
+    y = torch.where(bad[..., None, None], y2, y1)
   return y
 
 
@@ -380,8 +378,8 @@ def topk_eigh_subspace(
 
   Every (N, N) by (N, b) product is ``kernels.fused.panel_matmul`` and
   every Gram of two panels ``panel_gram`` (CholeskyQR2's passes are
-  ``kernels.fused.cholqr_pass``): on the CPU the kernels' twins and the
-  float32 Gram, on the card the hand-written kernels and the float64
+  ``kernels.fused.cholqr_pass_pair``): on the CPU the kernels' twins and
+  the float32 Gram, on the card the hand-written kernels and the float64
   Gram.
 
   A (B, N, N) batch (``shift`` then None or (B,)) is JAX's vmap of this
@@ -464,23 +462,18 @@ def topk_eigh_subspace(
 
 def _cholqr2_sharded(group, ys):
   """``cholqr2_shifted`` on a panel split by rows over ``group``: the
-  (b, b) Gram is all-reduced, and each shard factors it (the same factor
-  on every shard) and solves its own rows (``kernels.fused.cholqr_pass``).
-  The 1e-2 rescue is taken when any shard's rows of the 1e-6 pass are not
+  (b, b) Gram is all-reduced, and each shard factors it at both shifts
+  (the same factors on every shard) and solves its own rows
+  (``kernels.fused.cholqr_pass_pair``). The 1e-2 rescue is taken when the
+  1e-6 factorization failed or any shard's rows of its pass are not
   finite."""
-
-  def one_pass(ys, gram, delta_rel):
-    out = [fused.cholqr_pass(y, gram.to(y.device), delta_rel) for y in ys]
-    return [q for q, _ in out], out[0][1]
-
   for _ in range(2):
     gram = group.all_reduce([panel_gram(y, y) for y in ys])
-    y1, info = one_pass(ys, gram, 1e-6)
-    bad = group.all_reduce(
-        [(~torch.all(torch.isfinite(y))).to(y.dtype) for y in y1], "max")
-    ok = (info.to(bad.device) == 0) & (bad == 0)
-    y2, _ = one_pass(ys, gram, 1e-2)
-    ys = [torch.where(ok.to(a.device), a, c) for a, c in zip(y1, y2)]
+    out = [fused.cholqr_pass_pair(y, gram.to(y.device), 1e-6, 1e-2)
+           for y in ys]
+    bad = group.all_reduce([b.to(y.dtype) for (y, _, _, b) in out], "max")
+    ys = [torch.where(bad.to(y1.device) != 0, y2, y1)
+          for (y1, y2, _, _) in out]
   return ys
 
 

@@ -460,7 +460,7 @@ def test_cluster_batch_card_matches_cpu(cuda):
                     "row_max_batched": 2, "crop_diagonal_batched": 1,
                     "threshold_symmetrize_general_batched": 1,
                     "row_wise_normalize_batched": 0, "panel_matmul": 0,
-                    "cholqr_pass": 0}
+                    "cholqr_pass": 0, "cholqr_pass_pair": 0}
 
 
 def test_cluster_batch_streamed_card_matches_serial(cuda):
@@ -562,7 +562,7 @@ def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
       x, cfg, mesh_lib.make_mesh(dp=1, mp=4, devices=[cuda] * 4),
       use_ring_affinity=use_ring)
   counts = fused.launch_counts()
-  solver = ("panel_matmul", "cholqr_pass")
+  solver = ("panel_matmul", "cholqr_pass_pair")
   assert not any(v for k, v in counts.items() if k not in solver)
   assert all(counts[k] for k in solver)
   want, want_n = sharded.cluster_large_sharded(
@@ -593,10 +593,16 @@ def _within_sum_bound(got, want, a, x):
                         + k * 2.0**-52 * magnitude))
 
 
+# Beside the solver's shapes, the kernel's edges: m around its 128-row
+# blocks, k around its 32-deep tiles and 96-deep x chunks, b around its
+# 8-column MMA groups and 32-column launches, batches of 1 and 16.
 @pytest.mark.parametrize("shape", [(20480, 20480, 16), (10240, 10240, 8),
                                    (1000, 1000, 1), (999, 1001, 17),
                                    (16, 1024, 1024, 16), (2, 37, 37, 5),
-                                   (5120, 20480, 16)])
+                                   (5120, 20480, 16), (129, 95, 32),
+                                   (127, 97, 9), (1, 300, 8), (300, 1, 3),
+                                   (1, 1000, 1000, 1), (16, 129, 191, 17),
+                                   (3, 1000, 33, 40)])
 def test_panel_matmul(cuda, shape):
   *lead, m, k, b = shape
   gen = torch.Generator(cuda).manual_seed(3)
@@ -616,6 +622,25 @@ def test_panel_matmul_stripe_and_transposed_panel(cuda):
   whole = fused.panel_matmul(a, x)
   assert torch.equal(fused.panel_matmul(a[1024:2048], x), whole[1024:2048])
   assert torch.equal(whole, fused.panel_matmul(a, x.contiguous()))
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 32])
+@pytest.mark.parametrize("lead", [(), (16,)])
+def test_panel_matmul_widths_pitch_and_determinism(cuda, b, lead):
+  # Each width in one launch, a row pitch of k + 1 floats
+  # (not a multiple of 16 bytes: the kernel's 4-byte loads) beside the
+  # aligned operand, and two calls on the same inputs with equal bits.
+  m, k = (1000, 1000) if lead else (4099, 4096)
+  gen = torch.Generator(cuda).manual_seed(7)
+  wide = torch.randn((*lead, m, k + 1), generator=gen, device=cuda)
+  a = wide[..., :k]
+  x = torch.randn((*lead, k, b), generator=gen, device=cuda)
+  for mat in (a, a.contiguous()):
+    fused.reset_launch_counts()
+    got = fused.panel_matmul(mat, x)
+    assert fused.launch_counts()["panel_matmul"] == 1
+    _within_sum_bound(got, fused.panel_matmul_plain(mat, x), mat, x)
+    assert torch.equal(got, fused.panel_matmul(mat, x))
 
 
 @pytest.mark.parametrize("shape", [(20480, 16, 16), (10240, 16, 8),
@@ -648,6 +673,53 @@ def test_cholqr_pass(cuda, shape, delta_rel):
   q_t, _ = fused.cholqr_pass(y.transpose(-1, -2).contiguous()
                              .transpose(-1, -2), gram, delta_rel)
   assert torch.equal(q_t, q)
+
+
+@pytest.mark.parametrize("shape", [(20480, 16), (3, 1024, 16), (999, 19),
+                                   (300, 40), (16, 1024, 8), (257, 1)])
+def test_cholqr_pass_pair(cuda, shape):
+  # One launch: each pass equal bit for bit to the single-pass kernel (the
+  # parent's code) at its shift, and within 1e-5 of cuSOLVER's and
+  # cuBLAS's (twin); the same info; no panel flagged; the workspace zero
+  # again after the launch.
+  gen = torch.Generator(cuda).manual_seed(8)
+  y = torch.randn(shape, generator=gen, device=cuda)
+  gram = eigen.panel_gram(y, y)
+  fused.reset_launch_counts()
+  q1, q2, info, bad = fused.cholqr_pass_pair(y, gram, 1e-6, 1e-2)
+  assert fused.launch_counts()["cholqr_pass_pair"] == 1
+  for q, rel in ((q1, 1e-6), (q2, 1e-2)):
+    alone, alone_info = fused.cholqr_pass(y, gram, rel)
+    assert torch.equal(q, alone)
+    if rel == 1e-6:
+      assert torch.equal(info, alone_info)
+    plain, _ = fused.cholqr_pass_plain(y, gram, rel)
+    torch.testing.assert_close(q, plain, rtol=0, atol=1e-5)
+  w1, w2, w_info, w_bad = fused.cholqr_pass_pair_plain(y, gram, 1e-6, 1e-2)
+  assert torch.equal(info.long(), w_info.long()) and not bool(info.any())
+  assert torch.equal(bad, w_bad) and not bool(bad.any())
+  assert not bool(fused._qr_tickets(y.device).any())
+
+
+def test_cholqr_pass_pair_flags_the_failed_panels(cuda):
+  # A batch of four panels: an Inf in one, an indefinite Gram in another.
+  # Only those two are flagged (the twin agrees), whatever block holds the
+  # Inf; the workspace is zero after each launch.
+  gen = torch.Generator(cuda).manual_seed(9)
+  y = torch.randn((4, 3000, 16), generator=gen, device=cuda)
+  gram = eigen.panel_gram(y, y)
+  y[1, 2999, 5] = torch.inf
+  gram[3] = -torch.eye(16, device=cuda)
+  q1, q2, info, bad = fused.cholqr_pass_pair(y, gram, 1e-6, 1e-2)
+  _, _, w_info, w_bad = fused.cholqr_pass_pair_plain(y, gram, 1e-6, 1e-2)
+  assert bad.tolist() == [False, True, False, True] == w_bad.tolist()
+  assert info.tolist() == [0, 0, 0, 1] == w_info.tolist()
+  assert bool(torch.isfinite(q2[0]).all()) and bool(torch.isfinite(q2[2]).all())
+  assert not bool(fused._qr_tickets(y.device).any())
+  y[1, 0, 0] = -torch.inf
+  _, _, _, bad = fused.cholqr_pass_pair(y[1], gram[1], 1e-6, 1e-2)
+  assert bool(bad)
+  assert not bool(fused._qr_tickets(y.device).any())
 
 
 def test_cholqr_pass_failed_factorization(cuda):

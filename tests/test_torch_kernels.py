@@ -116,7 +116,14 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
       "ptxas info    : Function properties for "
       "_ZN12_GLOBAL__N_114row_max_kernelILb0ELb1EEEvPKfPfiiiPKii\n"
       "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
-      "ptxas info    : Used 32 registers, used 0 barriers\n")
+      "ptxas info    : Used 32 registers, used 0 barriers\n"
+      "ptxas info    : Compiling entry function "
+      "'_ZN12_GLOBAL__N_119panel_matmul_kernelILi2ELb1EEEvPKfS2_Pfiixxxxxiii'"
+      " for 'sm_90a'\n"
+      "ptxas info    : Function properties for "
+      "_ZN12_GLOBAL__N_119panel_matmul_kernelILi2ELb1EEEvPKfS2_Pfiixxxxxiii\n"
+      "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+      "ptxas info    : Used 126 registers, 24576 bytes smem\n")
   report = build.ptxas_report(str(log)[:-len(".log")])
   assert report == {
       "affinity_kernel": {"registers": 128, "static_smem": 0,
@@ -127,6 +134,9 @@ def test_ptxas_report_reads_each_kernel(tmp_path):
                                "spill_stores": 0, "spill_loads": 0},
       "row_max_kernel<false,true>": {"registers": 32, "static_smem": 0,
                                      "spill_stores": 8, "spill_loads": 8},
+      "panel_matmul_kernel<2,true>": {"registers": 126,
+                                      "static_smem": 24576,
+                                      "spill_stores": 0, "spill_loads": 0},
   }
 
 
@@ -217,4 +227,49 @@ def test_launch_counters_are_plain_integers():
       "affinity", "row_max", "crop_diagonal", "threshold_symmetrize_general",
       "row_wise_normalize", "affinity_batched", "row_max_batched",
       "crop_diagonal_batched", "threshold_symmetrize_general_batched",
-      "row_wise_normalize_batched", "panel_matmul", "cholqr_pass"}
+      "row_wise_normalize_batched", "panel_matmul", "cholqr_pass",
+      "cholqr_pass_pair"}
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_cholqr_pass_pair_twin_is_two_passes(lead):
+  # The pair's twin is two cholqr_pass_plain calls, bit for bit, and its
+  # flag marks exactly the panels whose first pass failed or left a
+  # non-finite value: an Inf in one panel, an indefinite Gram in another.
+  rng = np.random.RandomState(11)
+  y = torch.as_tensor((rng.randn(*lead, 200, 12)
+                       * np.logspace(0, 2, 12)).astype(np.float32))
+  gram = torch.matmul(y.transpose(-1, -2), y)
+  q1, q2, info, bad = fused.cholqr_pass_pair(y, gram, 1e-6, 1e-2)
+  w1, w_info = fused.cholqr_pass_plain(y, gram, 1e-6)
+  w2, _ = fused.cholqr_pass_plain(y, gram, 1e-2)
+  assert torch.equal(q1, w1) and torch.equal(q2, w2)
+  assert torch.equal(info, w_info) and not bool(torch.any(bad))
+  y_inf, gram_bad = y.clone(), gram.clone()
+  y_inf[..., 7, 3] = torch.inf
+  gram_bad[..., :, :] = -torch.eye(12)
+  for yy, gg in ((y_inf, gram), (y, gram_bad)):
+    if lead:
+      yy = torch.where(torch.arange(3)[:, None, None] == 1, yy, y)
+      gg = torch.where(torch.arange(3)[:, None, None] == 1, gg, gram)
+    _, _, _, bad = fused.cholqr_pass_pair(yy, gg, 1e-6, 1e-2)
+    want = torch.tensor([False, True, False]) if lead else torch.tensor(True)
+    assert torch.equal(bad, want)
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_cholqr2_shifted_keeps_its_cpu_bits(lead):
+  # CholeskyQR2 through the pair equals the two separate passes it ran
+  # before, selected by their info and finiteness, bit for bit.
+  from spectralcluster_tpu_torch.ops import eigen as eigen_ops
+  rng = np.random.RandomState(12)
+  y = torch.as_tensor((rng.randn(*lead, 300, 16)
+                       * np.logspace(0, 3, 16)).astype(np.float32))
+  want = y
+  for _ in range(2):
+    gram = eigen_ops.panel_gram(want, want)
+    y1, info = fused.cholqr_pass_plain(want, gram, 1e-6)
+    ok = (info == 0) & torch.all(torch.isfinite(y1), dim=(-2, -1))
+    y2, _ = fused.cholqr_pass_plain(want, gram, 1e-2)
+    want = torch.where(ok[..., None, None], y1, y2)
+  assert torch.equal(eigen_ops.cholqr2_shifted(y), want)

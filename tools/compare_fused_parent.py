@@ -36,6 +36,17 @@ batched ones run at (B, 1024, 256) for B in BATCHES on `make_batch(B)`, as
   * ptxas's registers and spill bytes of each version's kernel;
   * for the batched affinity, the launch's blocks and waves in each version.
 
+Then the subspace solver's kernels, on random operands at its shapes:
+the panel product (6) by PANEL_WIDTHS columns on each of PANEL_CASES,
+both versions alone in turns with cuBLAS's float32 product, with the
+count of outputs whose bits differ, each version's share of the float64
+gate's bound and the current k split; and the CholeskyQR pass (7) on the
+panels of QR_CASES, the parent's two single-pass launches (1e-6, then the
+1e-2 rescue; from a parent without the pair) against the current pair's
+one, in turns, their q and info compared bit for bit. Whether the
+earlier `sct_panel_matmul` takes a float64 scratch for its k split is
+read from its source too.
+
 Then the card's SM clock, power draw and throttle reasons (nvidia-smi,
 every 200 ms) while the current batched affinity runs back to back for
 LOAD_SECONDS at the last batch size; whether each kernel both versions
@@ -66,10 +77,22 @@ FLUSH_BYTES = 128 << 20
 LOAD_SECONDS = 3.0
 TURNS = ("parent", "current", "current", "parent")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# Kernel 6's operands: (batch, N, rows of the N x N operand or None), each
+# by PANEL_WIDTHS columns; kernel 7's panels: (batch, N), b=16.
+PANEL_CASES = (((), 10240, None), ((), 20480, None), ((), 20480, (5120, 10240)),
+               ((16,), 1024, None))
+PANEL_WIDTHS = (16, 8, 1)
+QR_CASES = (((), 10240), ((), 20480), ((16,), 1024))
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The earlier version's C interface: the affinity's before the symmetric
-# kernel, the batched affinity's on the padded transpose.
+# kernel, the batched affinity's on the padded transpose, the panel
+# product's with the float64 scratch of its k split (and the query of its
+# size).
 _PARENT_SIGNATURES = {
+    "sct_panel_matmul": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _L, _L,
+                         _P),
+    "sct_panel_matmul_splits": (_I, _I, _I),
     "sct_affinity": (_P, _P, _I, _I, _P),
     "sct_affinity_batched": (_P, _P, _I, _I, _I, _I, _P),
     "sct_row_max": (_P, _P, _I, _I, _I, _I, _P),
@@ -80,17 +103,9 @@ _PARENT_SIGNATURES = {
 _SYMMETRIC_AFFINITY = "int sct_affinity(const float* xt"
 _ROW_MAJOR_BATCHED = "int sct_affinity_batched(const float* xn"
 # Kernels with a design of their own in the current version: no SASS check.
-_REDESIGNED = ("affinity_batched_kernel", "row_max_batched_kernel")
-
-
-def _kernel_key(mangled: str) -> str:
-  # As build.ptxas_report: row_max_kernel<true,false> and the like.
-  name = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Lb[01]E)+)E)?E", mangled)
-  if not name:
-    return mangled
-  flags = re.findall(r"Lb([01])E", name.group(2) or "")
-  return name.group(1) + ("<" + ",".join(
-      "true" if f == "1" else "false" for f in flags) + ">" if flags else "")
+_REDESIGNED = ("affinity_batched_kernel", "row_max_batched_kernel",
+               "panel_matmul_kernel", "panel_finish_kernel",
+               "cholqr_pass_kernel")
 
 
 def _current_key(parent_key: str) -> str:
@@ -102,7 +117,7 @@ def _current_key(parent_key: str) -> str:
   return f"row_max_kernel<{m.group(1)}>" if m else parent_key
 
 
-def _sass(cuobjdump: str, lib: str):
+def _sass(build, cuobjdump: str, lib: str):
   """{kernel key: its SASS instructions, constant-bank offsets masked}."""
   out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                        text=True, check=True).stdout
@@ -114,7 +129,7 @@ def _sass(cuobjdump: str, lib: str):
       m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
       if m:
         ops.append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[.]", m.group(1)))
-    funcs[_kernel_key(name.strip())] = ops
+    funcs[build.kernel_key(name.strip())] = ops
   return funcs
 
 
@@ -132,9 +147,10 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   sys.path.insert(0, ROOT)
   import numpy as np
-  from chip_smoke import time_flushed_ms, time_ms
+  from chip_smoke import card_peaks, time_flushed_ms, time_ms
   from spectralcluster_tpu_torch.fixtures import make_batch, make_embeddings
   from spectralcluster_tpu_torch.kernels import build, fused
+  from spectralcluster_tpu_torch.ops import eigen as eigen_ops
   from spectralcluster_tpu_torch.ops import refinement as ref_ops
 
   parent_src = os.path.abspath(args.parent)
@@ -142,16 +158,21 @@ def main() -> int:
     parent_text = f.read()
   parent_symmetric = _SYMMETRIC_AFFINITY in parent_text
   parent_row_major = _ROW_MAJOR_BATCHED in parent_text
+  parent_split_panel = "sct_panel_matmul_splits" in parent_text
   with concurrent.futures.ThreadPoolExecutor(2) as pool:
     cur_path, par_path = pool.map(build.build, (build.SOURCES, (parent_src,)))
   libs = {"parent": ctypes.CDLL(par_path), "current": ctypes.CDLL(cur_path)}
   for version, lib in libs.items():
-    for name, argtypes in build._SIGNATURES.items():
+    for name in {**build._SIGNATURES, **_PARENT_SIGNATURES}:
+      argtypes = build._SIGNATURES.get(name)
       if version == "parent" and name in _PARENT_SIGNATURES:
         argtypes = _PARENT_SIGNATURES[name]
         if ((name == "sct_affinity" and parent_symmetric)
-            or (name == "sct_affinity_batched" and parent_row_major)):
+            or (name == "sct_affinity_batched" and parent_row_major)
+            or (name == "sct_panel_matmul" and not parent_split_panel)):
           argtypes = build._SIGNATURES[name]
+      elif argtypes is None:
+        continue
       fn = getattr(lib, name, None)
       if fn is not None:
         fn.argtypes = list(argtypes)
@@ -187,9 +208,14 @@ def main() -> int:
   flush = torch.empty(FLUSH_BYTES // 4, device=dev)
   results = []
 
+  # The kernels behind a compared name where they are named otherwise.
+  kernels_of = {"panel_matmul": ("panel_matmul_kernel", "panel_finish_kernel"),
+                "cholqr_pass_pair": ("cholqr_pass_kernel",)}
+
   def ptxas_of(kernel):
+    prefixes = kernels_of.get(kernel, (f"{kernel}_kernel",))
     return {f"ptxas_{v}": {k: r for k, r in ptxas[v].items()
-                           if k.startswith(f"{kernel}_kernel")}
+                           if k.startswith(prefixes)}
             for v in ("parent", "current")}
 
   def under_load(fn, shape):
@@ -229,6 +255,7 @@ def main() -> int:
     got, want = outputs["current"], outputs["parent"]
     row.update({"max_abs_diff": float(torch.max(torch.abs(got - want))),
                 "bit_equal": bool(torch.equal(got, want)),
+                "elements_differing": int(torch.sum(got != want)),
                 **ptxas_of(kernel), **(extra or {})})
     results.append(row)
     print(json.dumps(row), flush=True)
@@ -328,9 +355,109 @@ def main() -> int:
         under_load(affinity_b("current"), shape)
       del xb, xnb, xtb, affb, blurred_b, rmb, cropb
 
+    # Kernel 6: both versions alone (the parent's float64 scratch for its k
+    # split made beforehand) in turns with cuBLAS's float32 product, on
+    # random operands at the solver's shapes, each by a panel that is the
+    # transpose of a contiguous (b, K) matrix, as the solver gives it; how
+    # many outputs differ in their bits, and each version's largest share
+    # of the float64 gate's bound (2^-24·|exact| + K·2^-52·(|a|·|x|)).
+    bw = card_peaks(torch.cuda.get_device_name(dev))[0]
+    gen = torch.Generator(dev).manual_seed(0)
+    for lead, n_op, rows in PANEL_CASES:
+      full = torch.randn((*lead, n_op, n_op), generator=gen, device=dev)
+      a = full if rows is None else full[rows[0]:rows[1]]
+      batch = lead[0] if lead else 1
+      m, k = a.shape[-2:]
+      for b in PANEL_WIDTHS:
+        x = torch.randn((*lead, b, k), generator=gen,
+                        device=dev).transpose(-1, -2)
+        ys = {v: torch.empty((*lead, m, b), device=dev) for v in libs}
+        tail = (batch, m, k, a.stride(-2), a.stride(0) if lead else 0, b,
+                x.stride(-2), x.stride(-1), x.stride(0) if lead else 0,
+                stream)
+        fns = {"current": (lambda ys=ys, tail=tail: call(
+            libs["current"], "sct_panel_matmul", a.data_ptr(), x.data_ptr(),
+            ys["current"].data_ptr(), *tail))}
+        if parent_split_panel:
+          partial = torch.empty(
+              (libs["parent"].sct_panel_matmul_splits(batch, m, k), batch, m,
+               b), dtype=torch.float64, device=dev)
+          fns["parent"] = (lambda ys=ys, tail=tail, partial=partial: call(
+              libs["parent"], "sct_panel_matmul", a.data_ptr(), x.data_ptr(),
+              partial.data_ptr(), ys["parent"].data_ptr(), *tail))
+        else:
+          fns["parent"] = (lambda ys=ys, tail=tail: call(
+              libs["parent"], "sct_panel_matmul", a.data_ptr(), x.data_ptr(),
+              ys["parent"].data_ptr(), *tail))
+        for fn in fns.values():
+          fn()
+        exact = torch.matmul(a.double(), x.double())
+        magnitude = torch.matmul(torch.abs(a).double(), torch.abs(x).double())
+        bound64 = 2.0**-24 * torch.abs(exact) + k * 2.0**-52 * magnitude
+        shares = {v: float(torch.max(torch.abs(ys[v].double() - exact)
+                                     / bound64)) for v in libs}
+        splits, resident = ctypes.c_int(0), ctypes.c_int(0)
+        call(libs["current"], "sct_panel_matmul_schedule", batch, m, k, b,
+             int(a.data_ptr() % 16 == 0 and a.stride(-2) % 4 == 0),
+             ctypes.byref(splits), ctypes.byref(resident))
+        cublas = lambda x=x: torch.matmul(a, x)  # noqa: E731
+        compare("panel_matmul",
+                f"{'B=%d,' % batch if lead else ''}M={m},K={k},b={b}", fns,
+                ys, [("_cublas", {v: cublas for v in libs}, False)],
+                {"bound_ms": batch * (m * k + (m + k) * b) * 4 / bw * 1e3,
+                 "float64_bound_share": shares,
+                 "current_k_split": splits.value,
+                 "current_resident_blocks": resident.value})
+        del exact, magnitude, bound64, ys
+      del full, a
+      torch.cuda.empty_cache()
+
+    # Kernel 7: the parent's two single-pass launches (1e-6, then the 1e-2
+    # rescue) against the current pair's one, in turns, on the same panel
+    # (columns scaled over three decades) and its float64 Gram: q of both
+    # passes and info must be equal bit for bit.
+    for lead, k in QR_CASES:
+      y = torch.randn((*lead, k, 16), generator=gen, device=dev) * (
+          torch.logspace(0, 3, 16, device=dev))
+      gram = eigen_ops.panel_gram(y, y)
+      batch = lead[0] if lead else 1
+      qts = {v: torch.empty((2, *lead, 16, k), device=dev) for v in libs}
+      infos = {v: torch.empty(lead, dtype=torch.int32, device=dev)
+               for v in libs}
+      bad = torch.empty(lead, dtype=torch.bool, device=dev)
+      spare = torch.empty(lead, dtype=torch.int32, device=dev)
+      tickets = fused._qr_tickets(dev)
+      ystr = (y.stride(0) if lead else 0, y.stride(-2), y.stride(-1))
+
+      def parent_pair(qts=qts, infos=infos, ystr=ystr, y=y, gram=gram,
+                      batch=batch, k=k, spare=spare):
+        for i, rel in enumerate((1e-6, 1e-2)):
+          call(libs["parent"], "sct_cholqr_pass", y.data_ptr(),
+               gram.data_ptr(), qts["parent"][i].data_ptr(),
+               (infos["parent"] if i == 0 else spare).data_ptr(), batch, k,
+               16, *ystr, rel, stream)
+
+      def current_pair(qts=qts, infos=infos, ystr=ystr, y=y, gram=gram,
+                       batch=batch, k=k, bad=bad):
+        call(libs["current"], "sct_cholqr_pass_pair", y.data_ptr(),
+             gram.data_ptr(), qts["current"].data_ptr(),
+             infos["current"].data_ptr(), bad.data_ptr(), tickets.data_ptr(),
+             batch, k, 16, *ystr, 1e-6, 1e-2, stream)
+
+      compare("cholqr_pass_pair",
+              f"{'B=%d,' % batch if lead else ''}N={k},b=16",
+              {"parent": parent_pair, "current": current_pair}, qts)
+      results[-1]["info_equal"] = bool(torch.equal(infos["parent"],
+                                                   infos["current"]))
+      results[-1]["workspace_zero"] = not bool(tickets.any())
+      print(json.dumps({"kernel": "cholqr_pass_pair", "shape": results[-1][
+          "shape"], "info_equal": results[-1]["info_equal"],
+                        "workspace_zero": results[-1]["workspace_zero"]}),
+            flush=True)
+
   cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-  sass = {v: _sass(cuobjdump, p) for v, p in (("parent", par_path),
-                                               ("current", cur_path))}
+  sass = {v: _sass(build, cuobjdump, p) for v, p in (("parent", par_path),
+                                                      ("current", cur_path))}
   same_code = {}
   for key, ops in sorted(sass["parent"].items()):
     cur = _current_key(key)

@@ -7,7 +7,7 @@ root of the earlier checkout (for example `git archive <commit>` unpacked
 into a directory that .gitignore lists):
 
     python3 tools/compare_route_parent.py --parent DIR [--order pccp]
-                                          [--warm-runs 5]
+                                          [--warm-runs 5] [--big-warm-runs 3]
                                           [--batch-warm-runs 3] [--out FILE]
 
 Both trees build their kernels first, side by side. Then each turn of
@@ -20,7 +20,8 @@ the icassp2018 settings that `chip_smoke.py` uses:
     warm): each warm run's wall and stage seconds (`staged_prep`,
     `staged_dc` or `staged_subspace`, `staged_finish`) and their medians,
     the iterations of each subspace solve and the rounds of each Lloyd
-    loop of the warm runs;
+    loop of the warm runs; then Auto the same way on
+    `make_embeddings(20480)` with --big-warm-runs warm runs;
   * `cluster_batch` with SubspaceIteration on `make_batch(16)` (16 x 1024;
     one cold call, --batch-warm-runs warm): walls and median, the
     iterations of the batched subspace solve and the Lloyd rounds of each
@@ -47,10 +48,12 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 10240
+N_BIG = 20480
 BATCH = 16
 
 
-def worker(tree: str, warm_runs: int, batch_warm_runs: int) -> list:
+def worker(tree: str, warm_runs: int, big_warm_runs: int,
+           batch_warm_runs: int) -> list:
   """One turn: the legs on the package of ``tree``; returns JSON rows."""
   sys.path.insert(0, tree)
   import numpy as np
@@ -102,14 +105,17 @@ def worker(tree: str, warm_runs: int, batch_warm_runs: int) -> list:
     return out, time.perf_counter() - t0
 
   rows = []
-  emb = make_embeddings(N)
-  for solver in (EigenSolver.Auto, EigenSolver.SubspaceIteration):
+  embs = {N: make_embeddings(N), N_BIG: make_embeddings(N_BIG)}
+  for solver, n, runs in ((EigenSolver.Auto, N, warm_runs),
+                          (EigenSolver.SubspaceIteration, N, warm_runs),
+                          (EigenSolver.Auto, N_BIG, big_warm_runs)):
+    emb = embs[n]
     clusterer = configs.make_icassp2018_clusterer(
         eigensolver=solver, staged_stage_timings=True)
     timed(lambda: clusterer.predict_with_details(emb))
     counts()
     walls, stages = [], {}
-    for _ in range(warm_runs):
+    for _ in range(runs):
       result, seconds = timed(lambda: clusterer.predict_with_details(emb))
       walls.append(seconds)
       for k, v in result.timings.items():
@@ -117,7 +123,8 @@ def worker(tree: str, warm_runs: int, batch_warm_runs: int) -> list:
           stages.setdefault(k, []).append(v)
     solve_iters, lloyd_rounds = counts()
     rows.append({
-        "leg": solver.name, "n": N, "warm_wall_s": statistics.median(walls),
+        "leg": solver.name + ("" if n == N else f"_{n}"), "n": n,
+        "warm_wall_s": statistics.median(walls),
         "warm_wall_s_runs": walls,
         "stages_median_s": {k: statistics.median(v)
                             for k, v in stages.items()},
@@ -159,12 +166,13 @@ def main() -> int:
   parser.add_argument("--parent", required=True)
   parser.add_argument("--order", default="pccp")
   parser.add_argument("--warm-runs", type=int, default=5)
+  parser.add_argument("--big-warm-runs", type=int, default=3)
   parser.add_argument("--batch-warm-runs", type=int, default=3)
   parser.add_argument("--out")
   parser.add_argument("--worker", help=argparse.SUPPRESS)
   args = parser.parse_args()
   if args.worker:
-    print(json.dumps(worker(args.worker, args.warm_runs,
+    print(json.dumps(worker(args.worker, args.warm_runs, args.big_warm_runs,
                             args.batch_warm_runs)))
     return 0
   import torch
@@ -180,6 +188,7 @@ def main() -> int:
     out = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--parent", args.parent,
          "--worker", trees[who], "--warm-runs", str(args.warm_runs),
+         "--big-warm-runs", str(args.big_warm_runs),
          "--batch-warm-runs", str(args.batch_warm_runs)],
         check=True, capture_output=True, text=True, cwd=trees[who])
     for row in json.loads(out.stdout.strip().splitlines()[-1]):
