@@ -119,9 +119,14 @@ class SpectralClusterer:
     # host flow's eig stage as pipeline.eig_topk_staged, as the JAX
     # clusterer does; None disables staging.
     self.staged_execution_min_n = staged_execution_min_n
-    # When True, ClusterResult.timings also carries the staged executor's
-    # per-stage durations (staged_prep / staged_eigh / staged_subspace /
-    # staged_finish).
+    # When True, every predict also records its spans and counters, in
+    # both executors: ClusterResult.timings also carries the staged
+    # executor's stages (staged_prep / staged_eigh / staged_dc /
+    # staged_subspace / staged_finish), the spans upload, refine, eigh,
+    # kmeans and download, and ClusterResult.counters "lloyd_rounds"; each
+    # is an ``sct.<name>`` profiler range under ``sct.predict``, and the
+    # call goes into observability's in-memory record. Off, no span,
+    # counter, event or range of these is entered.
     self.staged_stage_timings = staged_stage_timings
     self.device = device
 
@@ -253,15 +258,19 @@ class SpectralClusterer:
     eigenvalues, max_delta = eig_details[best_p]
     return eigenvectors, n_clusters, best_p, eigenvalues, max_delta
 
-  def _reduce_size_and_predict(self, embeddings: np.ndarray) -> ClusterResult:
+  def _reduce_size_and_predict(self, embeddings: np.ndarray, device,
+                               timings: StageTimings) -> ClusterResult:
     """AHC size reduction then recursive spectral clustering
     (reference spectral_clusterer.py:170-199). Returns the inner spectral
-    run's ClusterResult with labels chained through the AHC pre-labels."""
+    run's ClusterResult with labels chained through the AHC pre-labels;
+    ``timings`` records the inner run's stages and counters with the
+    prefix ``inner_``."""
     ahc_labels = ahc_lib.agglomerative_cluster(
         embeddings, metric="cosine", linkage="complete",
         n_clusters=self.max_spectral_size)
     ahc_centroids = utils.get_cluster_centroids(embeddings, ahc_labels)
-    inner = self.predict_with_details(ahc_centroids)
+    with timings.prefixed("inner_"):
+      inner = self._predict(ahc_centroids, None, True, device, timings)
     inner.labels = utils.chain_labels(ahc_labels, np.asarray(inner.labels))
     return inner
 
@@ -300,7 +309,20 @@ class SpectralClusterer:
       constraint_symmetric = _symmetric(constraint_matrix)
       self._check_constraint_solver(constraint_symmetric)
     device = utils.resolve_device(self.device)
-    timings = StageTimings(device)
+    timings = StageTimings(device, detail=self.staged_stage_timings)
+    with timings.call():
+      result = self._predict(embeddings, constraint_matrix,
+                             constraint_symmetric, device, timings)
+    result.timings = timings.as_dict()
+    result.counters = timings.counters()
+    return result
+
+  def _predict(self, embeddings: np.ndarray, constraint_matrix,
+               constraint_symmetric: bool, device,
+               timings: StageTimings) -> ClusterResult:
+    """``predict_with_details`` past its input checks: the branches, each
+    stage recorded in ``timings``."""
+    num_embeddings = embeddings.shape[0]
 
     # Tiny inputs: fallback clusterer (spectral_clusterer.py:230-234).
     if num_embeddings < self.fallback_options.spectral_min_embeddings:
@@ -309,8 +331,7 @@ class SpectralClusterer:
       with timings.stage("fallback"):
         labels = clusterer.predict(embeddings)
       return ClusterResult(labels=labels,
-                           n_clusters=int(np.unique(labels).size),
-                           timings=timings.as_dict())
+                           n_clusters=int(np.unique(labels).size))
 
     # Oversized inputs: AHC reduction (spectral_clusterer.py:236-247).
     if (self.max_spectral_size is not None
@@ -324,10 +345,7 @@ class SpectralClusterer:
           (self.min_clusters and self.max_spectral_size <= self.min_clusters)):
         raise ValueError("max_spectral_size should be a relatively big number")
       with timings.stage("ahc_reduce"):
-        result = self._reduce_size_and_predict(embeddings)
-      inner_timings = result.timings or {}
-      result.timings = {**{f"inner_{k}": v for k, v in inner_timings.items()},
-                        **timings.as_dict()}
+        result = self._reduce_size_and_predict(embeddings, device, timings)
       result.n_clusters = int(np.unique(result.labels).size)
       return result
 
@@ -340,7 +358,8 @@ class SpectralClusterer:
                     >= self.staged_execution_min_n
                     and pipeline_lib._staged_applicable(cfg))
       with timings.stage("pipeline"):
-        x = torch.as_tensor(embeddings, dtype=torch.float32).to(device)
+        with timings.span("upload"):
+          x = torch.as_tensor(embeddings, dtype=torch.float32).to(device)
         generator = torch.Generator().manual_seed(self.seed)
         if use_staged:
           out = pipeline_lib.spectral_cluster_fixed_k_staged(
@@ -349,13 +368,13 @@ class SpectralClusterer:
         else:
           out = pipeline_lib.spectral_cluster_fixed_k(x, generator, cfg,
                                                       timings=timings)
-        labels, n_clusters, eigenvalues, max_delta = (t.cpu() for t in out)
+        with timings.span("download"):
+          labels, n_clusters, eigenvalues, max_delta = (t.cpu() for t in out)
       return ClusterResult(
           labels=labels.numpy(),
           n_clusters=int(n_clusters),
           eigenvalues=eigenvalues.numpy(),
-          max_delta_norm=float(max_delta),
-          timings=timings.as_dict())
+          max_delta_norm=float(max_delta))
 
     # Host flow. The affinity stays on the device unless a user function
     # makes it on the host.
@@ -373,7 +392,7 @@ class SpectralClusterer:
                                                    embeddings, affinity)
       if single:
         return ClusterResult(labels=np.zeros(num_embeddings, dtype=np.int64),
-                             n_clusters=1, timings=timings.as_dict())
+                             n_clusters=1)
 
     # Constraint before refinement (spectral_clusterer.py:259-264), on the
     # device; after refinement, it goes to the eig stage.
@@ -436,5 +455,4 @@ class SpectralClusterer:
         n_clusters=int(n_clusters),
         eigenvalues=eigenvalues,
         max_delta_norm=float(max_delta),
-        best_p_percentile=best_p,
-        timings=timings.as_dict())
+        best_p_percentile=best_p)

@@ -167,11 +167,13 @@ def _all_stopped(live: torch.Tensor, rounds: int, max_rounds: int,
 
 
 def _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w,
-           check_every=STOP_CHECK_ROUNDS):
+           check_every=STOP_CHECK_ROUNDS, timings=None):
   """The Lloyd loop of ``lloyd_iterations`` over x (N, d) or a batch
   (B, N, d), with the JAX package's stop rule on the device. Returns
   (labels int32, centroids, rounds): ``rounds`` is each state's number of
-  assignment rounds, the stopping one included.
+  assignment rounds, the stopping one included. ``timings`` (an
+  observability.StageTimings) counts the rounds the host ran, the stopping
+  one up to the next read of the flags, as "lloyd_rounds".
 
   A stopped state keeps its centroids, so every later round assigns its
   points exactly as its stopping round did: its labels and mean distance
@@ -206,6 +208,8 @@ def _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w,
     prev = mean_dist
     if _all_stopped(live, rounds, max_iter + 1, check_every):
       break
+  if timings is not None:
+    timings.count("lloyd_rounds", rounds)
   return labels.to(torch.int32), c, it
 
 
@@ -217,16 +221,19 @@ def lloyd_iterations(
     max_iter: int = 10,
     tol: float = 0.001,
     sample_weight: typing.Optional[torch.Tensor] = None,
+    timings=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
   """Reference CustomKMeans.predict semantics. Returns (labels, centroids).
 
   ``n_clusters`` (int or 0-dim tensor, <= centroids.shape[0]) masks the
   surplus centroid slots out of the assignment. ``torch.argmin`` returns the
   first minimal index, as ``jnp.argmin`` does, so ties break alike.
+  ``timings`` counts the rounds run (see ``_lloyd``).
   """
   w = torch.ones(x.shape[:1], dtype=x.dtype, device=x.device) if (
       sample_weight is None) else sample_weight
-  labels, c, _ = _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w)
+  labels, c, _ = _lloyd(x, centroids, n_clusters, dist_fn, max_iter, tol, w,
+                        timings=timings)
   return labels, c
 
 
@@ -256,13 +263,14 @@ def standard_lloyd(
     max_iter: int = 300,
     tol: float = 1e-4,
     sample_weight: typing.Optional[torch.Tensor] = None,
+    timings=None,
 ) -> typing.Tuple[torch.Tensor, torch.Tensor]:
   """Plain euclidean Lloyd (the reference's `custom_dist falsy` sklearn branch,
   custom_distance_kmeans.py:33-36): run until centers move < tol or max_iter.
 
   x (N, d) or a batch (B, N, d). The stop flag stays on the device and
   freezes its centroids; the host reads it every ``STOP_CHECK_ROUNDS``
-  rounds.
+  rounds. ``timings`` counts the rounds the host ran as "lloyd_rounds".
   """
   k_max = centroids.shape[-2]
   w = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if (
@@ -275,6 +283,7 @@ def standard_lloyd(
 
   c = centroids
   live = torch.ones(x.shape[:-2], dtype=torch.bool, device=x.device)
+  it = -1
   for it in range(max_iter):
     new_c = _update_centroids(x, assign(c), w, c)
     shift = torch.sum((new_c - c) ** 2, dim=(-2, -1))
@@ -282,6 +291,8 @@ def standard_lloyd(
     live = live & ~(shift < tol)
     if _all_stopped(live, it + 1, max_iter, STOP_CHECK_ROUNDS):
       break
+  if timings is not None:
+    timings.count("lloyd_rounds", it + 1)
   return assign(c).to(torch.int32), c
 
 
@@ -296,6 +307,7 @@ def kmeans_fit(
     sample_weight: typing.Optional[torch.Tensor] = None,
     draw_rows: typing.Optional[int] = None,
     key: typing.Optional[np.ndarray] = None,
+    timings=None,
 ) -> torch.Tensor:
   """Full K-Means: seeded k-means++ init, then Lloyd with the chosen metric.
 
@@ -304,7 +316,7 @@ def kmeans_fit(
   k-means++ provides the initial centroids for the custom-distance loop.
   ``k_max`` is the centroid count when ``n_clusters`` is a tensor;
   ``draw_rows`` and ``key`` go to ``kmeans_plusplus`` (with ``key``,
-  ``generator`` may be None).
+  ``generator`` may be None); ``timings`` counts Lloyd's rounds.
   """
   if k_max is None:
     k_max = int(n_clusters)
@@ -312,12 +324,12 @@ def kmeans_fit(
                               key)
   if not custom_dist:
     labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,
-                               sample_weight=sample_weight)
+                               sample_weight=sample_weight, timings=timings)
     return labels
   dist_fn = affinity_ops.get_distance_fn(custom_dist)
   labels, _ = lloyd_iterations(x, centroids, n_clusters, dist_fn,
                                max_iter=max_iter, tol=tol,
-                               sample_weight=sample_weight)
+                               sample_weight=sample_weight, timings=timings)
   return labels
 
 

@@ -247,6 +247,11 @@ def _stage(timings, name: str):
   return contextlib.nullcontext() if timings is None else timings.stage(name)
 
 
+def _span(timings, name: str):
+  """A span of ``timings`` recorded only with its ``detail`` on."""
+  return contextlib.nullcontext() if timings is None else timings.span(name)
+
+
 def _symmetric_eig_operand(affinity, cfg: PipelineConfig, p_percentile,
                            n_valid, structure, consume_input=False,
                            constraint_matrix=None):
@@ -442,49 +447,71 @@ def refine_and_eigendecompose(
   ``constraint_matrix`` applies here only after refinement
   (``prepare_affinity`` applies it before). With ``timings`` (an
   observability.StageTimings), the GENERAL route's host eig is recorded as
-  the stage "host_eig".
+  the stage "host_eig", and with its ``detail`` the spans "refine" (the
+  refinement up to the eigensolver's operand) and "eigh" (the full
+  symmetric eigensolver).
 
   A (B, N, N) batch, with (B,) ``n_valid`` and ``p_percentile`` a scalar or
   (B,), returns each result with a leading batch axis, each utterance's
   equal to this function's on it alone (see the module docstring).
   """
   _check_supported(cfg)
-  with_constraint = constraint_matrix is not None
-  descend = _descend(cfg)
-  structure = _solver_structure(cfg, with_constraint)
   with fp32_precision():
-    if structure == refinement_ops.GENERAL:
-      ropts = cfg.refinement_options
-      mat = refinement_ops.apply_refinement_sequence(
-          affinity, ropts, sequence=ropts.refinement_sequence or (),
-          p_percentile=p_percentile, n_valid=n_valid,
-          use_kernels=cfg.use_kernels, consume_input=consume_input)
-      if _constraint_after(cfg, with_constraint):
-        mat = constraint_lib.adjust_affinity(
-            mat, constraint_matrix, cfg.constraint_options, n_valid)
-      if not descend:
-        mat = laplacian_ops.compute_laplacian(mat, cfg.laplacian_type,
-                                              n_valid=n_valid)
-      if n_valid is not None:
-        mat = eigen_ops.apply_padding_sentinels(mat, n_valid, descend)
-      with _stage(timings, "host_eig"):
-        w, eigenvectors = eigen_ops.sorted_eig_general_host(mat, descend)
-      gap_n_valid = n_valid
-    else:
-      m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
-                                        structure, consume_input,
-                                        constraint_matrix)
-      if cfg.eigensolver == EigenSolver.SubspaceIteration:
-        w, u = _subspace(m, cfg, n_valid, descend)
-        eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
-                                                                 n_valid)
-        # The k extreme eigenpairs are all valid: no sentinels among them.
-        gap_n_valid = None
-      else:
-        w, eigenvectors = eigen_ops.sorted_eigh_similarity(
-            m, scale, descend=descend, n_valid=n_valid)
-        gap_n_valid = n_valid
-    eigenvalues, n_clusters, max_delta = _gap(w, cfg, descend, gap_n_valid)
+    with _span(timings, "refine"):
+      operand = _eig_operand(affinity, cfg, p_percentile, n_valid,
+                             consume_input, constraint_matrix)
+    return _eigendecompose(operand, cfg, n_valid, timings)
+
+
+def _eig_operand(affinity, cfg: PipelineConfig, p_percentile, n_valid,
+                 consume_input, constraint_matrix):
+  """Refinement (-> constraint after) (-> Laplacian) -> what the
+  eigensolver takes: (structure, matrix, scale), the scale None on the
+  GENERAL structure (see ``_symmetric_eig_operand``)."""
+  structure = _solver_structure(cfg, constraint_matrix is not None)
+  if structure != refinement_ops.GENERAL:
+    m, scale = _symmetric_eig_operand(affinity, cfg, p_percentile, n_valid,
+                                      structure, consume_input,
+                                      constraint_matrix)
+    return structure, m, scale
+  ropts = cfg.refinement_options
+  mat = refinement_ops.apply_refinement_sequence(
+      affinity, ropts, sequence=ropts.refinement_sequence or (),
+      p_percentile=p_percentile, n_valid=n_valid,
+      use_kernels=cfg.use_kernels, consume_input=consume_input)
+  if _constraint_after(cfg, constraint_matrix is not None):
+    mat = constraint_lib.adjust_affinity(
+        mat, constraint_matrix, cfg.constraint_options, n_valid)
+  descend = _descend(cfg)
+  if not descend:
+    mat = laplacian_ops.compute_laplacian(mat, cfg.laplacian_type,
+                                          n_valid=n_valid)
+  if n_valid is not None:
+    mat = eigen_ops.apply_padding_sentinels(mat, n_valid, descend)
+  return structure, mat, None
+
+
+def _eigendecompose(operand, cfg: PipelineConfig, n_valid, timings):
+  """The eigensolver on ``_eig_operand``'s operand, then the snapped
+  eigengap count: (eigenvalues, eigenvectors, n_clusters, max_delta)."""
+  structure, m, scale = operand
+  descend = _descend(cfg)
+  if structure == refinement_ops.GENERAL:
+    with _stage(timings, "host_eig"):
+      w, eigenvectors = eigen_ops.sorted_eig_general_host(m, descend)
+    gap_n_valid = n_valid
+  elif cfg.eigensolver == EigenSolver.SubspaceIteration:
+    w, u = _subspace(m, cfg, n_valid, descend)
+    eigenvectors = eigen_ops.recover_similarity_eigenvectors(u, scale,
+                                                             n_valid)
+    # The k extreme eigenpairs are all valid: no sentinels among them.
+    gap_n_valid = None
+  else:
+    with _span(timings, "eigh"):
+      w, eigenvectors = eigen_ops.sorted_eigh_similarity(
+          m, scale, descend=descend, n_valid=n_valid)
+    gap_n_valid = n_valid
+  eigenvalues, n_clusters, max_delta = _gap(w, cfg, descend, gap_n_valid)
   return eigenvalues, eigenvectors, n_clusters, max_delta
 
 
@@ -514,8 +541,11 @@ def spectral_embeddings_from_eigs(
 
 
 def _cluster_from_eigs(eigenvectors, n_gap, cfg: PipelineConfig,
-                       generator: torch.Generator, n_valid, kmeans_tol):
-  """Eigengap count -> spectral embeddings -> masked K-Means -> labels."""
+                       generator: torch.Generator, n_valid, kmeans_tol,
+                       timings=None):
+  """Eigengap count -> spectral embeddings -> masked K-Means -> labels.
+  With ``timings``' detail: the span "kmeans" (k-means++ and Lloyd) and
+  the counter "lloyd_rounds"."""
   n = eigenvectors.shape[0]
   dev = eigenvectors.device
   n_clusters = n_gap
@@ -529,10 +559,11 @@ def _cluster_from_eigs(eigenvectors, n_gap, cfg: PipelineConfig,
     weight = torch.ones((n,), dtype=emb.dtype, device=dev)
   else:
     weight = (rows < n_valid).to(emb.dtype)
-  labels = kmeans_ops.kmeans_fit(
-      emb, n_clusters, generator, custom_dist=cfg.custom_dist,
-      max_iter=cfg.max_iter, tol=kmeans_tol, k_max=cfg.max_clusters,
-      sample_weight=weight)
+  with _span(timings, "kmeans"):
+    labels = kmeans_ops.kmeans_fit(
+        emb, n_clusters, generator, custom_dist=cfg.custom_dist,
+        max_iter=cfg.max_iter, tol=kmeans_tol, k_max=cfg.max_clusters,
+        sample_weight=weight, timings=timings)
   labels = torch.where(rows < (n if n_valid is None else n_valid), labels, 0)
   return labels, n_clusters
 
@@ -635,21 +666,33 @@ def spectral_cluster_fixed_k(
   ``cfg.autotune`` the level-1 p_percentile sweep picks the refinement.
   Returns tensors (labels, n_clusters, eigenvalues, max_delta_norm).
   ``timings`` records the GENERAL route's host eig (see
-  refine_and_eigendecompose).
+  refine_and_eigendecompose), and with its ``detail`` the spans "refine"
+  (from the embeddings to the eigensolver's operand: the affinity, the
+  refinement sequence and the operand), "eigh" and "kmeans" and the
+  counter "lloyd_rounds" (see ``_cluster_from_eigs``).
   """
   _require_max_clusters(cfg)
   with fp32_precision():
-    affinity = prepare_affinity(embeddings, cfg, n_valid, constraint_matrix)
     if cfg.autotune is not None:
+      with _span(timings, "refine"):
+        affinity = prepare_affinity(embeddings, cfg, n_valid,
+                                    constraint_matrix)
       eigenvalues, eigenvectors, n_gap, max_delta = _autotune_sweep(
           affinity, cfg, n_valid, timings, constraint_matrix)
     else:
-      eigenvalues, eigenvectors, n_gap, max_delta = refine_and_eigendecompose(
-          affinity, cfg, n_valid=n_valid, consume_input=True, timings=timings,
-          constraint_matrix=constraint_matrix)
+      _check_supported(cfg)
+      with _span(timings, "refine"):
+        affinity = prepare_affinity(embeddings, cfg, n_valid,
+                                    constraint_matrix)
+        operand = _eig_operand(affinity, cfg, None, n_valid, True,
+                               constraint_matrix)
+      eigenvalues, eigenvectors, n_gap, max_delta = _eigendecompose(
+          operand, cfg, n_valid, timings)
+      del operand
     del affinity
     labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
-                                            generator, n_valid, kmeans_tol)
+                                            generator, n_valid, kmeans_tol,
+                                            timings)
   return labels, n_clusters, eigenvalues, max_delta
 
 
@@ -802,9 +845,10 @@ def spectral_cluster_fixed_k_staged(
   exact top-k route) or "staged_eigh" (full eigh), then "staged_finish"
   (snap, eigengap, K-Means). With
   ``timings`` (an observability.StageTimings) each stage's duration is
-  recorded. A configuration the executor cannot split
-  (``_staged_applicable``: the GENERAL structure, HostGeneral, in-graph
-  autotune) runs as ``spectral_cluster_fixed_k``.
+  recorded, and with its ``detail`` the span "kmeans" inside
+  "staged_finish" and the counter "lloyd_rounds". A configuration the
+  executor cannot split (``_staged_applicable``: the GENERAL structure,
+  HostGeneral, in-graph autotune) runs as ``spectral_cluster_fixed_k``.
 
   Routes, as in the JAX executor:
     * SubspaceIteration: top-k subspace iteration; the snap and the
@@ -851,5 +895,6 @@ def spectral_cluster_fixed_k_staged(
       eigenvalues, n_gap, max_delta = _gap(
           w, cfg, descend, n_valid if wmax is None else None, wmax)
       labels, n_clusters = _cluster_from_eigs(eigenvectors, n_gap, cfg,
-                                              generator, n_valid, 0.001)
+                                              generator, n_valid, 0.001,
+                                              timings)
   return labels, n_clusters, eigenvalues, max_delta

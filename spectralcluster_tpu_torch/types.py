@@ -236,8 +236,18 @@ class ClusterResult:
       ``max_clusters + 1`` extreme eigenvalues — the full-eigh paths return
       all N.
     * ``best_p_percentile`` is set only when AutoTune ran.
-    * ``timings`` always carries per-stage host wall-clock durations; the
-      AHC-reduction path prefixes the inner run's stages with ``inner_``.
+    * ``timings`` always carries the seconds of each stage of the call
+      (summed over its spans), timed on the device's timeline by a pair of
+      CUDA events on the card and by the host clock on the CPU (see
+      ``observability.StageTimings``): the branch's stages ("pipeline",
+      "fallback", "ahc_reduce", the host flow's "affinity" ... "kmeans",
+      "host_eig"), and with ``staged_stage_timings`` the staged
+      executor's stages and the spans "upload", "refine", "eigh",
+      "kmeans" and "download" too. The AHC-reduction path prefixes the
+      inner run's stages with ``inner_``.
+    * ``counters`` carries the call's counts with ``staged_stage_timings``
+      ("lloyd_rounds": the Lloyd rounds the host ran), and is empty
+      without it; prefixed like ``timings``.
   """
   labels: typing.Any                     # (N,) int array
   n_clusters: int = 0
@@ -245,3 +255,4 @@ class ClusterResult:
   max_delta_norm: float = 0.0
   best_p_percentile: typing.Optional[float] = None
   timings: typing.Optional[dict] = None
+  counters: typing.Optional[dict] = None

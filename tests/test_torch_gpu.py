@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from spectralcluster_tpu_torch import (configs, constraint, pipeline,
-                                       precision, prng, streaming, utils)
+from spectralcluster_tpu_torch import (configs, constraint, observability,
+                                       pipeline, precision, prng, streaming,
+                                       utils)
 from spectralcluster_tpu_torch.clusterer import SpectralClusterer
 from spectralcluster_tpu_torch.constraint import ConstraintMatrix
 from spectralcluster_tpu_torch.fixtures import (make_embeddings, make_stream,
@@ -272,6 +273,43 @@ def test_host_general_predict_launches_all_five(cuda):
   assert "host_eig" in result.timings
   np.testing.assert_array_equal(utils.enforce_ordered_labels(result.labels),
                                 _reference(512))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_spans_are_timed_by_events_on_the_card(cuda, monkeypatch, staged):
+  # Spans on, both executors: every span carries its CUDA event pair's
+  # device seconds, as ClusterResult.timings does, and no span syncs the
+  # card; the labels are those of the untraced run.
+  rec = observability.CallRecord()
+  monkeypatch.setattr(observability, "RECORD", rec)
+  x = make_embeddings(1024)
+  plain = configs.make_icassp2018_clusterer(
+      staged_execution_min_n=512 if staged else None).predict(x)
+
+  def no_sync(*_a, **_k):
+    raise AssertionError("a span synchronized the card")
+
+  monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+  result = configs.make_icassp2018_clusterer(
+      staged_execution_min_n=512 if staged else None,
+      staged_stage_timings=True).predict_with_details(x)
+  np.testing.assert_array_equal(result.labels, plain)
+  middle = ({"staged_prep", "staged_eigh", "staged_finish"} if staged
+            else {"refine", "eigh"})
+  assert set(result.timings) == {"pipeline", "upload", "kmeans",
+                                 "download"} | middle
+  assert result.counters["lloyd_rounds"] >= 1
+  (call,) = rec.last()
+  assert call.spans[0].name == "predict"
+  for s in call.spans:
+    assert s.device_s is not None and s.device_s > 0
+  for s in call.spans[1:]:
+    assert abs(result.timings[s.name] - s.device_s) < 1e-12
+  # The stages tile the pipeline span on the device's timeline.
+  pipe = result.timings["pipeline"]
+  assert sum(v for k, v in result.timings.items()
+             if k in middle | {"upload", "download"}
+             or (k == "kmeans" and not staged)) <= pipe * 1.001
 
 
 def _t2d_inputs(n):

@@ -128,7 +128,9 @@ def test_staged_matches_monolithic(solver):
   np.testing.assert_array_equal(out[0].numpy(), ref[0].numpy())
   assert int(out[1]) == int(ref[1]) == 2
   middle = "staged_subspace" if solver == "SubspaceIteration" else "staged_eigh"
-  assert set(timings.as_dict()) == {"staged_prep", middle, "staged_finish"}
+  assert set(timings.as_dict()) == {"staged_prep", middle, "staged_finish",
+                                    "kmeans"}
+  assert set(timings.counters()) == {"lloyd_rounds"}
 
 
 def test_staged_auto_past_dc_max_block_returns_topk():
@@ -143,7 +145,7 @@ def test_staged_auto_past_dc_max_block_returns_topk():
   full = pipeline.spectral_cluster_fixed_k(
       x, torch.Generator().manual_seed(0), _cfg())
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
-                                    "staged_finish"}
+                                    "staged_finish", "kmeans"}
   assert topk[2].shape == (8,) and full[2].shape == (512,)
   np.testing.assert_allclose(topk[2].numpy(), full[2].numpy()[:8],
                              atol=2e-4 * float(full[2].abs().max()))
@@ -184,7 +186,7 @@ def test_general_route_matches_jax(route, n_valid):
   aff = pipeline.prepare_affinity(torch.as_tensor(x), cfg, n_valid)
   w, v, n_c, _ = pipeline.refine_and_eigendecompose(
       aff, cfg, n_valid=n_valid, timings=timings)
-  assert set(timings.as_dict()) == {"host_eig"}
+  assert set(timings.as_dict()) == {"refine", "host_eig"}
   jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg, n_valid=n_valid)
   jw, jv, jn_c, _ = j_pipeline.refine_and_eigendecompose(jaff, jcfg,
                                                          n_valid=n_valid)
@@ -226,7 +228,7 @@ def test_staged_executor_runs_host_general_unsplit():
       x, torch.Generator().manual_seed(0), cfg, timings=timings)
   mono = pipeline.spectral_cluster_fixed_k(
       x, torch.Generator().manual_seed(0), cfg)
-  assert set(timings.as_dict()) == {"host_eig"}
+  assert set(timings.as_dict()) == {"refine", "host_eig", "kmeans"}
   for a, b in zip(staged, mono):
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
@@ -306,8 +308,9 @@ def test_predict_details_on_cpu_launch_no_kernel():
       device="cpu", staged_execution_min_n=512,
       staged_stage_timings=True).predict_with_details(make_embeddings(512))
   assert result.n_clusters == 2
-  assert {"pipeline", "staged_prep", "staged_eigh", "staged_finish"} <= set(
-      result.timings)
+  assert set(result.timings) == {"pipeline", "upload", "staged_prep",
+                                 "staged_eigh", "staged_finish", "kmeans",
+                                 "download"}
   assert all(v == 0 for v in fused.launch_counts().values())
 
 

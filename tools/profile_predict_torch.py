@@ -6,9 +6,12 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 tools/profile_predict_torch.py [--n 10240] [--runs 3]
 
 For each eigensolver it prints one JSON line with
-  * the staged executor's stage timings of each warm run (the stages
-    synchronize the card, so each is the device time of its work);
-  * K-Means: Lloyd rounds run, and seconds in k-means++ and in Lloyd;
+  * the stage and span timings of each warm run (``staged_stage_timings``:
+    each the device time of its work, from a pair of CUDA events);
+  * K-Means, from the program's record of the run
+    (``observability.recorded_calls``): the "kmeans" span's host and
+    device seconds (k-means++ and Lloyd) and the Lloyd rounds the host ran
+    (counter "lloyd_rounds");
   * for SubspaceIteration, from one torch.profiler trace of a warm predict:
     wall ms, device busy ms (the sum of the device time of every kernel),
     the device's idle share of the profiled wall time (the profiler slows
@@ -45,35 +48,9 @@ def main() -> int:
   sys.path.insert(0, HERE)
   from torch.profiler import ProfilerActivity, profile
 
-  from spectralcluster_tpu_torch import configs
+  from spectralcluster_tpu_torch import configs, observability
   from spectralcluster_tpu_torch.fixtures import make_embeddings
-  from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
   from spectralcluster_tpu_torch.types import EigenSolver
-
-  # Instrument K-Means from outside: count Lloyd rounds (one centroid
-  # update per round that did not stop) and time its two phases.
-  counts = {"rounds": 0, "kmeanspp_s": 0.0, "lloyd_s": 0.0}
-  update, plusplus, lloyd = (kmeans_ops._update_centroids,
-                             kmeans_ops.kmeans_plusplus,
-                             kmeans_ops.lloyd_iterations)
-
-  def timed(fn, key):
-    def wrapped(*a, **kw):
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      out = fn(*a, **kw)
-      torch.cuda.synchronize()
-      counts[key] += time.perf_counter() - t0
-      return out
-    return wrapped
-
-  def counted_update(*a):
-    counts["rounds"] += 1
-    return update(*a)
-
-  kmeans_ops._update_centroids = counted_update
-  kmeans_ops.kmeans_plusplus = timed(plusplus, "kmeanspp_s")
-  kmeans_ops.lloyd_iterations = timed(lloyd, "lloyd_s")
 
   smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                  "--format=csv,noheader").read().strip()
@@ -84,9 +61,13 @@ def main() -> int:
     clusterer.predict(x)                      # warm-up
     runs = []
     for _ in range(args.runs):
-      counts.update(rounds=0, kmeanspp_s=0.0, lloyd_s=0.0)
       result = clusterer.predict_with_details(x)
-      runs.append({"timings_s": result.timings, **counts})
+      (call,) = observability.recorded_calls(1)
+      kmeans = [s for s in call.spans if s.name == "kmeans"]
+      runs.append({"timings_s": result.timings,
+                   "lloyd_rounds": call.counters.get("lloyd_rounds"),
+                   "kmeans_host_s": sum(s.host_s for s in kmeans),
+                   "kmeans_device_s": sum(s.device_s for s in kmeans)})
     line = {"solver": solver.name, "n": args.n, "card": smi, "runs": runs}
     if solver == EigenSolver.SubspaceIteration:
       with profile(activities=[ProfilerActivity.CPU,
@@ -94,9 +75,11 @@ def main() -> int:
         t0 = time.perf_counter()
         clusterer.predict(x)
         wall_ms = (time.perf_counter() - t0) * 1e3
-      # Kernel entries only: an op's own entry repeats its kernels' time.
+      # Kernel entries only: an op's own entry, and a span's ``sct.*``
+      # range, repeat its kernels' time.
       kernels = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("sct.")]
 
       def device_ms(e):
         return getattr(e, "self_device_time_total",
