@@ -80,11 +80,31 @@ result line):
      prep, each sign step (with its TFLOP/s against the card's float32 and
      TF32 peaks), projection, Ritz and remainder, and its peak memory
      beside the predicted one;
+  3c. kmeans — kernel 8 (k-means++ and the cosine Lloyd loop in one
+     launch) against its twin on the inputs the main path gives it: the
+     spectral embeddings the icassp2018 predict hands to kmeans_fit at
+     N=1024, 10240 and 20480, and the ragged (16, 1024) chunk that
+     cluster_batch hands to kmeans_fit_batched (16 utterances of 256 to
+     1024 rows): labels equal; rounds equal, or, where they differ, the
+     stop rule's mean within KM_BOUNDARY of 0 on both sides (where it
+     rounds to <= 0 the rule cannot fire); k-means++'s seeds (both sides
+     at max_iter=0) within KM_SEED_RTOL of the rows' largest norm (rows
+     of one tight cluster) or, where the card's twin (cuBLAS products)
+     parts from them further, the twin's run on the CPU, the centroids
+     then within 1e-5 of that run's where the rounds are its; centroids
+     within rtol=1e-5, atol=1e-6 where neither happened; timed as the
+     other kernels (its launch counts reset just before: one
+     kernel-8 launch a call, nothing else) beside the twin, and beside its
+     latency bound: its launch and its serial steps (block barriers, block
+     sums and argmaxes, each thread's Gumbel draws row after row) in the
+     kernel's order, each at the latency that tools/kmeans_latency.cu
+     measures for it on one block of 512 threads;
   4. paths — make_icassp2018_clusterer(...).predict on make_embeddings(N),
      labels held against benchmarks/reference_labels.npz at N=512, 2048 and
      the leg's N, with launch counts zeroed after the cold run and read
      after the warm runs (the comparison launches of phase 3 do not count);
-     each leg fails if a kernel of its path did not launch:
+     each leg fails if a kernel of its path did not launch, or if K-Means
+     did not run as one kernel-8 launch a predict:
        * Auto and SubspaceIteration at N=10240 (one cold run, WARM_RUNS
          warm): kernels 1-4 (RowWiseNormalize is absorbed into the eigh
          similarity transform there) and the subspace solver's 6-7, as
@@ -228,6 +248,19 @@ API_WARM_RUNS = 2
 T2D_WARM_RUNS = 2
 N_BIG = 20480
 DC_REPS = 3           # the certified route alone: one cold run, two timed
+KM_THREADS = 512      # kernel 8's block (kKmThreads)
+KM_PROBE_REPS = 256   # chained steps a latency probe of kernel 8 times
+# Lloyd's stop rule cannot fire once its mean distance rounds to <= 0
+# (ROADMAP, shared with the JAX package); where the mean sits within this
+# of 0, the last bit of a sum decides between stopping and running to
+# max_iter + 1 rounds, so kernel 8's round count may differ from the twin's
+# there (its labels may not).
+KM_BOUNDARY = 2.0 ** -20
+# k-means++ seeds of kernel 8 and its twin may part by this much of the
+# rows' largest norm: two rows of one tight cluster in a spectral
+# embedding, whose potentials tie to float32 rounding; rows of two
+# clusters lie ~1e-1 of it apart.
+KM_SEED_RTOL = 1e-3
 MULTI_KS = (4, 7)
 RAGGED_KS = (2, 4, 7)          # the ragged batched-SubspaceIteration leg
 STREAM_STEPS = 1500
@@ -1497,6 +1530,214 @@ def main() -> int:
   torch.cuda.empty_cache()
   mark("dc_breakdown")
 
+  # 3c. Kernel 8 (the whole K-Means) against its twin on what the main
+  # path hands it: the spectral embeddings that the icassp2018 predict
+  # passes to kmeans_fit at N_BATCH (a call's size), N_MAIN and N_BIG, and
+  # the ragged (16, 1024) chunk that cluster_batch passes to
+  # kmeans_fit_batched.
+  km_inputs = {}
+  fit, fit_batched = kmeans_ops.kmeans_fit, kmeans_ops.kmeans_fit_batched
+
+  def fit_spy(x, n_clusters, generator=None, **kw):
+    key = kw.get("key")
+    km_inputs[f"N={x.shape[-2]}"] = (
+        x.clone(), n_clusters,
+        prng.key(generator.initial_seed()) if key is None else key,
+        kw["k_max"], kw["sample_weight"], kw.get("draw_rows"),
+        kw["max_iter"], kw["tol"])
+    return fit(x, n_clusters, generator, **kw)
+
+  def fit_batched_spy(x, n_clusters, keys, **kw):
+    km_inputs[f"B={x.shape[0]},N={x.shape[1]},ragged"] = (
+        x.clone(), n_clusters.clone(), np.array(keys), kw["k_max"],
+        kw["sample_weight"].clone(), None, kw["max_iter"], kw["tol"])
+    return fit_batched(x, n_clusters, keys, **kw)
+
+  kmeans_ops.kmeans_fit = fit_spy
+  kmeans_ops.kmeans_fit_batched = fit_batched_spy
+  try:
+    for n in (N_BATCH, N_MAIN, N_BIG):
+      configs.make_icassp2018_clusterer().predict(make_embeddings(n, D_MAIN))
+    km_lengths = (1024, 1000, 777, 512, 300, 1024, 256, 900) * 2
+    batch_lib.cluster_batch(
+        [make_embeddings_k(n, 2 + i % 6, D_MAIN, seed=i)[0]
+         for i, n in enumerate(km_lengths)],
+        pipeline.PipelineConfig(
+            refinement_options=configs.icassp2018_refinement_options(),
+            min_clusters=2, max_clusters=7, custom_dist="cosine",
+            max_iter=300, eigensolver=EigenSolver.Auto),
+        mesh_lib.make_mesh())
+  finally:
+    kmeans_ops.kmeans_fit = fit
+    kmeans_ops.kmeans_fit_batched = fit_batched
+  # The latencies kernel 8 waits on (tools/kmeans_latency.cu): each probe
+  # at 0 and KM_PROBE_REPS steps, timed as the kernel is.
+  probe = ctypes.CDLL(build.build((os.path.join(HERE, "tools",
+                                                "kmeans_latency.cu"),)))
+  probe.probe_kmeans_latency.argtypes = [ctypes.c_int] * 3 + [
+      ctypes.c_void_p] * 2
+  probe.probe_kmeans_latency.restype = ctypes.c_int
+  probe_out = torch.empty((1,), device=dev)
+
+  def probe_ms(what, m, reps):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+      rc = probe.probe_kmeans_latency(what, m, reps, probe_out.data_ptr(),
+                                      stream)
+      if rc:
+        raise SystemExit(f"probe_kmeans_latency: CUDA error {rc}")
+    return time_ms(torch, run)
+
+  km_launch_ms = probe_ms(0, 1, 0)
+  km_lat = {}
+  for name, what, m in (("sync", 0, 1), ("sum_wide", 1, 72), ("sum_1", 2, 1),
+                        ("sum_trials", 2, 3), ("argmax_1", 3, 1),
+                        ("argmax_trials", 3, 3), ("draw_1", 4, 1),
+                        ("draws_trials", 4, 3)):
+    km_lat[name] = (probe_ms(what, m, KM_PROBE_REPS) - km_launch_ms) / (
+        KM_PROBE_REPS)
+  km_lat["launch"] = km_launch_ms
+  log(json.dumps({"phase": "kmeans_latency_ms", **km_lat}))
+
+  def kmeans_latency_ms(n, k_max, rounds):
+    """Kernel 8's latency model at width 8 (one pass of eight clusters, 3
+    trials): its launch, then its block-wide steps in order, each at the
+    latency measured above, and each thread's draws one row after another;
+    the per-row arithmetic between the steps is left out."""
+    rows = -(-n // KM_THREADS)
+    lat = km_lat
+    seed = (lat["sync"]
+            + rows * lat["draw_1"] + lat["argmax_1"] + 2 * lat["sync"]
+            + (k_max - 1) * (rows * lat["draws_trials"]
+                             + lat["argmax_trials"] + 3 * lat["sync"]
+                             + lat["sum_trials"]))
+    lloyd = (lat["sum_1"] + lat["sync"] + rounds * lat["sum_1"]
+             + (rounds - 1) * (lat["sum_wide"] + 2 * lat["sync"]))
+    return lat["launch"] + seed + lloyd
+
+  def kmeans_against_twin(args_, got, want):
+    """Per utterance: rounds, labels equal, the centroids' largest gap;
+    the stop rule's mean at each side's stopping round (the weighted mean
+    of each row's least cosine distance to the centroids it stopped with);
+    whether the k-means++ seeds (max_iter=0) equal the twin's on the card
+    and, where they part, the twin's on the CPU (the path the CPU tests
+    hold against the JAX package), with the centroids' gap to that run."""
+    n, d, k_max = args_[0].shape[-2], args_[0].shape[-1], args_[3]
+    x_u, w_u = args_[0].reshape(-1, n, d), args_[4].reshape(-1, n)
+    n_cl = torch.as_tensor(args_[1]).reshape(-1).expand(x_u.shape[0])
+    seed_args = args_[:6] + (0, args_[7])
+    seeds = [fn(*seed_args)[1].reshape(-1, k_max, d)
+             for fn in (fused.kmeans, fused.kmeans_plain)]
+    host_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args_)
+    host = None
+    lab = [o[0].reshape(-1, n) for o in (got, want)]
+    cen = [o[1].reshape(-1, k_max, d) for o in (got, want)]
+    rnd = [o[2].reshape(-1) for o in (got, want)]
+
+    def gap(a, b):
+      return float(torch.max(torch.abs(a.cpu() - b.cpu())))
+
+    rows = []
+    for u in range(x_u.shape[0]):
+      live = w_u[u] > 0
+      xs, ws = x_u[u][live], w_u[u][live]
+      means = [float(torch.sum(affinity_ops.cdist_cosine(
+          xs, c[u, :int(n_cl[u])]).min(-1).values * ws) / torch.sum(ws))
+               for c in cen]
+      row = {
+          "u": u, "n_clusters": int(n_cl[u]), "rounds": int(rnd[0][u]),
+          "twin_rounds": int(rnd[1][u]),
+          "labels_equal": bool(torch.equal(lab[0][u], lab[1][u])),
+          "centroid_gap": gap(cen[0][u], cen[1][u]),
+          "stop_mean": means[0], "twin_stop_mean": means[1],
+          "seeds_gap": gap(seeds[0][u], seeds[1][u]),
+          # Rows of one tight cluster lie this close: k-means++'s
+          # potentials of two of them tie to the sums' rounding.
+          "seeds_tol": KM_SEED_RTOL * float(torch.amax(torch.linalg.norm(
+              xs, dim=-1)))}
+      if row["seeds_gap"] > row["seeds_tol"]:
+        if host is None:
+          host = [fused.kmeans_plain(*a_) for a_ in (
+              host_args[:6] + (0, host_args[7]), host_args)]
+        row["cpu_seeds_gap"] = gap(seeds[0][u],
+                                   host[0][1].reshape(-1, k_max, d)[u])
+        row["cpu_rounds"] = int(host[1][2].reshape(-1)[u])
+        row["cpu_centroid_gap"] = gap(cen[0][u],
+                                      host[1][1].reshape(-1, k_max, d)[u])
+      rows.append(row)
+    return rows
+
+  km_rows = []
+  for case, args_ in km_inputs.items():
+    x_km, k_max = args_[0], args_[3]
+    if max(k_max, x_km.shape[-1]) > 8 or 2 + int(np.log(k_max)) != 3:
+      raise SystemExit(f"kmeans {case}: the latency model is for width 8 "
+                       "and 3 trials")
+    got, want = fused.kmeans(*args_), fused.kmeans_plain(*args_)
+    check("kmeans", f"{case},labels", got[0].float(), want[0].float(), True)
+    per_utt = kmeans_against_twin(args_, got, want)
+    log(json.dumps({"phase": "kernels", "kernel": "kmeans", "case": case,
+                    "utterances": per_utt}))
+    # Rounds may differ only where the stop rule's mean sits at 0; seeds
+    # may part from the twin on the card only where they are the twin's
+    # on the CPU (cuBLAS rounds k-means++'s potentials otherwise), and the
+    # centroids are then held against that run.
+    same = [u["u"] for u in per_utt if u["rounds"] == u["twin_rounds"]
+            and u["seeds_gap"] <= u["seeds_tol"]]
+    if same:
+      check("kmeans", f"{case},centroids",
+            got[1].reshape(-1, k_max, x_km.shape[-1])[same],
+            want[1].reshape(-1, k_max, x_km.shape[-1])[same], False)
+    parted = [u for u in per_utt if u["seeds_gap"] > u["seeds_tol"]]
+    for name, off, err, tol in (
+        ("rounds", [u for u in per_utt if u["rounds"] != u["twin_rounds"]
+                    and not (abs(u["stop_mean"]) <= KM_BOUNDARY
+                             and abs(u["twin_stop_mean"]) <= KM_BOUNDARY)],
+         max(abs(u["rounds"] - u["twin_rounds"]) for u in per_utt),
+         f"exact, or both stop means within {KM_BOUNDARY} of 0"),
+        ("seeds", [u for u in parted if u["cpu_seeds_gap"] > u["seeds_tol"]],
+         max(u["seeds_gap"] for u in per_utt),
+         f"the card twin's, or the CPU twin's, within {KM_SEED_RTOL} of "
+         "the rows' largest norm"),
+        ("centroids where the seeds are the CPU twin's",
+         [u for u in parted if u["rounds"] == u["cpu_rounds"]
+          and not u["cpu_centroid_gap"] <= 1e-5],
+         max([u["cpu_centroid_gap"] for u in parted] or [0.0]),
+         "1e-5 where the rounds are the CPU twin's")):
+      checks.append({"kernel": "kmeans", "case": f"{case},{name}",
+                     "max_abs_err": err, "tolerance": tol, "ok": not off})
+      log(json.dumps({"phase": "kernels", **checks[-1]}))
+    fused.reset_launch_counts()
+    kernel_ms = time_ms(torch, lambda a=args_: fused.kmeans(*a))
+    calls = 3 + REPS * (1 + EVENT_BATCH)
+    launches = fused.launch_counts()
+    plain_ms = time_ms(torch, lambda a=args_: fused.kmeans_plain(*a),
+                       reps=3, batch=2, warmup=1)
+    rounds = got[2].reshape(-1).tolist()
+    bound = max(kmeans_latency_ms(x_km.shape[-2], k_max, r) for r in rounds)
+    km_rows.append({
+        "case": case, "rounds": rounds, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+        "bound_by": "latency", "share_of_bound": bound / kernel_ms,
+        "launches_per_call": launches["kmeans"] / calls,
+        "other_launches": sum(launches.values()) - launches["kmeans"]})
+    log(json.dumps({"phase": "timing", "kernel": "kmeans", **km_rows[-1]}))
+    if launches["kmeans"] != calls or km_rows[-1]["other_launches"]:
+      raise SystemExit(f"kmeans {case}: launches {launches} for {calls} "
+                       "calls")
+  failed = [c for c in checks if not c["ok"]]
+  if failed:
+    raise SystemExit(f"kernel disagrees with its twin: {failed}")
+  results["kmeans"] = {"latency_ms": km_lat, "cases": km_rows}
+  times["kmeans"] = {**km_rows[0], "cases": km_rows}
+  timed["kmeans"] = None
+  no_library["kmeans"] = ("no single PyTorch call: k-means++ and the Lloyd "
+                          "loop are ~550 calls")
+  del km_inputs, x_km, got, want
+  torch.cuda.empty_cache()
+  mark("kmeans")
+
   # 4. Paths: each leg's launch counts are zeroed after its cold run and
   # read after its warm runs.
   ref = np.load(os.path.join(HERE, "benchmarks", "reference_labels.npz"))
@@ -1575,6 +1816,9 @@ def main() -> int:
     idle = [k for k in expected if launches[k] == 0]
     if idle:
       raise SystemExit(f"{leg}: kernels not launched by predict: {idle}")
+    if launches["kmeans"] != warm_runs:
+      raise SystemExit(f"{leg}: {launches['kmeans']} K-Means launches "
+                       f"(kernel 8) in {warm_runs} predicts")
     bad = [i for i in dc_infos
            if i["route"] == "certified" and not i["res_returned"] <= 1e-5]
     if bad:
@@ -1952,7 +2196,7 @@ def main() -> int:
   # threshold and the ROWNORM_TAIL scale are the two row_max launches).
   per_chunk = {"affinity_batched": 1, "row_max_batched": 2,
                "crop_diagonal_batched": 1,
-               "threshold_symmetrize_general_batched": 1}
+               "threshold_symmetrize_general_batched": 1, "kmeans": 1}
 
   def expected(chunks, per=None):
     return {k: (per or per_chunk).get(k, 0) * chunks
@@ -2263,7 +2507,7 @@ def main() -> int:
   per_general_chunk = {"affinity_batched": 1, "row_max_batched": 1,
                        "crop_diagonal_batched": 1,
                        "threshold_symmetrize_general_batched": 1,
-                       "row_wise_normalize_batched": 1}
+                       "row_wise_normalize_batched": 1, "kmeans": 1}
   _, cold_s = timed_call(
       lambda: batch_lib.cluster_batch(utts[:hb], hcfg, mesh))
   fused.reset_launch_counts()
@@ -2419,6 +2663,9 @@ def main() -> int:
       t2d_b_x, t2d_b_cm)
   per_level = {"affinity_batched": 1,
                "threshold_symmetrize_general_batched": 1}
+  # One batched K-Means (kernel 8) on the winning candidates, after the
+  # levels.
+  want_autotuned = dict(expected(levels, per_level), kmeans=1)
   run = {
       "leg": "cluster_batch_autotuned", "batch": T2D_BATCH, "n": N_BATCH,
       "d": D_MAIN, "candidates_per_utterance": candidates,
@@ -2440,24 +2687,25 @@ def main() -> int:
   if not run["parity_ids"]:
     raise SystemExit("cluster_batch_autotuned: labels differ from the JAX "
                      "package's")
-  if launches != expected(levels, per_level):
+  if launches != want_autotuned:
     raise SystemExit(f"cluster_batch_autotuned: launches {launches}, "
-                     f"expected {expected(levels, per_level)}")
+                     f"expected {want_autotuned}")
   mark("batch_autotuned")
 
   # 8. The row-sharded path: no refinement kernel may launch in it; its
   # subspace solve multiplies each stripe by the panel with the solver's
-  # kernels.
+  # kernels, and its K-Means on the gathered embedding is kernel 8.
   fused.reset_launch_counts()
   results["sharded"] = sharded_phase(torch, np, dev, ref[f"labels_{N_BIG}"],
                                      log)
   sharded_launches = fused.launch_counts()
   results["sharded"]["launches"] = sharded_launches
   log(json.dumps({"phase": "sharded", "launches": sharded_launches}))
-  if (any(v for k, v in sharded_launches.items() if k not in solver_kernels)
-      or not all(sharded_launches[k] for k in solver_kernels)):
+  sharded_kernels = solver_kernels + ("kmeans",)
+  if (any(v for k, v in sharded_launches.items() if k not in sharded_kernels)
+      or not all(sharded_launches[k] for k in sharded_kernels)):
     raise SystemExit(f"sharded: kernels launched {sharded_launches}, "
-                     f"expected {solver_kernels} only")
+                     f"expected {sharded_kernels} only")
   mark("sharded")
   batch_launches = {
       "cluster_batch": results["batch"]["launches"],
@@ -2476,8 +2724,8 @@ def main() -> int:
           "fused.py:148-218 threshold_symmetrize_general_pallas",
       "row_wise_normalize": "fused.py:262-283 row_wise_normalize_pallas",
   }
-  # The solver's kernels replace XLA operations of the JAX package, not
-  # Pallas kernels.
+  # The solver's kernels and kernel 8 replace XLA operations of the JAX
+  # package, not Pallas kernels.
   solver_sources = {
       "cholqr_pass_pair": "spectralcluster_tpu/ops/eigen.py:280-304 (XLA "
                           "Cholesky and triangular solve of cholqr2_shifted "
@@ -2485,6 +2733,9 @@ def main() -> int:
       "panel_matmul": "spectralcluster_tpu/ops/eigen.py:415-427 (XLA dot: "
                       "the subspace iteration's (N, N) x (N, b) product; "
                       "no Pallas kernel)",
+      "kmeans": "spectralcluster_tpu/ops/kmeans.py kmeans_fit (XLA ops: "
+                "k-means++ and the cosine Lloyd while_loop; no Pallas "
+                "kernel)",
   }
   kernels = []
   for name in timed:

@@ -4,7 +4,8 @@
 // Kernels 1-5 each compute what one Pallas TPU kernel of
 // spectralcluster_tpu/kernels/fused.py computes; none is carried over block
 // by block. Kernels 6-7 compute what the JAX package's subspace solver
-// leaves to XLA (its panel product, a CholeskyQR pass). The
+// leaves to XLA (its panel product, a CholeskyQR pass), kernel 8 the whole
+// of its K-Means (k-means++ and the cosine Lloyd loop). The
 // plain PyTorch twin of each kernel sits beside its wrapper in
 // spectralcluster_tpu_torch/kernels/fused.py and defines the semantics.
 //
@@ -41,8 +42,11 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <math.h>
 #include <stdint.h>
+
+#include "kmeans.cuh"
 
 namespace {
 
@@ -1744,6 +1748,387 @@ cudaError_t launch_cholqr_pass(const float* y, const float* g, float* qt,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 8. K-Means: k-means++ seeding and the cosine Lloyd loop with its stop
+//    rule, one block per utterance, one launch per call or batch.
+//
+// Replaces no Pallas kernel: the JAX package runs kmeans_fit
+// (spectralcluster_tpu/ops/kmeans.py) as XLA ops inside its jit, Lloyd as a
+// lax.while_loop. Eager PyTorch ran it as ~550 small launches a call, paced
+// by the host: k-means++'s Gumbel draws made in numpy and copied to the
+// card, a dozen ops per centre, ~30 launches per Lloyd round and a host
+// read of the stop flags every 16 rounds. Its twin, kmeans_plain in
+// kernels/fused.py (ops/kmeans.py's _plusplus and _lloyd with the cosine
+// distance), defines the semantics, which this kernel computes so:
+//  * draws: JAX's threefry2x32 stream as prng.py computes it. The
+//    utterance's key is split into sub-keys (counter j of the key); trial t
+//    of step j at row i takes draw t·rows + i of sub-key j, made into a
+//    float32 Gumbel value with numpy's float32 log (kmeans.cuh's np_logf),
+//    so the draws equal prng.gumbel's bit for bit. Only the draws of rows
+//    < n are made;
+//  * seeding: the first centre is the argmax of log(w + 1e-30) + g; each
+//    further one the best of `trials` candidates, drawn from
+//    log(closest + 1e-30) + g, by squared-euclidean potentials weighted by
+//    w. Every argmax and argmin orders as torch's: NaN first, then the
+//    lower index on ties;
+//  * Lloyd: cosine distances to the centroids, columns >= n_clusters at
+//    +inf; the weighted mean of the rows' least distances; stop when it is
+//    <= the previous round's and >= (1 - tol)·previous, or after
+//    max_iter + 1 rounds, with that round's labels; otherwise the weighted
+//    centroid means, an empty cluster keeping its centroid. The loop ends
+//    at the stopping round itself.
+// Each product, division and square root rounds where the twin's torch op
+// rounds (no contraction into an FMA where torch rounds twice). The sums
+// run in one fixed order, another than the twin's cuBLAS products and
+// reductions, so a distance or a mean can differ in its last bits: that
+// moves a label only at a near tie, and a round count only where the mean
+// sits on the stop rule's boundary.
+// Bound: latency. A round is ~2·k·d FMAs and k divisions a row (7 x 7 at
+// N=1024: ~0.1 MFLOP, a microsecond at any rate), then block-wide
+// reductions that nothing can hide: the rounds, and k-means++'s k_max - 1
+// steps, are serial (tools/kmeans_latency.cu times each such step on the
+// card; chip_smoke.py adds them up in this kernel's order as its bound).
+// Design, against that: one block of 512 threads per
+// utterance; its rows in shared memory where they fit (n·d·4 <= 160 KB:
+// every call, batched chunks of 1024), read through L1/L2 otherwise (a
+// long recording's 573 KB); the centroids, their norms and the candidates
+// in shared memory; each thread sums its rows into every centroid column
+// at once (64 / width clusters per pass), reduced by warp shuffles and one
+// pass over the warps' partials in a fixed order, so a run repeats its
+// bits; the labels go to the output each round, the round count to device
+// memory. No host value is read: n_clusters and a batch's keys come from
+// device memory.
+// ---------------------------------------------------------------------------
+
+using namespace sct_km;
+
+constexpr int kKmSmemRowsBytes = 160 * 1024;
+
+// torch.minimum: NaN where either is.
+__device__ __forceinline__ float km_nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+// A row of d <= KD columns, zero past d (zeros add nothing below).
+template <int KD>
+__device__ __forceinline__ void km_load_row(float (&v)[KD], const float* xs,
+                                            int i, int d) {
+  const float* r = xs + (long long)i * d;
+#pragma unroll
+  for (int j = 0; j < KD; ++j) v[j] = j < d ? r[j] : 0.0f;
+}
+
+// torch.sum(v * v): each square rounded, then summed in column order.
+template <int KD>
+__device__ __forceinline__ float km_sumsq(const float* v) {
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KD; ++j) s = __fadd_rn(s, __fmul_rn(v[j], v[j]));
+  return s;
+}
+
+// A row's product with a centre: one fmaf chain in column order.
+template <int KD>
+__device__ __forceinline__ float km_dot(const float (&v)[KD],
+                                        const float* c) {
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KD; ++j) s = fmaf(v[j], c[j], s);
+  return s;
+}
+
+// cdist_sqeuclidean of a row and a centre: (x2 + y2) - 2·dot, at least 0
+// (NaN stays NaN, as clamp_min leaves it).
+__device__ __forceinline__ float km_sqdist(float x2, float y2, float dot) {
+  const float d2 = __fsub_rn(__fadd_rn(x2, y2), __fmul_rn(2.0f, dot));
+  return d2 < 0.0f ? 0.0f : d2;
+}
+
+struct KmeansArgs {
+  const float* x;          // b utterances of (n, d), contiguous
+  const float* w;          // (b, n) weights, or null: every weight 1
+  const int* n_clusters;   // (b,) on the card, or null: nc_value
+  int nc_value;
+  const uint32_t* keys;    // (b, 2) JAX key data, or null: (k1, k2)
+  uint32_t k1, k2;
+  int n, d, k_max, rows, trials, max_iter;
+  float keep;              // float32(1 - tol)
+  int rows_in_smem;
+  int* labels;             // (b, n)
+  float* centroids;        // (b, k_max, d)
+  int* rounds;             // (b,)
+  float* closest;          // (b, n) scratch: k-means++'s potentials
+};
+
+// KD: the width (k_max and d) bound; G: the clusters whose sums a thread
+// keeps at once, G·(KD + 1) registers.
+template <int KD, int G>
+__global__ void __launch_bounds__(kKmThreads, 1)
+kmeans_kernel(const KmeansArgs a) {
+  constexpr int kSums = G * (KD + 1);
+  extern __shared__ float rows_smem[];
+  __shared__ float cent[kKmMaxWidth][KD];
+  __shared__ float cnorm[kKmMaxWidth];
+  __shared__ float cand[kKmMaxTrials][KD];
+  __shared__ float cand_sq[kKmMaxTrials];
+  __shared__ uint32_t sub[kKmMaxWidth][2];
+  __shared__ float red[kKmWarps * kSums];
+  __shared__ int red_i[kKmWarps * kKmMaxTrials];
+  __shared__ float sums[kSums];
+  __shared__ int picked[kKmMaxTrials];
+
+  const int tid = threadIdx.x;
+  const int u = blockIdx.x;
+  const int n = a.n, d = a.d, k_max = a.k_max, trials = a.trials;
+  const float* xg = a.x + (long long)u * n * d;
+  const float* w = a.w ? a.w + (long long)u * n : nullptr;
+  int* labels = a.labels + (long long)u * n;
+  float* closest = a.closest + (long long)u * n;
+  const int nc_raw = a.n_clusters ? a.n_clusters[u] : a.nc_value;
+  const int nc = nc_raw < 0 ? 0 : (nc_raw > k_max ? k_max : (int)nc_raw);
+
+  // jax.random.split(key, k_max + 1): sub-key j is the key's counter j.
+  if (tid < k_max) {
+    uint32_t s1 = 0u, s2 = static_cast<uint32_t>(tid);
+    threefry2x32(a.keys ? a.keys[2 * u] : a.k1,
+                 a.keys ? a.keys[2 * u + 1] : a.k2, s1, s2);
+    sub[tid][0] = s1;
+    sub[tid][1] = s2;
+  }
+  const float* xs = xg;
+  if (a.rows_in_smem) {
+    for (int e = tid; e < n * d; e += kKmThreads) rows_smem[e] = xg[e];
+    xs = rows_smem;
+  }
+  __syncthreads();
+
+  // k-means++: the first centre, argmax of log(w + 1e-30) + g.
+  float bv[kKmMaxTrials];
+  int bi[kKmMaxTrials];
+  bv[0] = -INFINITY;
+  bi[0] = INT_MAX;
+  for (int i = tid; i < n; i += kKmThreads) {
+    const float wi = w ? w[i] : 1.0f;
+    const float v = __fadd_rn(logf(__fadd_rn(wi, 1e-30f)),
+                              gumbel_draw(sub[0][0], sub[0][1],
+                                          static_cast<uint32_t>(i)));
+    if (km_max_first(v, i, bv[0], bi[0])) {
+      bv[0] = v;
+      bi[0] = i;
+    }
+  }
+  km_block_argmax(bv, bi, 1, red, red_i, picked);
+  if (tid < KD) {
+    cent[0][tid] = tid < d ? xs[(long long)picked[0] * d + tid] : 0.0f;
+  }
+  __syncthreads();
+  if (tid == 0) cand_sq[0] = km_sumsq<KD>(cent[0]);
+  __syncthreads();
+  for (int i = tid; i < n; i += kKmThreads) {
+    float v[KD];
+    km_load_row<KD>(v, xs, i, d);
+    const float wi = w ? w[i] : 1.0f;
+    const float d2 =
+        km_sqdist(km_sumsq<KD>(v), cand_sq[0], km_dot<KD>(v, cent[0]));
+    closest[i] = wi > 0.0f ? d2 : 0.0f;
+  }
+
+  // Each further centre: the candidate of least weighted potential.
+  for (int j = 1; j < k_max; ++j) {
+    const uint32_t s1 = sub[j][0], s2 = sub[j][1];
+#pragma unroll
+    for (int t = 0; t < kKmMaxTrials; ++t) {
+      bv[t] = -INFINITY;
+      bi[t] = INT_MAX;
+    }
+    for (int i = tid; i < n; i += kKmThreads) {
+      const float wi = w ? w[i] : 1.0f;
+      const float logit =
+          wi > 0.0f ? logf(__fadd_rn(closest[i], 1e-30f)) : -INFINITY;
+#pragma unroll
+      for (int t = 0; t < kKmMaxTrials; ++t) {
+        if (t < trials) {
+          const uint32_t c = static_cast<uint32_t>(t) *
+                                 static_cast<uint32_t>(a.rows) +
+                             static_cast<uint32_t>(i);
+          const float v = __fadd_rn(logit, gumbel_draw(s1, s2, c));
+          if (km_max_first(v, i, bv[t], bi[t])) {
+            bv[t] = v;
+            bi[t] = i;
+          }
+        }
+      }
+    }
+    km_block_argmax(bv, bi, trials, red, red_i, picked);
+    for (int e = tid; e < trials * KD; e += kKmThreads) {
+      const int t = e / KD, jj = e % KD;
+      cand[t][jj] = jj < d ? xs[(long long)picked[t] * d + jj] : 0.0f;
+    }
+    __syncthreads();
+    if (tid < trials) cand_sq[tid] = km_sumsq<KD>(cand[tid]);
+    __syncthreads();
+    float pot[kKmMaxTrials];
+#pragma unroll
+    for (int t = 0; t < kKmMaxTrials; ++t) pot[t] = 0.0f;
+    for (int i = tid; i < n; i += kKmThreads) {
+      float v[KD];
+      km_load_row<KD>(v, xs, i, d);
+      const float wi = w ? w[i] : 1.0f;
+      const float x2 = km_sumsq<KD>(v);
+      const float c = closest[i];
+#pragma unroll
+      for (int t = 0; t < kKmMaxTrials; ++t) {
+        if (t < trials) {
+          const float nc_t =
+              wi > 0.0f
+                  ? km_nan_min(c, km_sqdist(x2, cand_sq[t],
+                                            km_dot<KD>(v, cand[t])))
+                  : 0.0f;
+          pot[t] = __fadd_rn(pot[t], __fmul_rn(nc_t, wi));
+        }
+      }
+    }
+    km_block_sum<kKmMaxTrials>(pot, trials, red, sums);
+    int best = 0;
+    for (int t = 1; t < trials; ++t) {
+      if (km_min_first(sums[t], t, sums[best], best)) best = t;
+    }
+    if (tid < KD) cent[j][tid] = cand[best][tid];
+    for (int i = tid; i < n; i += kKmThreads) {
+      float v[KD];
+      km_load_row<KD>(v, xs, i, d);
+      const float wi = w ? w[i] : 1.0f;
+      const float d2 = km_sqdist(km_sumsq<KD>(v), cand_sq[best],
+                                 km_dot<KD>(v, cand[best]));
+      closest[i] = wi > 0.0f ? km_nan_min(closest[i], d2) : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  // Lloyd, from the seeded centres.
+  {
+    float total[1] = {0.0f};
+    for (int i = tid; i < n; i += kKmThreads) {
+      total[0] = __fadd_rn(total[0], w ? w[i] : 1.0f);
+    }
+    km_block_sum<1>(total, 1, red, sums);
+  }
+  const float w_total = sums[0];
+  if (tid < k_max) cnorm[tid] = sqrtf(km_sumsq<KD>(cent[tid]));
+  __syncthreads();
+  float prev = 0.0f;
+  int round = 0;
+  while (true) {
+    ++round;
+    // Assignment, with the first G clusters' sums on the way.
+    float acc[kSums];
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+    float msum[1] = {0.0f};
+    for (int i = tid; i < n; i += kKmThreads) {
+      float v[KD];
+      km_load_row<KD>(v, xs, i, d);
+      const float wi = w ? w[i] : 1.0f;
+      const float xn = sqrtf(km_sumsq<KD>(v));
+      float best_d = INFINITY;
+      int best_k = INT_MAX;
+      for (int k = 0; k < k_max; ++k) {
+        const float dist =
+            k < nc ? __fsub_rn(1.0f, __fdiv_rn(km_dot<KD>(v, cent[k]),
+                                               __fmul_rn(xn, cnorm[k])))
+                   : INFINITY;
+        if (km_min_first(dist, k, best_d, best_k)) {
+          best_d = dist;
+          best_k = k;
+        }
+      }
+      labels[i] = best_k;
+      if (wi > 0.0f) msum[0] = __fadd_rn(msum[0], __fmul_rn(best_d, wi));
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float wk = best_k == g ? wi : 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < KD; ++jj) {
+          acc[g * (KD + 1) + jj] = fmaf(wk, v[jj], acc[g * (KD + 1) + jj]);
+        }
+        acc[g * (KD + 1) + KD] = __fadd_rn(acc[g * (KD + 1) + KD], wk);
+      }
+    }
+    km_block_sum<1>(msum, 1, red, sums);
+    const float mean = __fdiv_rn(sums[0], w_total);
+    if (round > a.max_iter) break;
+    if (mean <= prev && mean >= __fmul_rn(a.keep, prev)) break;
+    // Weighted means, G clusters per pass; an empty cluster keeps its
+    // centroid.
+    for (int g0 = 0; g0 < k_max; g0 += G) {
+      if (g0 > 0) {
+#pragma unroll
+        for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+        for (int i = tid; i < n; i += kKmThreads) {
+          float v[KD];
+          km_load_row<KD>(v, xs, i, d);
+          const float wi = w ? w[i] : 1.0f;
+          const int lab = labels[i];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float wk = lab == g0 + g ? wi : 0.0f;
+#pragma unroll
+            for (int jj = 0; jj < KD; ++jj) {
+              acc[g * (KD + 1) + jj] =
+                  fmaf(wk, v[jj], acc[g * (KD + 1) + jj]);
+            }
+            acc[g * (KD + 1) + KD] = __fadd_rn(acc[g * (KD + 1) + KD], wk);
+          }
+        }
+      }
+      km_block_sum<kSums>(acc, kSums, red, sums);
+      for (int e = tid; e < G * KD; e += kKmThreads) {
+        const int g = e / KD, jj = e % KD, k = g0 + g;
+        const float count = sums[g * (KD + 1) + KD];
+        if (k < k_max && jj < d && count > 0.0f) {
+          cent[k][jj] = __fdiv_rn(sums[g * (KD + 1) + jj], count);
+        }
+      }
+      __syncthreads();
+    }
+    if (tid < k_max) cnorm[tid] = sqrtf(km_sumsq<KD>(cent[tid]));
+    __syncthreads();
+    prev = mean;
+  }
+  float* out = a.centroids + (long long)u * k_max * d;
+  for (int e = tid; e < k_max * d; e += kKmThreads) out[e] = cent[e / d][e % d];
+  if (tid == 0) a.rounds[u] = round;
+}
+
+template <int KD, int G>
+cudaError_t launch_kmeans_width(const KmeansArgs& a, int b,
+                                cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kmeans_kernel<KD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kKmSmemRowsBytes);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem =
+      a.rows_in_smem ? static_cast<size_t>(a.n) * a.d * sizeof(float) : 0;
+  kmeans_kernel<KD, G><<<b, kKmThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_kmeans(KmeansArgs a, int b, cudaStream_t stream) {
+  if (b < 1 || a.n < 1 || a.d < 1 || a.d > kKmMaxWidth || a.k_max < 1 ||
+      a.k_max > kKmMaxWidth || a.trials < 1 || a.trials > kKmMaxTrials ||
+      a.rows < a.n || (long long)a.trials * a.rows > 0xffffffffLL ||
+      a.max_iter < 0 || a.labels == nullptr || a.centroids == nullptr ||
+      a.rounds == nullptr || a.closest == nullptr ||
+      (a.keys == nullptr && b != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  a.rows_in_smem = (long long)a.n * a.d * 4 <= kKmSmemRowsBytes;
+  const int width = std::max(a.d, a.k_max);
+  if (width <= 8) return launch_kmeans_width<8, 8>(a, b, stream);
+  if (width <= 16) return launch_kmeans_width<16, 4>(a, b, stream);
+  return launch_kmeans_width<32, 2>(a, b, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1936,6 +2321,43 @@ int sct_cholqr_pass_pair(const float* y, const float* g, float* qt,
   return static_cast<int>(launch_cholqr_pass<true>(
       y, g, qt, info, bad, ticket, batch, k, b, y_batch, y_row, y_col,
       delta_rel, rescue_rel, static_cast<cudaStream_t>(stream)));
+}
+
+// Kernel 8: K-Means of b utterances of (n, d) float32 rows, one block
+// each: k-means++ from JAX key data (keys: b pairs on the card, or null and
+// the one key (k1, k2) by value when b is 1) over `rows` draw rows with
+// `trials` candidates a step, then cosine Lloyd. w: (b, n) weights or null
+// (all 1); n_clusters: b int32 on the card, or null and nc_value. Writes
+// labels (b, n) int32, centroids (b, k_max, d) and rounds (b,) int32;
+// scratch: b·n floats. k_max and d at most 32.
+int sct_kmeans(const float* x, const float* w, const int* n_clusters,
+               int nc_value, const unsigned* keys, unsigned k1,
+               unsigned k2, int b, int n, int d, int k_max, int rows,
+               int trials, int max_iter, float keep, int* labels,
+               float* centroids, int* rounds, float* scratch,
+               void* stream) {
+  KmeansArgs a;
+  a.x = x;
+  a.w = w;
+  a.n_clusters = n_clusters;
+  a.nc_value = nc_value;
+  a.keys = keys;
+  a.k1 = k1;
+  a.k2 = k2;
+  a.n = n;
+  a.d = d;
+  a.k_max = k_max;
+  a.rows = rows;
+  a.trials = trials;
+  a.max_iter = max_iter;
+  a.keep = keep;
+  a.rows_in_smem = 0;
+  a.labels = labels;
+  a.centroids = centroids;
+  a.rounds = rounds;
+  a.closest = scratch;
+  return static_cast<int>(
+      launch_kmeans(a, b, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

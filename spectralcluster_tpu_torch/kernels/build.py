@@ -20,7 +20,11 @@ import threading
 import typing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "fused.cu"),)
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+SOURCES = (os.path.join(_CSRC, "fused.cu"),)
+# On the include path of every build (copies of fused.cu elsewhere, probes
+# that include them): hashed with the sources, so an edit to one rebuilds.
+HEADERS = (os.path.join(_CSRC, "kmeans.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # Every pointer and the stream are c_void_p: an undeclared argument would be
 # passed as a 32-bit int and cut the pointer.
 _SIGNATURES = {
@@ -52,6 +57,8 @@ _SIGNATURES = {
                              _F, _F, _P),
     "sct_resident_blocks": (_I, _P),
     "sct_affinity_batched_schedule": (_I, _I, _P, _P, _P),
+    "sct_kmeans": (_P, _P, _P, _I, _P, _U, _U, _I, _I, _I, _I, _I, _I, _I,
+                   _F, _P, _P, _P, _P, _P),
 }
 
 
@@ -76,7 +83,7 @@ def _nvcc() -> str:
 
 def library_path(sources: typing.Sequence[str] = SOURCES) -> str:
   h = hashlib.sha256()
-  for src in sources:
+  for src in (*sources, *HEADERS):
     with open(src, "rb") as f:
       h.update(f.read())
   h.update(" ".join(NVCC_FLAGS).encode())
@@ -88,15 +95,15 @@ def build(sources: typing.Sequence[str] = SOURCES) -> str:
 
   Returns the library's path. nvcc's resource report (-Xptxas -v) is kept
   beside it as ``<library>.log``. Other ``sources`` (another version of
-  ``fused.cu``, for a comparison) build with the same flags into their own
-  library.
+  ``fused.cu``, for a comparison, or a probe that includes ``csrc/``'s
+  headers) build with the same flags into their own library.
   """
   path = library_path(sources)
   if os.path.exists(path):
     return path
   os.makedirs(build_dir(), exist_ok=True)
   tmp = f"{path}.{os.getpid()}.tmp"
-  cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+  cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *sources]
   proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
   with open(path + ".log", "w") as f:
     f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

@@ -25,7 +25,14 @@ product and its orthonormalization, which the JAX package leaves to XLA:
     Gram: the (b, b) Cholesky of the shifted Gram and the triangular solve
     of every row, rounded as LAPACK's float32 routines round;
     ``cholqr_pass_pair`` the pass at two shifts in one launch, with a flag
-    per panel for whether the first failed (what CholeskyQR2 runs).
+    per panel for whether the first failed (what CholeskyQR2 runs);
+
+and one that replaces the JAX package's whole ``kmeans_fit`` with the
+cosine metric, which it leaves to XLA:
+
+  * ``kmeans`` — k-means++ seeding from JAX's threefry stream, drawn on
+    the card, and the cosine Lloyd loop with the reference's stop rule, one
+    launch for one utterance or a batch, ending at the stopping round.
 
 On the card cuBLAS's and cuSOLVER's float32 routines for these shapes
 round so that the certified top-k route of ``ops/dc.py`` did not stop
@@ -54,9 +61,13 @@ launches one per 32 columns of its panel; ``reset_launch_counts`` /
 
 from __future__ import annotations
 
+import math
 import typing
 
+import numpy as np
 import torch
+
+from spectralcluster_tpu_torch import utils
 
 
 def _lib():
@@ -259,6 +270,30 @@ def row_wise_normalize_plain(mat: torch.Tensor, n_valid=None) -> torch.Tensor:
   takes n_valid None or (B,).
   """
   return mat / row_max_plain(mat, n_valid=n_valid)
+
+
+def kmeans_plain(x: torch.Tensor, n_clusters, keys, k_max: int,
+                 sample_weight: typing.Optional[torch.Tensor] = None,
+                 draw_rows: typing.Optional[int] = None, max_iter: int = 10,
+                 tol: float = 0.001
+                 ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """K-Means with the cosine metric: ``ops.kmeans``' k-means++ of k_max
+  centres, then its Lloyd loop. x (N, d) with one raw ``prng`` key (2,),
+  or (B, N, d) with (B, 2) keys; n_clusters an int, a 0-dim or a (B,)
+  tensor; sample_weight (N,) or (B, N), default ones; the draws over
+  ``draw_rows`` rows, default ``utils.pad_bucket(N)``. Returns (labels
+  int32, centroids (..., k_max, d), rounds int32 (...)): the labels of the
+  stopping round, the centroids it stopped with, and its number of
+  assignment rounds, the stopping one included."""
+  from spectralcluster_tpu_torch.ops import affinity as affinity_ops
+  from spectralcluster_tpu_torch.ops import kmeans as kmeans_ops
+  w = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if (
+      sample_weight is None) else sample_weight
+  rows = utils.pad_bucket(x.shape[-2]) if draw_rows is None else draw_rows
+  keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+  centroids = kmeans_ops._plusplus(x, k_max, keys, w, rows)
+  return kmeans_ops._lloyd(x, centroids, n_clusters, affinity_ops.cdist_cosine,
+                           max_iter, tol, w)
 
 
 # ---------------------------------------------------------------------------
@@ -634,11 +669,93 @@ def cholqr_pass_pair(
   return qt[0].transpose(-1, -2), qt[1].transpose(-1, -2), info, bad
 
 
+# Kernel 8's bound on k_max and on the column count (kKmMaxWidth).
+KMEANS_MAX_WIDTH = 32
+
+
+def _kmeans_counts(n_clusters, batch: int, device: torch.device):
+  """(int32 tensor or None, value) of n_clusters as kernel 8 reads it: one
+  int32 count per utterance on the card, or one count by value (an int, or
+  a 0-dim tensor on the CPU)."""
+  if not isinstance(n_clusters, torch.Tensor):
+    return None, int(n_clusters)
+  if n_clusters.dim() > 1 or (n_clusters.dim() == 1
+                              and n_clusters.shape[0] != batch):
+    raise ValueError(f"kmeans: n_clusters of shape "
+                     f"{tuple(n_clusters.shape)} for {batch} utterances")
+  if n_clusters.device.type == "cpu" and n_clusters.dim() == 0:
+    return None, int(n_clusters)
+  counts = n_clusters.to(device=device, dtype=torch.int32).reshape(-1)
+  return counts.expand(batch).contiguous(), 0
+
+
+def kmeans(x: torch.Tensor, n_clusters, keys, k_max: int,
+           sample_weight: typing.Optional[torch.Tensor] = None,
+           draw_rows: typing.Optional[int] = None, max_iter: int = 10,
+           tol: float = 0.001
+           ) -> typing.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Kernel 8: the twin's K-Means (see ``kmeans_plain``) in one launch,
+  one block per utterance. k_max and d at most ``KMEANS_MAX_WIDTH``.
+
+  Nothing is read on the host: a count tensor on the card is read there,
+  and a batch's keys go over in a pinned copy that does not block. The
+  round count stays on the card.
+  """
+  if _is_cpu(x):
+    return kmeans_plain(x, n_clusters, keys, k_max, sample_weight,
+                        draw_rows, max_iter, tol)
+  if x.dim() not in (2, 3):
+    raise ValueError(f"kmeans: expected (N, d) or (B, N, d), got "
+                     f"{tuple(x.shape)}")
+  if x.dtype != torch.float32:
+    raise TypeError(f"kmeans: expected float32, got {x.dtype}")
+  batch = x.shape[0] if x.dim() == 3 else 1
+  n, d = x.shape[-2:]
+  if not (1 <= k_max <= KMEANS_MAX_WIDTH and 1 <= d <= KMEANS_MAX_WIDTH):
+    raise ValueError(f"kmeans: k_max {k_max} and {d} columns must lie in "
+                     f"[1, {KMEANS_MAX_WIDTH}]")
+  if n < 1:
+    raise ValueError("kmeans: no rows")
+  rows = utils.pad_bucket(n) if draw_rows is None else int(draw_rows)
+  trials = 2 + int(math.log(max(k_max, 1)))
+  if rows < n or trials * rows >= 2**32:
+    raise ValueError(f"kmeans: {rows} draw rows for {n} rows")
+  x = x.contiguous()
+  lead = x.shape[:-2]
+  w_ptr = 0
+  if sample_weight is not None:
+    _check_f32("kmeans sample_weight", sample_weight, tuple(x.shape[:-1]))
+    if sample_weight.device != x.device:
+      raise ValueError(f"kmeans: weights on {sample_weight.device}, rows on "
+                       f"{x.device}")
+    w_ptr = sample_weight.data_ptr()
+  counts, value = _kmeans_counts(n_clusters, batch, x.device)
+  keys = np.asarray(keys, np.uint32).reshape(batch, 2)
+  keys_dev = None
+  if batch > 1:
+    # A pinned copy sent without blocking: no sync.
+    keys_dev = torch.from_numpy(keys.view(np.int32)).pin_memory().to(
+        x.device, non_blocking=True)
+  labels = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+  centroids = x.new_empty(lead + (k_max, d))
+  rounds = torch.empty(lead, dtype=torch.int32, device=x.device)
+  scratch = x.new_empty(x.shape[:-1])
+  _launch("sct_kmeans", x.data_ptr(), w_ptr,
+          0 if counts is None else counts.data_ptr(), value,
+          0 if keys_dev is None else keys_dev.data_ptr(),
+          int(keys[0, 0]), int(keys[0, 1]), batch, n, d, k_max, rows, trials,
+          int(max_iter), float(np.float32(1.0 - tol)), labels.data_ptr(),
+          centroids.data_ptr(), rounds.data_ptr(), scratch.data_ptr(),
+          _stream(x))
+  kmeans.launches += 1
+  return labels, centroids, rounds
+
+
 WRAPPERS = (affinity, row_max, crop_diagonal, threshold_symmetrize_general,
             row_wise_normalize, affinity_batched, row_max_batched,
             crop_diagonal_batched, threshold_symmetrize_general_batched,
             row_wise_normalize_batched, panel_matmul, cholqr_pass,
-            cholqr_pass_pair)
+            cholqr_pass_pair, kmeans)
 
 
 def reset_launch_counts():

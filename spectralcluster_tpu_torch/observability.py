@@ -104,6 +104,7 @@ class StageTimings:
     self._pending = []   # [name, parent, host_s, start event, end event]
     self._spans: typing.List[Span] = []
     self._counters: typing.Dict[str, int] = {}
+    self._pending_counts = []   # [name, tensor]
     self._open: typing.List[str] = []
     self._prefix = ""
 
@@ -137,11 +138,17 @@ class StageTimings:
     """A stage recorded only with ``detail``."""
     return self.stage(name) if self.detail else _NO_SPAN
 
-  def count(self, name: str, n: int):
-    """Add ``n`` to the counter ``name`` (with ``detail`` only)."""
+  def count(self, name: str, n: typing.Union[int, torch.Tensor]):
+    """Add ``n`` to the counter ``name`` (with ``detail`` only). A tensor
+    (a count on the device) is read when the counters are, as the spans'
+    events are, so counting waits for nothing."""
     if self.detail:
       name = self._prefix + name
-      self._counters[name] = self._counters.get(name, 0) + int(n)
+      if isinstance(n, torch.Tensor):
+        self._pending_counts.append([name, n])
+        self._counters.setdefault(name, 0)
+      else:
+        self._counters[name] = self._counters.get(name, 0) + int(n)
 
   @contextlib.contextmanager
   def prefixed(self, prefix: str):
@@ -196,6 +203,9 @@ class StageTimings:
     return out
 
   def counters(self) -> typing.Dict[str, int]:
+    for name, n in self._pending_counts:
+      self._counters[name] += int(n)
+    self._pending_counts.clear()
     return dict(self._counters)
 
 

@@ -26,6 +26,12 @@ Port of ``spectralcluster_tpu/ops/kmeans.py``, with the host-facing
     package's vmap of ``kmeans_fit``. The Lloyd loop runs while any
     utterance is live, and a finished one is frozen. The single-utterance
     functions run the same code with no batch axis.
+  * On the card, ``kmeans_fit`` and ``kmeans_fit_batched`` with the cosine
+    metric run as one launch of kernel 8 (``kernels/fused.kmeans``, whose
+    twin is this module's k-means++ and Lloyd loop): the draws are made on
+    the card and Lloyd ends at its stopping round, with no host read
+    (``takes_kernel`` says when). The CPU, the other metrics, callables,
+    ``standard_lloyd`` and ``CustomKMeans`` run the eager code here.
 """
 
 from __future__ import annotations
@@ -38,13 +44,25 @@ import torch
 
 from spectralcluster_tpu_torch import prng
 from spectralcluster_tpu_torch import utils
+from spectralcluster_tpu_torch.kernels import fused
 from spectralcluster_tpu_torch.ops import affinity as affinity_ops
 
-# Lloyd rounds between two host reads of the stop flags. It bounds the
-# rounds run after every utterance has stopped (at most this many less
-# one); a frozen state makes them change nothing, so it cannot change a
-# label.
+# Lloyd rounds between two host reads of the stop flags on the eager path.
+# It bounds the rounds run after every utterance has stopped (at most this
+# many less one); a frozen state makes them change nothing, so it cannot
+# change a label.
 STOP_CHECK_ROUNDS = 16
+
+
+def takes_kernel(x: torch.Tensor, custom_dist, k_max: int) -> bool:
+  """Whether ``kmeans_fit`` (and its batched form) runs as kernel 8: float32
+  rows on the card, the cosine metric, and k_max and the column count
+  within the kernel's bound. Everything else runs the eager code."""
+  return bool(x.is_cuda and x.dtype == torch.float32
+              and isinstance(custom_dist, str)
+              and custom_dist.lower() == "cosine"
+              and k_max <= fused.KMEANS_MAX_WIDTH
+              and x.shape[-1] <= fused.KMEANS_MAX_WIDTH)
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -316,10 +334,23 @@ def kmeans_fit(
   k-means++ provides the initial centroids for the custom-distance loop.
   ``k_max`` is the centroid count when ``n_clusters`` is a tensor;
   ``draw_rows`` and ``key`` go to ``kmeans_plusplus`` (with ``key``,
-  ``generator`` may be None); ``timings`` counts Lloyd's rounds.
+  ``generator`` may be None); ``timings`` counts Lloyd's rounds
+  ("lloyd_rounds": under kernel 8 its device count, read when the call's
+  counters are) and whether kernel 8 ran ("kmeans_kernel", 1 or 0).
   """
   if k_max is None:
     k_max = int(n_clusters)
+  kernel = takes_kernel(x, custom_dist, k_max)
+  if timings is not None:
+    timings.count("kmeans_kernel", int(kernel))
+  if kernel:
+    if key is None:
+      key = prng.key(generator.initial_seed())
+    labels, _, rounds = fused.kmeans(x, n_clusters, key, k_max,
+                                     sample_weight, draw_rows, max_iter, tol)
+    if timings is not None:
+      timings.count("lloyd_rounds", rounds)
+    return labels
   centroids = kmeans_plusplus(x, k_max, generator, sample_weight, draw_rows,
                               key)
   if not custom_dist:
@@ -349,6 +380,9 @@ def kmeans_fit_batched(
   count (read on the host)."""
   if k_max is None:
     k_max = int(torch.max(n_clusters))
+  if takes_kernel(x, custom_dist, k_max):
+    return fused.kmeans(x, n_clusters, keys, k_max, sample_weight,
+                        max_iter=max_iter, tol=tol)[0]
   centroids = kmeans_plusplus_batched(x, k_max, keys, sample_weight)
   if not custom_dist:
     labels, _ = standard_lloyd(x, centroids, n_clusters, max_iter=300,

@@ -215,10 +215,14 @@ def test_row_wise_normalize_batched(cuda, b, n, ragged):
         rtol=0, atol=0, equal_nan=True)
 
 
-def test_lloyd_reads_no_host_value_between_its_checks(cuda):
+@pytest.mark.parametrize("form", ["twin", "kernel"])
+def test_lloyd_reads_no_host_value_between_its_checks(cuda, form):
   # The batched Lloyd loop on the card with every host read forbidden:
-  # with checks sparser than max_iter + 1 rounds it makes none, and its
-  # labels, centroids and rounds equal those of the checked loop.
+  # the eager twin with checks sparser than max_iter + 1 rounds makes
+  # none, and its labels, centroids and rounds equal those of the checked
+  # loop; kernel 8 (seeding and Lloyd in one launch) makes none, and its
+  # labels and rounds equal the twin's, its centroids within float32 sums
+  # in another order.
   from spectralcluster_tpu_torch.ops import affinity as t_aff
   from spectralcluster_tpu_torch.ops import kmeans as t_kmeans
   rng = np.random.RandomState(0)
@@ -228,17 +232,187 @@ def test_lloyd_reads_no_host_value_between_its_checks(cuda):
   keys = np.stack([np.array([0, i], np.uint32) for i in range(16)])
   centroids = t_kmeans.kmeans_plusplus_batched(x, 7, keys, w)
   dist = t_aff.get_batched_distance_fn("cosine")
+  fused.kmeans(x, n_clusters, keys, 7, w, max_iter=300)  # builds, warms
   torch.cuda.synchronize()
   torch.cuda.set_sync_debug_mode("error")
   try:
-    got = t_kmeans._lloyd(x, centroids, n_clusters, dist, 300, 0.001, w,
-                          check_every=10_000)
+    if form == "twin":
+      got = t_kmeans._lloyd(x, centroids, n_clusters, dist, 300, 0.001, w,
+                            check_every=10_000)
+    else:
+      got = fused.kmeans(x, n_clusters, keys, 7, w, max_iter=300)
   finally:
     torch.cuda.set_sync_debug_mode("default")
   want = t_kmeans.lloyd_iterations_batched(x, centroids, n_clusters, dist,
                                            300, 0.001, w)
-  for a, b in zip(got, want):
-    assert torch.equal(a, b)
+  if form == "twin":
+    for a, b in zip(got, want):
+      assert torch.equal(a, b)
+  else:
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+# Kernel 8 (fused.kmeans) against its twin. Keys of every width of the
+# stream: zero, small, and both words set.
+_KM_KEYS = [prng.key(s) for s in (0, 1, 42, 4100001611, 2**32 - 1)]
+
+
+@pytest.fixture(scope="module")
+def gumbel_probe():
+  """probe_gumbel of tests/csrc/gumbel_probe.cu: kernel 8's draws alone."""
+  import ctypes
+  from spectralcluster_tpu_torch.kernels import build
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA card")
+  lib = ctypes.CDLL(build.build((os.path.join(
+      os.path.dirname(os.path.abspath(__file__)), "csrc",
+      "gumbel_probe.cu"),)))
+  lib.probe_gumbel.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+                               ctypes.c_void_p]
+  lib.probe_gumbel.restype = ctypes.c_int
+  return lib.probe_gumbel
+
+
+@pytest.mark.parametrize("key", range(len(_KM_KEYS)))
+@pytest.mark.parametrize("rows", [256, 768, 1024, 24064])
+def test_gumbel_draws_are_prng_draws(cuda, gumbel_probe, key, rows):
+  # Kernel 8's draws are prng.gumbel's bit for bit (numpy's float32 log,
+  # rebuilt operation for operation), for every trial of a k-means++ step:
+  # trial t's draw at row i is the sub-key's flat counter t·rows + i.
+  k = _KM_KEYS[key]
+  sub = prng.split(k, 8)[3]
+  count = 5 * rows
+  for kk in (k, sub):
+    out = torch.empty((count,), device=cuda)
+    assert gumbel_probe(int(kk[0]), int(kk[1]), count, out.data_ptr()) == 0
+    got = out.cpu().numpy()
+    want = prng.gumbel(kk, (count,))
+    bad = np.flatnonzero(got.view(np.uint32) != want.view(np.uint32))
+    assert bad.size == 0, (bad.size, bad[:8], got[bad[:8]], want[bad[:8]])
+  np.testing.assert_array_equal(prng.gumbel(sub, (3, rows)),
+                                prng.gumbel(sub, (3 * rows,)).reshape(3, rows))
+
+
+def _km_points(n, k, seed, batch=()):
+  """Unit rows near k random directions in 7 columns, as the spectral
+  embeddings K-Means clusters."""
+  rng = np.random.RandomState(seed)
+  centres = rng.randn(*batch, k, 7)
+  pick = rng.randint(0, k, size=batch + (n,))
+  x = np.take_along_axis(centres, pick[..., None], axis=-2)
+  x = x + 0.35 * rng.randn(*batch, n, 7)
+  x /= np.linalg.norm(x, axis=-1, keepdims=True)
+  return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [256, 777, 1024, 8192, 20480])
+def test_kmeans_kernel_seeds_as_the_twin(cuda, n):
+  # max_iter=0 stops at the first round with the seeded centres.
+  x = torch.as_tensor(_km_points(n, 5, n)).to(cuda)
+  for s in (0, 7):
+    key = prng.key(s)
+    got = fused.kmeans(x, 5, key, 7, max_iter=0)
+    want = fused.kmeans_plain(x, 5, key, 7, max_iter=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+    assert torch.equal(got[0], want[0])
+    assert int(got[2]) == int(want[2]) == 1
+
+
+@pytest.mark.parametrize("n", [256, 777, 1024, 8192, 20480])
+def test_kmeans_kernel_labels_and_rounds_as_the_twin(cuda, n):
+  for k in range(2, 8):
+    x = torch.as_tensor(_km_points(n, k, 100 * n + k)).to(cuda)
+    nc = torch.tensor(k, device=cuda)
+    w = torch.ones((n,), device=cuda)
+    got = fused.kmeans(x, nc, prng.key(k), 7, w, max_iter=300)
+    want = fused.kmeans_plain(x, nc, prng.key(k), 7, w, max_iter=300)
+    assert torch.equal(got[0], want[0]), (k, int(got[2]), int(want[2]))
+    assert int(got[2]) == int(want[2]), k
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,seed", [(256, 4100001611), (777, 4100001612),
+                                    (1024, 4100001613), (8192, 4100001614),
+                                    (20480, 4100001615)])
+def test_kmeans_kernel_on_recordings_as_the_twin(cuda, monkeypatch, n, seed):
+  # The spectral embeddings of the benchmark generator's recordings, taken
+  # where the pipeline hands them to K-Means: the kernel's labels and
+  # rounds are the twin's.
+  from portbench import generator
+  from spectralcluster_tpu_torch.ops import kmeans as t_kmeans
+  traffic = {"d": 256, "turn_mean": 12, "share_alpha": 1.0,
+             "centre_scale": 3.0, "noise": 0.4}
+  seen = []
+  fit = t_kmeans.kmeans_fit
+
+  def spy(x, n_clusters, gen, **kw):
+    seen.append((x.clone(), n_clusters, prng.key(gen.initial_seed()), kw))
+    return fit(x, n_clusters, gen, **kw)
+
+  monkeypatch.setattr(t_kmeans, "kmeans_fit", spy)
+  for k in (2, 4, 7):
+    rec = generator.make_recording(generator.rng_for(seed, k), 0, n, k,
+                                   traffic)
+    configs.make_icassp2018_clusterer(
+        eigensolver=EigenSolver.Eigh).predict(rec.embeddings)
+  for x, nc, key, kw in seen:
+    args = (x, nc, key, kw["k_max"], kw["sample_weight"], None,
+            kw["max_iter"], kw["tol"])
+    got, want = fused.kmeans(*args), fused.kmeans_plain(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+
+
+def test_kmeans_kernel_batched_as_each_utterance_alone(cuda):
+  # A ragged (16, 1024, 7) batch: each utterance's labels and rounds are
+  # those of the kernel on it alone, and the twin's.
+  x = torch.as_tensor(_km_points(1024, 6, 3, batch=(16,))).to(cuda)
+  nv = torch.tensor([1024, 1000, 777, 512, 300, 1024, 64, 900] * 2,
+                    device=cuda)
+  w = (torch.arange(1024, device=cuda) < nv[:, None]).float()
+  x = x * w[..., None]
+  n_clusters = torch.tensor([2, 3, 4, 5, 6, 7, 7, 3] * 2, device=cuda)
+  keys = np.stack([prng.key(100 + i) for i in range(16)])
+  fused.reset_launch_counts()
+  labels, cents, rounds = fused.kmeans(x, n_clusters, keys, 7, w,
+                                       max_iter=300)
+  assert fused.launch_counts()["kmeans"] == 1
+  want = fused.kmeans_plain(x, n_clusters, keys, 7, w, max_iter=300)
+  assert torch.equal(labels, want[0]) and torch.equal(rounds, want[2])
+  for i in range(16):
+    alone = fused.kmeans(x[i], n_clusters[i], keys[i], 7, w[i], max_iter=300)
+    assert torch.equal(labels[i], alone[0])
+    assert torch.equal(rounds[i], alone[2])
+    assert torch.equal(cents[i], alone[1])
+
+
+def test_kmeans_fit_is_one_launch_and_no_host_read(cuda):
+  # kmeans_fit on the card: one kernel-8 launch a call, and no host sync
+  # (its count and weights on the card, its key by value); the rounds
+  # counter is read with the call's counters.
+  from spectralcluster_tpu_torch.ops import kmeans as t_kmeans
+  x = torch.as_tensor(_km_points(1000, 4, 9)).to(cuda)
+  nc = torch.tensor(4, device=cuda)
+  w = torch.ones((1000,), device=cuda)
+  gen = torch.Generator().manual_seed(5)
+  t_kmeans.kmeans_fit(x, nc, gen, k_max=7, sample_weight=w, max_iter=300)
+  timings = observability.StageTimings(cuda)
+  fused.reset_launch_counts()
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    for _ in range(3):
+      labels = t_kmeans.kmeans_fit(x, nc, gen, k_max=7, sample_weight=w,
+                                   max_iter=300, timings=timings)
+  finally:
+    torch.cuda.set_sync_debug_mode("default")
+  assert fused.launch_counts()["kmeans"] == 3
+  assert sum(fused.launch_counts().values()) == 3
+  want = fused.kmeans_plain(x, nc, prng.key(5), 7, w, max_iter=300)
+  assert torch.equal(labels, want[0])
+  assert timings.counters() == {"kmeans_kernel": 3,
+                                "lloyd_rounds": 3 * int(want[2])}
 
 
 def _reference(n):
@@ -498,7 +672,7 @@ def test_cluster_batch_card_matches_cpu(cuda):
                     "row_max_batched": 2, "crop_diagonal_batched": 1,
                     "threshold_symmetrize_general_batched": 1,
                     "row_wise_normalize_batched": 0, "panel_matmul": 0,
-                    "cholqr_pass": 0, "cholqr_pass_pair": 0}
+                    "cholqr_pass": 0, "cholqr_pass_pair": 0, "kmeans": 1}
 
 
 def test_cluster_batch_streamed_card_matches_serial(cuda):
@@ -590,7 +764,8 @@ def test_batched_solvers_card_match_the_2d_pipeline(cuda, eigensolver):
 def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
   # Four in-process shards on the card against four on the CPU (509: 3 pad
   # rows): the same labels, the reference's at 512, no refinement kernel
-  # launch, and the subspace solver's kernels on every stripe.
+  # launch, the subspace solver's kernels on every stripe, and one K-Means
+  # launch (kernel 8) on the gathered embedding.
   cfg = pipeline.PipelineConfig(
       refinement_options=configs.icassp2018_refinement_options(),
       min_clusters=2, max_clusters=7, custom_dist="cosine", max_iter=300)
@@ -601,8 +776,9 @@ def test_cluster_large_sharded_card_matches_cpu(cuda, n, use_ring):
       use_ring_affinity=use_ring)
   counts = fused.launch_counts()
   solver = ("panel_matmul", "cholqr_pass_pair")
-  assert not any(v for k, v in counts.items() if k not in solver)
-  assert all(counts[k] for k in solver)
+  assert not any(v for k, v in counts.items()
+                 if k not in solver + ("kmeans",))
+  assert all(counts[k] for k in solver) and counts["kmeans"] == 1
   want, want_n = sharded.cluster_large_sharded(
       x, cfg, mesh_lib.make_mesh(dp=1, mp=4,
                                  devices=[torch.device("cpu")] * 4),

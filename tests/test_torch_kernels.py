@@ -228,7 +228,7 @@ def test_launch_counters_are_plain_integers():
       "row_wise_normalize", "affinity_batched", "row_max_batched",
       "crop_diagonal_batched", "threshold_symmetrize_general_batched",
       "row_wise_normalize_batched", "panel_matmul", "cholqr_pass",
-      "cholqr_pass_pair"}
+      "cholqr_pass_pair", "kmeans"}
 
 
 @pytest.mark.parametrize("lead", [(), (3,)])

@@ -484,6 +484,39 @@ def test_kmeans_fit_matches_up_to_permutation(metric):
                                 utils.enforce_ordered_labels(np.asarray(ref)))
 
 
+def test_kmeans_fit_routes_by_what_it_observes():
+  # Kernel 8 takes float32 rows on the card with the cosine metric and
+  # widths within its bound; everything else runs eagerly. On the CPU
+  # kmeans_fit is the eager twin (its labels against the JAX package:
+  # test_kmeans_fit_matches_up_to_permutation) and counts kmeans_kernel 0.
+  from types import SimpleNamespace
+  from spectralcluster_tpu_torch import observability, prng
+  from spectralcluster_tpu_torch.kernels import fused
+  x = _t(_blobs(seed=19))
+  timings = observability.StageTimings("cpu")
+  fused.reset_launch_counts()
+  labels = t_kmeans.kmeans_fit(x, 3, torch.Generator().manual_seed(0),
+                               max_iter=300, timings=timings)
+  want, _, rounds = fused.kmeans(x, 3, prng.key(0), 3, max_iter=300)
+  assert torch.equal(labels, want)
+  assert timings.counters() == {"kmeans_kernel": 0,
+                                "lloyd_rounds": 16 * -(-int(rounds) // 16)}
+  assert not any(fused.launch_counts().values())
+  assert not t_kmeans.takes_kernel(x, "cosine", 3)
+
+  def card(d=7, dtype=torch.float32):
+    return SimpleNamespace(is_cuda=True, dtype=dtype, shape=(1024, d))
+
+  assert t_kmeans.takes_kernel(card(), "cosine", 7)
+  assert t_kmeans.takes_kernel(card(32), "Cosine", 32)
+  for metric in ("mahalanobis", "sqeuclidean", "euclidean", "", None,
+                 _pair_distance):
+    assert not t_kmeans.takes_kernel(card(), metric, 7)
+  assert not t_kmeans.takes_kernel(card(), "cosine", 33)
+  assert not t_kmeans.takes_kernel(card(33), "cosine", 7)
+  assert not t_kmeans.takes_kernel(card(dtype=torch.float64), "cosine", 7)
+
+
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "mahalanobis",
                                     None, _pair_distance])
 def test_run_kmeans_matches_up_to_permutation(metric):

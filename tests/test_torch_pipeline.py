@@ -130,7 +130,7 @@ def test_staged_matches_monolithic(solver):
   middle = "staged_subspace" if solver == "SubspaceIteration" else "staged_eigh"
   assert set(timings.as_dict()) == {"staged_prep", middle, "staged_finish",
                                     "kmeans"}
-  assert set(timings.counters()) == {"lloyd_rounds"}
+  assert set(timings.counters()) == {"lloyd_rounds", "kmeans_kernel"}
 
 
 def test_staged_auto_past_dc_max_block_returns_topk():

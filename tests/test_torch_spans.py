@@ -61,7 +61,7 @@ def test_predict_records_the_exact_spans(record, staged, detail):
     assert result.counters == {} and len(record) == 0
     return
   assert set(result.timings) == (STAGED if staged else MONOLITHIC)
-  assert set(result.counters) == {"lloyd_rounds"}
+  assert set(result.counters) == {"lloyd_rounds", "kmeans_kernel"}
   (call,) = record.last()
   root, *spans = call.spans
   assert root.name == "predict" and root.parent is None
@@ -101,8 +101,9 @@ def test_lloyd_rounds_counts_the_rounds_lloyd_ran(record, monkeypatch,
       make_embeddings(N, d=32))
   ((rounds, it),) = ran
   # Every round assigns once; the host runs the stopping round up to its
-  # next read of the flags.
-  assert result.counters == {"lloyd_rounds": rounds}
+  # next read of the flags. On the CPU K-Means runs eagerly, not as the
+  # card's kernel.
+  assert result.counters == {"lloyd_rounds": rounds, "kmeans_kernel": 0}
   assert rounds == min(kmeans_ops.STOP_CHECK_ROUNDS * math.ceil(
       it / kmeans_ops.STOP_CHECK_ROUNDS), 300 + 1)
 
@@ -192,7 +193,7 @@ def test_ahc_reduction_prefixes_the_inner_run(record, detail):
   assert set(result.timings) == {f"inner_{k}" for k in inner} | {
       "ahc_reduce"}
   assert set(result.counters) == (
-      {"inner_lloyd_rounds"} if detail else set())
+      {"inner_lloyd_rounds", "inner_kmeans_kernel"} if detail else set())
   assert len(record) == int(detail)
   if detail:
     parents = {s.name: s.parent for s in record.last()[0].spans}
@@ -232,6 +233,24 @@ class _FakeEvent:
   def elapsed_time(self, end):
     assert self.recorded and end.recorded and end.waited
     return 250.0
+
+
+def test_a_device_count_is_read_with_the_counters(record):
+  # A count given as a tensor (a round count still on the card) is read
+  # when the call's counters are, once, and not where it was counted.
+  timings = observability.StageTimings("cpu")
+  rounds = torch.tensor(4, dtype=torch.int32)
+  with timings.call():
+    timings.count("lloyd_rounds", rounds)
+    timings.count("lloyd_rounds", 1)
+    rounds += 2
+  (call,) = record.last()
+  assert call.counters == {"lloyd_rounds": 7}
+  rounds += 10
+  assert timings.counters() == {"lloyd_rounds": 7}
+  off = observability.StageTimings("cpu", detail=False)
+  off.count("lloyd_rounds", rounds)
+  assert off.counters() == {}
 
 
 def test_cuda_spans_are_event_pairs_read_once(record, monkeypatch):
