@@ -56,7 +56,9 @@ launches the kernel or raises, and never falls back. Each wrapper carries a
 plain integer ``launches`` that it increments where it launches its kernel
 and nowhere else, by the number of kernels launched (``panel_matmul``
 launches one per 32 columns of its panel; ``reset_launch_counts`` /
-``launch_counts``).
+``launch_counts``). ``panel_matmul`` also sums the shapes of every product
+it makes, on the card and on the CPU alike (``panel_work``), from which a
+reader computes each product's least work.
 """
 
 from __future__ import annotations
@@ -540,16 +542,20 @@ def panel_matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   of a larger matrix included), the panel in place at its own strides.
   Each output is the float64 sum of exact products, rounded once, so it
   lies within the float32 bound of the twin's sum. One launch per
-  ``PANEL_COLS`` columns of the panel, each counted; no scratch.
+  ``PANEL_COLS`` columns of the panel, each counted; no scratch. Every
+  product, the CPU's too, adds its shapes to ``panel_work``.
   """
+  batch = mat.shape[0] if mat.dim() == 3 else 1
+  m, k = mat.shape[-2:]
+  b = x.shape[-1]
+  if batch and m and k and b:
+    panel_matmul.work[0] += batch * m * k * b
+    panel_matmul.work[1] += batch * (m * k + k * b + m * b)
   if _is_cpu(mat):
     return panel_matmul_plain(mat, x)
   if mat.dim() not in (2, 3) or x.dim() != mat.dim():
     raise ValueError("panel_matmul: expected (M, K) @ (K, b) or (B, M, K) @ "
                      f"(B, K, b), got {tuple(mat.shape)} @ {tuple(x.shape)}")
-  batch = mat.shape[0] if mat.dim() == 3 else 1
-  m, k = mat.shape[-2:]
-  b = x.shape[-1]
   if x.shape[-2] != k or (mat.dim() == 3 and x.shape[0] != batch):
     raise ValueError(f"panel_matmul: shapes {tuple(mat.shape)} @ "
                      f"{tuple(x.shape)} do not match")
@@ -767,4 +773,13 @@ def launch_counts() -> typing.Dict[str, int]:
   return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+def panel_work() -> typing.Tuple[int, int]:
+  """(Σ m·k·b, Σ (m·k + k·b + m·b)) over every ``panel_matmul`` product of
+  this process, an (m, k) operand (batched: each matrix) by a (k, b)
+  panel: 2·m·k·b operations, and the float32 elements read and written
+  once, of each product's least work."""
+  return tuple(panel_matmul.work)
+
+
 reset_launch_counts()
+panel_matmul.work = [0, 0]

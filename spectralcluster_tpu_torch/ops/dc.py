@@ -37,6 +37,9 @@ Routes, in the JAX order (dc.py:703-939):
     deflation of the solved pairs and a certified subspace solve above it.
     A zero block, a split that does not reduce, an empty capture or a
     degraded solve go to the certified subspace fallback, as in JAX.
+    With ``split_on_decline=False`` a decline returns None instead: the
+    staged executor then re-solves (``lanczos_topt``, else the full eigh;
+    ``pipeline._dc_topk``).
 
 Differences from the JAX module, by design:
 
@@ -66,10 +69,10 @@ start of the sign stage is seeded 3 (JAX's ``PRNGKey(3)``). Panels are
 drawn on the CPU and moved to the matrix's device, so a card run and a CPU
 run take the same branches.
 
-An ``info`` dict receives the route ("dense", "certified" or "split"), the
-certified route's diagnostics and, for the split, one record per level
-under "levels": depth, n, k_f, b_f, sigma, alpha, norm2, the sign steps
-taken, the branch ("kept_covers_t", "complement_block",
+An ``info`` dict receives the route ("dense", "certified", "split" or
+"declined"), the certified route's diagnostics and, for the split, one
+record per level under "levels": depth, n, k_f, b_f, sigma, alpha, norm2,
+the sign steps taken, the branch ("kept_covers_t", "complement_block",
 "deflated_remainder", "zero_block", "subspace_fallback" with a "reason"),
 k_pad, k_eff, redraws, residuals, the iterations of a subspace solve
 (fallback or deflated remainder) and host seconds per stage.
@@ -77,6 +80,7 @@ k_pad, k_eff, redraws, residuals, the iterations of a subspace solve
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -106,6 +110,11 @@ _MISS_MARGIN = 1e-3
 # Try the certified-iterative route before splitting, at the top level
 # (JAX dc.py:1098).
 _TRY_ITERATIVE_FIRST = True
+
+# The re-solve's Lanczos (``lanczos_topt``): its step caps, at each of which
+# it reads its residual, and the worst relative residual at which it stops.
+_LANCZOS_CAPS = (160, 320, 640, 1280)
+_LANCZOS_TOL = 1e-6
 
 # The subspace solve (JAX _subspace_jit) and the probe (JAX _probe_next_jit).
 _SUBSPACE_ITERS = 32
@@ -758,7 +767,9 @@ def eigh_topk_dc(
     try_iterative_first: typing.Optional[bool] = None,
     info: typing.Optional[dict] = None,
     _n_bucket: typing.Optional[int] = None,
-) -> typing.Tuple[torch.Tensor, torch.Tensor, float, float]:
+    timings=None,
+    split_on_decline: bool = True,
+) -> typing.Optional[typing.Tuple[torch.Tensor, torch.Tensor, float, float]]:
   """The t extreme eigenpairs of a symmetric m, certified.
 
   Returns (w (t,), u (n, t), res, scale) in scan order (descending for
@@ -773,13 +784,31 @@ def eigh_topk_dc(
   ``_n_bucket`` is the size of the operand JAX would be handed (the
   caller's ``pad_bucket(N)``): it decides the dense branch and the sign
   chain's schedule. ``info`` receives the route and its diagnostics (module
-  docstring). Raises RuntimeError when the certified residual exceeds
-  ``_FAIL_RESIDUAL``.
+  docstring). ``timings`` (an ``observability.StageTimings``) records the
+  spans "dc_certified" (the certified attempt, accepted or declined) and
+  "dc_split" (the split's levels), and the counters "dc_certified" (1
+  where the certified route answered) and "dc_subspace_iters"
+  (``subspace_iterations``). With ``split_on_decline=False`` a declined
+  certified attempt returns None (route "declined") in place of the
+  split, for a caller that solves otherwise. Raises RuntimeError when the
+  certified residual exceeds ``_FAIL_RESIDUAL``.
   """
+  info = {} if info is None else info
+  out = _route(m, t, generator, descend, n_valid, max_block, sign_precision,
+               try_iterative_first, info, _n_bucket, timings,
+               split_on_decline)
+  if timings is not None:
+    timings.count("dc_certified", int(info["route"] == "certified"))
+    timings.count("dc_subspace_iters", subspace_iterations(info))
+  return out
+
+
+def _route(m, t, generator, descend, n_valid, max_block, sign_precision,
+           try_iterative_first, info, n_bucket, timings, split_on_decline):
+  """``eigh_topk_dc``'s routes, in order (module docstring)."""
   n = m.shape[0]
   t = min(t, n if n_valid is None else int(n_valid))
-  n_route = n if _n_bucket is None else _n_bucket
-  info = {} if info is None else info
+  n_route = n if n_bucket is None else n_bucket
   with fp32_precision():
     if n_route <= max_block:
       w, u = _dense_topt(m, t, descend)
@@ -787,14 +816,139 @@ def eigh_topk_dc(
       return w, u, 0.0, float(torch.amax(torch.abs(w)))
     if (_TRY_ITERATIVE_FIRST if try_iterative_first is None
         else try_iterative_first):
-      out = _certified_iterative_topt(m, t, generator, descend, n_valid, info)
+      with _span(timings, "dc_certified"):
+        out = _certified_iterative_topt(m, t, generator, descend, n_valid,
+                                        info)
       if out is not None:
         info["route"] = "certified"
         return out
+      if not split_on_decline:
+        info["route"] = "declined"
+        return None
     precision = sign_precision or _sign_precision()
     info.update(route="split", sign_precision=precision, levels=[])
-    return _split_level(m, t, generator, descend, n_valid, max_block,
-                        precision, info["levels"], 0, None, n_route)
+    with _span(timings, "dc_split"):
+      return _split_level(m, t, generator, descend, n_valid, max_block,
+                          precision, info["levels"], 0, None, n_route)
+
+
+def _span(timings, name: str):
+  return contextlib.nullcontext() if timings is None else timings.span(name)
+
+
+def subspace_iterations(info: dict) -> int:
+  """Subspace iterations across a route's ``info``: the certified
+  attempt's and every split level's (fallback or deflated remainder)."""
+  return int(info.get("iters", 0)) + sum(
+      int(level.get("subspace_iters", 0)) for level in info.get("levels", ()))
+
+
+def lanczos_topt(m: torch.Tensor, t: int, generator: torch.Generator,
+                 descend: bool = True, n_valid=None):
+  """The t extreme eigenpairs of a symmetric m by Lanczos with full
+  reorthogonalization (every step twice against the whole basis), the
+  re-solve of ``pipeline._dc_topk``.
+
+  On the icassp2018 operand at long sizes the spectrum past the few large
+  eigenvalues decays from order 1 to a cluster at 0. A subspace iteration
+  on m shifted by ‖m‖ separates those values at a rate of 1 − gap/‖m‖
+  per step and does not in its cap; a Krylov basis separates them at the
+  square root of that rate, and 160 steps gave every residual at 1e-7 of
+  ‖m‖ on such operands. The basis grows to each of ``_LANCZOS_CAPS`` (at
+  most n), then Rayleigh–Ritz in float64 reads the residual; it stops at
+  ``_LANCZOS_TOL``. Every product is ``fused.panel_matmul`` (kernel 6, one
+  column). The start vector, drawn from ``generator`` on the CPU, is zero
+  on padded coordinates, so the basis stays in the valid block. A basis
+  that lost its orthonormality (the Krylov space exhausted before a cap)
+  reads res = inf. Returns (w (t,), u (n, t), res, scale) in scan order
+  like ``eigh_topk_dc``: res the worst residual over scale, scale the
+  largest |Ritz value|, the spectrum's max|w| from below.
+  """
+  n = m.shape[0]
+  nv = n if n_valid is None else int(n_valid)
+  valid = torch.arange(n, device=m.device) < nv
+  q = eigen_ops.start_panel(n, 1, generator, m.dtype, m.device)[:, 0]
+  q = torch.where(valid, q, 0.0)
+  q = q / torch.linalg.norm(q)
+  caps = sorted({min(cap, nv) for cap in _LANCZOS_CAPS})
+  # Rows are the basis vectors and their images under ±m.
+  basis = m.new_empty((caps[-1], n))
+  images = m.new_empty((caps[-1], n))
+  steps = 0
+  for cap in caps:
+    while steps < cap:
+      basis[steps] = q
+      z = fused.panel_matmul(m, q[:, None])[:, 0]
+      if not descend:
+        z = z.neg_()
+      images[steps] = z
+      qs = basis[:steps + 1]
+      for _ in range(2):
+        z = z - qs.T @ (qs @ z)
+      q = z / torch.clamp_min(torch.linalg.norm(z), 1e-30)
+      steps += 1
+    qs, zs = basis[:steps], images[:steps]
+    drift = qs @ qs.T
+    drift.diagonal().sub_(1.0)
+    h = (qs @ zs.T).double()
+    theta, s = torch.linalg.eigh(0.5 * (h + h.T))
+    scale = max(float(torch.amax(torch.abs(theta))), 1e-30)
+    theta = theta.flip(0)[:t].to(m.dtype)
+    s = s.flip(1)[:, :t].to(m.dtype)
+    u = qs.T @ s
+    r = zs.T @ s - u * theta[None, :]
+    res = float(torch.amax(torch.linalg.norm(r, dim=0))) / scale
+    if float(torch.amax(torch.abs(drift))) > 1e-3:
+      res = math.inf
+      break
+    if res <= _LANCZOS_TOL:
+      break
+  return (theta if descend else -theta), u, res, scale
+
+
+def complete_beyond(m: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                    delta: float, descend: bool = True,
+                    snap: float = 0.0) -> bool:
+  """Whether every eigenvalue of m past the t returned pairs (w, v) lies on
+  the far side of w_t ± ``delta``: the completeness certificate the
+  residual alone cannot give. Where the scan's snap (|w| < ``snap`` reads
+  0) takes w_t within ``delta``, the edge is the snap's instead: values
+  that both read 0 need not be told apart.
+
+  A residual bounds each returned value's distance to some eigenvalue of
+  m, not that the values are the t extreme ones. Where m's spectrum past
+  its few large eigenvalues is a dense cluster at 0 with a few isolated
+  values of order 1 (the icassp2018 operand at long sizes, with thousands
+  of segments per speaker), a subspace iteration on m shifted by ‖m‖ does
+  not separate them in its iteration cap, and both the certified attempt
+  and the split's deflated remainder can return pairs from the cluster
+  with small residuals while missing the isolated values. Sylvester's law
+  of inertia decides it: with the returned pairs moved ‖m‖ past the scan
+  end, A = (w_t + delta)·I − m + v diag(w − c) vᵀ (descending; mirrored
+  for an ascending scan) is positive definite exactly when no eigenvalue
+  of m on v's orthogonal complement reaches w_t + delta (Courant–Fischer),
+  which one float64 Cholesky factorization tells. A breakdown or a
+  non-finite factor reads as incomplete. Padding sentinels, which lie past
+  the scan end, do not disturb it.
+  """
+  sign = 1.0 if descend else -1.0
+  ww = w.to(torch.float64) * sign
+  vv = v.to(torch.float64)
+  w_t = float(torch.amin(ww))
+  edge = w_t + float(delta)
+  if abs(w_t) + delta < snap:
+    edge = max(edge, float(snap))
+  far = edge - 2.0 * float(torch.amax(torch.sum(torch.abs(m), dim=1))) - 1.0
+  a = m.to(torch.float64)
+  if descend:
+    a.neg_()
+  a.addmm_(vv * (ww - far)[None, :], vv.T)
+  a.diagonal().add_(edge)
+  # Factored in place: the test holds m and one float64 copy.
+  status = torch.empty((), dtype=torch.int32, device=a.device)
+  torch.linalg.cholesky_ex(a, out=(a, status))
+  return int(status) == 0 and bool(torch.all(torch.isfinite(
+      torch.diagonal(a))))
 
 
 def _check_residual(res: float) -> None:

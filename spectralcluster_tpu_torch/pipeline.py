@@ -51,7 +51,10 @@ for ``Eigh`` in ``eig_topk_staged``, is the exact top-k route of
 extreme eigenpairs in scan order with a residual certificate, snapped
 against the solver's norm estimate; on a descending scan
 ``_warn_near_stop`` warns when the cluster count depends on digits that
-certificate cannot vouch for, as in JAX.
+certificate cannot vouch for, as in JAX. The port then, where the pairs
+are not certified to be the extreme ones (``dc.complete_beyond``), and
+where the certified attempt declines, re-solves: Lanczos, else the full
+eigh (``_dc_topk``).
 
 The batched step. ``prepare_affinity``, ``refine_and_eigendecompose`` and
 the ops under them take a leading batch axis, with ``n_valid`` a (B,)
@@ -307,7 +310,8 @@ def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
       drift_tol=cfg.subspace_drift_tol, stats=stats)
 
 
-def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
+def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
+             timings=None):
   """The exact top-k route past ``dc_max_block`` (JAX pipeline.py:815-830,
   :970-991): ``ops/dc.eigh_topk_dc`` for the max_clusters+1 extreme
   eigenpairs, then ``_warn_near_stop`` on a descending scan. Returns (w, u,
@@ -317,15 +321,86 @@ def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool):
   unpadded, so the solver is told the bucket (``_n_bucket``), which decides
   its dense branch and its sign chain's schedule as JAX's size does, while
   ``dc_max_block`` bounds its recursion's blocks.
+
+  Unlike the JAX executor, the port keeps no answer whose count its own
+  certificate cannot decide (``_undecided``: ``_warn_near_stop`` warns, or
+  ``dc_ops.complete_beyond`` finds an eigenvalue the pairs missed), and a
+  declined certified attempt does not go on to the split. There it
+  re-solves: Lanczos (``dc_ops.lanczos_topt``), held to the certified
+  route's residual and to the same checks, else the full eigh
+  (``_full_topt``, which consumes m; wscale the full spectrum's max|w|). A
+  split forced by ``try_iterative_first=False`` still answers, under the
+  same checks. With ``timings``' detail: the route's spans "dc_certified"
+  and "dc_split" and counters "dc_certified" and "dc_subspace_iters", the
+  span "dc_resolve" around the re-solve, and the counters "dc_resolved"
+  (1 where the answer is the re-solve's), "dc_full_eigh" (1 where it is
+  the full eigh's) and "panel_matmul_mnb", "panel_matmul_io"
+  (``fused.panel_work``'s sums over the call's products).
   """
-  w, u, res, wscale = dc_ops.eigh_topk_dc(
-      m, cfg.max_clusters + 1, torch.Generator().manual_seed(_DC_SEED),
+  t = cfg.max_clusters + 1
+  work = fused_kernels.panel_work()
+  out = dc_ops.eigh_topk_dc(
+      m, t, torch.Generator().manual_seed(_DC_SEED),
       descend=descend, n_valid=None if n_valid is None else int(n_valid),
       max_block=cfg.dc_max_block, sign_precision=cfg.dc_sign_precision,
-      _n_bucket=pad_bucket(m.shape[0]))
-  if descend:
-    _warn_near_stop(w.cpu().numpy(), res, wscale, cfg, "spectral D&C top-k")
+      _n_bucket=pad_bucket(m.shape[0]), timings=timings,
+      split_on_decline=False)
+  resolve = out is None or _undecided(m, *out, cfg, descend, warn=True)
+  full = False
+  if resolve:
+    with _span(timings, "dc_resolve"):
+      w, u, res, wscale = dc_ops.lanczos_topt(
+          m, t, torch.Generator().manual_seed(_DC_SEED), descend, n_valid)
+      full = (res > dc_ops._ITER_ACCEPT_RES
+              or _undecided(m, w, u, res, wscale, cfg, descend))
+      if full:
+        w, u, wscale = _full_topt(m, t, descend, n_valid)
+  else:
+    w, u, _, wscale = out
+  if timings is not None:
+    timings.count("dc_resolved", int(resolve))
+    timings.count("dc_full_eigh", int(full))
+    after = fused_kernels.panel_work()
+    timings.count("panel_matmul_mnb", after[0] - work[0])
+    timings.count("panel_matmul_io", after[1] - work[1])
   return w, u, torch.tensor(wscale, dtype=m.dtype, device=m.device)
+
+
+def _undecided(m, w, u, res: float, wscale: float, cfg: PipelineConfig,
+               descend: bool, warn: bool = False) -> bool:
+  """Whether the count of the top-k pairs (w, u) is one their residual
+  certificate cannot decide: on a descending scan the count depends on a
+  value within the certified uncertainty of stop_eigenvalue
+  (``_count_undecided``; ``warn``: ``_warn_near_stop``'s warning), or an
+  eigenvalue past the pairs reaches w_t ± that uncertainty, the snap's
+  edge where w_t reads 0 (``dc_ops.complete_beyond``)."""
+  if descend:
+    undecided = (_warn_near_stop(w.cpu().numpy(), res, wscale, cfg,
+                                 "spectral D&C top-k") if warn
+                 else _count_undecided(w.cpu().numpy(), res, wscale, cfg)[0])
+    if undecided:
+      return True
+  return not dc_ops.complete_beyond(m, w, u, max(res, 1e-6) * wscale,
+                                    descend, cfg.eigenvalue_snap_tol * wscale)
+
+
+def _full_topt(m: torch.Tensor, t: int, descend: bool, n_valid):
+  """The t extreme eigenpairs of the full eigh of m in scan order, and the
+  valid spectrum's max|w|, computed in m's own storage: m is consumed.
+
+  m is symmetric, so its transpose, a column-major view, is the operand
+  and the eigenvectors' buffer of one in-place solve: the re-solve holds
+  m and the solver's workspace and no copy, no more than the route that
+  it replaces holds, so a call's peak memory does not hang on its route.
+  """
+  n = m.shape[0]
+  w_all, v = torch.linalg.eigh(m.mT, out=(m.new_empty(n), m.mT))
+  nv = n if n_valid is None else int(n_valid)
+  # Padding sentinels lie past the scan end: the valid values come first.
+  if descend:
+    w_all, v = w_all.flip(0), v[:, n - t:].flip(1)
+  wscale = float(torch.amax(torch.abs(w_all[:nv])))
+  return w_all[:t].clone(), v[:, :t].clone(), wscale
 
 
 def _count_topk_descend_np(w, wscale, cfg: PipelineConfig) -> int:
@@ -349,21 +424,16 @@ def _count_topk_descend_np(w, wscale, cfg: PipelineConfig) -> int:
   return n
 
 
-def _warn_near_stop(w, res: float, wscale: float, cfg: PipelineConfig,
-                    where: str) -> bool:
-  """Warn when the cluster count depends on digits the residual
-  certificate cannot vouch for (JAX pipeline.py:863-902).
-
-  The certificate bounds each returned eigenvalue's error by res·wscale
-  (Weyl). The scan is re-run with the values inside that band around
-  stop_eigenvalue pushed to both extremes; only if the counts disagree is
-  there a warning. Returns whether it warned.
-  """
+def _count_undecided(w, res: float, wscale: float, cfg: PipelineConfig):
+  """(whether the count depends on a value within the certified
+  uncertainty of stop_eigenvalue, (n_lo, n0, n_hi), the values near it,
+  the uncertainty): the scan re-run with those values pushed to both ends
+  of the band res·wscale (Weyl) (JAX pipeline.py:863-902)."""
   wh = np.asarray(w, np.float64)
   unc = max(res, 1e-6) * wscale
   near = np.abs(wh - cfg.stop_eigenvalue) <= unc
   if not bool(near.any()):
-    return False
+    return False, None, wh[near], unc
   n0 = _count_topk_descend_np(wh, wscale, cfg)
   w_hi = wh.copy()
   w_hi[near] = wh[near] + unc
@@ -371,16 +441,31 @@ def _warn_near_stop(w, res: float, wscale: float, cfg: PipelineConfig,
   w_lo[near] = wh[near] - unc
   n_hi = _count_topk_descend_np(w_hi, wscale, cfg)
   n_lo = _count_topk_descend_np(w_lo, wscale, cfg)
-  if n_hi == n0 == n_lo:
+  return not n_hi == n0 == n_lo, (n_lo, n0, n_hi), wh[near], unc
+
+
+def _warn_near_stop(w, res: float, wscale: float, cfg: PipelineConfig,
+                    where: str) -> bool:
+  """Warn when the cluster count depends on digits the residual
+  certificate cannot vouch for (JAX pipeline.py:863-902); ``_dc_topk``
+  then re-solves.
+
+  The certificate bounds each returned eigenvalue's error by res·wscale
+  (Weyl). The scan is re-run with the values inside that band around
+  stop_eigenvalue pushed to both extremes; only if the counts disagree is
+  there a warning. Returns whether it warned.
+  """
+  undecided, counts, near, unc = _count_undecided(w, res, wscale, cfg)
+  if not undecided:
     return False
-  vals = ", ".join(f"{v:.4e}" for v in wh[near][:4])
+  vals = ", ".join(f"{v:.4e}" for v in near[:4])
   warnings.warn(
       f"{where}: eigenvalue(s) [{vals}] lie within the solver's "
       f"certified uncertainty ({unc:.2e}) of stop_eigenvalue="
       f"{cfg.stop_eigenvalue:g} AND the cluster count depends on them "
-      f"(count range [{min(n_lo, n_hi, n0)}, {max(n_lo, n_hi, n0)}]); the "
-      "break decision may differ from an exact solver. Consider a tighter "
-      "subspace_residual_tol, EigenSolver.Eigh, or float64 verification.",
+      f"(count range [{min(counts)}, {max(counts)}]); the "
+      "break decision may differ from an exact solver, so the staged "
+      "executor re-solves them.",
       UserWarning, stacklevel=3)
   return True
 
@@ -884,7 +969,7 @@ def spectral_cluster_fixed_k_staged(
     elif (cfg.eigensolver == EigenSolver.Auto
           and pad_bucket(m.shape[0]) > cfg.dc_max_block):
       with _stage(timings, "staged_dc"):
-        w, u, wmax = _dc_topk(m, cfg, n_valid, descend)
+        w, u, wmax = _dc_topk(m, cfg, n_valid, descend, timings)
     else:
       with _stage(timings, "staged_eigh"):
         w, u = eigen_ops.sorted_eigh(m, descend=descend)

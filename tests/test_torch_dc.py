@@ -321,7 +321,8 @@ def test_staged_dc_matches_jax(case, monkeypatch):
           n_valid=None if n_valid is None else jnp.int32(n_valid)))
   assert routes == j_routes == ["certified"]
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
-                                    "staged_finish", "kmeans"}
+                                    "dc_certified", "staged_finish",
+                                    "kmeans"}
   nv = x.shape[0] if n_valid is None else n_valid
   assert int(n_c) == int(jn_c)
   np.testing.assert_array_equal(utils.enforce_ordered_labels(labels[:nv]),

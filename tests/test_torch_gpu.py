@@ -943,3 +943,38 @@ def test_cholqr_pass_failed_factorization(cuda):
   _, info_plain = fused.cholqr_pass_plain(y, bad, 1e-6)
   assert int(info) == int(info_plain) == 1
   assert not bool(torch.isfinite(q).all())
+
+
+# Recordings of portbench's long traffic (seed, position in its pool) on
+# which the Auto top-k route counted wrong on the card: 202/9 (N=10035,
+# 2 speakers) returned cluster eigenpairs near 0 in place of 0.82, 0.57
+# and 0.53, from both the certified attempt and the split's deflated
+# remainder. tools/diagnose_dc_route.py --witness reads their routes.
+_DC_WITNESSES = [(201, 2), (202, 7), (202, 9)]
+
+
+@pytest.mark.parametrize("seed,index", _DC_WITNESSES)
+def test_auto_counts_long_recordings_as_the_float64_reference(cuda, seed,
+                                                              index):
+  import json
+  from portbench import compare, generator
+  from portbench.reference import icassp2018 as reference
+  root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+  def load(*parts):
+    with open(os.path.join(root, "portbench", *parts)) as f:
+      return json.load(f)
+
+  config = load("configs", "icassp2018.json")
+  rec = generator.make_pool(load("traffic", "long.json"), seed)[index]
+  result = configs.make_icassp2018_clusterer(
+      device="cuda", staged_stage_timings=True).predict_with_details(
+          rec.embeddings)
+  got = compare.call_numbers(
+      {"labels": result.labels, "n_clusters": result.n_clusters,
+       "eigenvalues": result.eigenvalues},
+      reference.solve(rec, config, "float64", "cuda"))
+  assert got["n_clusters_diff"] == 0 and got["label_error"] == 0, (
+      got, result.counters)
+  limit = load("limits", "icassp2018.long.json")["limits"]["eig_err_max"]
+  assert got["eig_err"] <= limit, (got, result.counters)

@@ -145,7 +145,8 @@ def test_staged_auto_past_dc_max_block_returns_topk():
   full = pipeline.spectral_cluster_fixed_k(
       x, torch.Generator().manual_seed(0), _cfg())
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
-                                    "staged_finish", "kmeans"}
+                                    "dc_certified", "staged_finish",
+                                    "kmeans"}
   assert topk[2].shape == (8,) and full[2].shape == (512,)
   np.testing.assert_allclose(topk[2].numpy(), full[2].numpy()[:8],
                              atol=2e-4 * float(full[2].abs().max()))

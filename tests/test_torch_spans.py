@@ -3,7 +3,8 @@
 Both executors with ``staged_stage_timings`` on and off: the exact stage
 and span keys, the ``lloyd_rounds`` counter against the rounds Lloyd ran,
 the ``sct.*`` profiler ranges under ``sct.predict``, the bounded
-in-memory record of the last calls, and that no span waits for the card
+in-memory record of the last calls, the top-k route's spans and counters
+(``dc_*``) with kernel 6's shape sums, and that no span waits for the card
 (``torch.cuda.synchronize`` patched to raise). The CUDA event path is
 driven here by a fake event; ``tests/test_torch_gpu.py`` runs it on a card.
 """
@@ -286,3 +287,74 @@ def test_cuda_spans_are_event_pairs_read_once(record, monkeypatch):
       ("predict", None, 0.25), ("upload", "pipeline", 0.25),
       ("upload", "pipeline", 0.25), ("pipeline", "predict", 0.25)]
   assert all(s.host_s < 0.25 for s in call.spans)
+
+
+# The top-k route of ops/dc.py inside the staged executor: a recording of
+# portbench's long traffic at a CPU size, dc_max_block lowered so that the
+# route runs (it certifies here after 1,088 iterations).
+def _route_call(monkeypatch, certified_first, detail=True):
+  from portbench import generator
+  from spectralcluster_tpu_torch import pipeline
+  from spectralcluster_tpu_torch.ops import dc
+  traffic = {"turn_mean": 12, "share_alpha": 1.0, "d": 256,
+             "centre_scale": 3.0, "noise": 0.4}
+  rec = generator.make_recording(generator.rng_for(2, 1, 6), 0, 320, 6,
+                                 traffic)
+  monkeypatch.setattr(dc, "_TRY_ITERATIVE_FIRST", certified_first)
+  infos, solve = [], dc.eigh_topk_dc
+
+  def recording(*a, **kw):
+    infos.append({})
+    return solve(*a, info=infos[-1], **kw)
+
+  monkeypatch.setattr(dc, "eigh_topk_dc", recording)
+  cfg = configs.make_icassp2018_clusterer(device="cpu")._config().replace(
+      dc_max_block=128)
+  timings = observability.StageTimings("cpu", detail=detail)
+  pipeline.spectral_cluster_fixed_k_staged(
+      torch.as_tensor(rec.embeddings), torch.Generator().manual_seed(0), cfg,
+      timings=timings)
+  (info,) = infos
+  return timings, info
+
+
+@pytest.mark.parametrize("certified_first", [True, False])
+def test_the_dc_route_records_its_spans_and_counters(monkeypatch,
+                                                     certified_first):
+  from spectralcluster_tpu_torch.ops import dc
+  timings, info = _route_call(monkeypatch, certified_first)
+  assert info["route"] == ("certified" if certified_first else "split")
+  span = "dc_certified" if certified_first else "dc_split"
+  assert set(timings.as_dict()) == {"staged_prep", "staged_dc", span,
+                                    "staged_finish", "kmeans"}
+  assert {s.name: s.parent for s in timings.spans()}[span] == "staged_dc"
+  counters = timings.counters()
+  assert counters["dc_certified"] == int(certified_first)
+  assert counters["dc_resolved"] == 0
+  assert counters["dc_subspace_iters"] == dc.subspace_iterations(info)
+  assert counters["dc_subspace_iters"] == (1088 if certified_first else 0)
+
+
+def test_the_dc_route_records_nothing_without_detail(monkeypatch):
+  timings, _ = _route_call(monkeypatch, False, detail=False)
+  assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
+                                    "staged_finish"}
+  assert timings.counters() == {}
+
+
+def test_panel_work_counts_the_routes_products(monkeypatch):
+  # Kernel 6's shape sums against the products its CPU twin made.
+  from spectralcluster_tpu_torch.kernels import fused
+  shapes, plain = [], fused.panel_matmul_plain
+
+  def twin(mat, x):
+    shapes.append((mat.shape[-2], mat.shape[-1], x.shape[-1]))
+    return plain(mat, x)
+
+  monkeypatch.setattr(fused, "panel_matmul_plain", twin)
+  timings, _ = _route_call(monkeypatch, True)
+  counters = timings.counters()
+  assert shapes and all(m == n == 320 for m, n, _ in shapes)
+  assert counters["panel_matmul_mnb"] == sum(m * n * b for m, n, b in shapes)
+  assert counters["panel_matmul_io"] == sum(m * n + n * b + m * b
+                                            for m, n, b in shapes)

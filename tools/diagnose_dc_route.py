@@ -36,6 +36,23 @@ on the CPU from the same embeddings. One JSON line each:
     ``kernels`` also on the CPU's; then, for the cases in ``--cpu-loops``,
     on the CPU (``torch.matmul``) on the card's operand and on its own.
 
+With ``--witness seed/index,...`` (recordings of ``portbench/traffic/long.json``
+drawn by ``portbench/generator.py``), for each recording: the operand the
+staged executor hands ``_dc_topk`` (``prepare_affinity``, then
+``_symmetric_eig_operand``, unpadded, on the card); ``dc.eigh_topk_dc`` on
+it, as ``pipeline._dc_topk`` calls it, at each of ``--precisions`` and with
+and without the certified attempt first, each with its route, the certified
+attempt's diagnostics, every split level's branch, reason and residual, the
+returned eigenvalues, the count the eigengap rule gives on them and whether
+``_warn_near_stop`` warns; the card's full float32 ``eigh`` and a float64
+``eigvalsh`` of the same operand with their counts; the predict of the
+icassp2018 preset; and for the recordings in ``--cpu-witness``, the split on
+the CPU from the card's operand. With ``--pool seed,...``, every recording
+of those seeds' pools through the preset's ``predict``: the route, each
+split level's branch and reason, the route's counters (``dc_certified``,
+``dc_subspace_iters``, ``dc_resolved``: whether the full eigh re-solved
+it), the count and the stage and span seconds.
+
 With ``--bisect-small-ops``, only the card's operand, for each of
 ``--seeds``: ``cublas``, ``kernels``, the kernels' product and Gram with
 cuSOLVER's passes, and the kernel's or a float64 product with CholeskyQR2
@@ -58,6 +75,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -207,6 +225,131 @@ def errors(op, q, matmul, gram):
   return product, float(torch.amax(torch.abs(ritz - ritz_want)))
 
 
+def witness_operand(rec, cfg, dev):
+  """The operand the staged executor hands ``_dc_topk`` for one recording:
+  ``prepare_affinity``, then ``_symmetric_eig_operand``, unpadded."""
+  x = torch.as_tensor(rec.embeddings, dtype=torch.float32).to(dev)
+  with pipeline.fp32_precision():
+    aff = pipeline.prepare_affinity(x, cfg, None)
+    m, _ = pipeline._symmetric_eig_operand(aff, cfg, None, None,
+                                           pipeline._eig_structure(cfg),
+                                           consume_input=True)
+  return m
+
+
+def count_of(w, res, wscale, cfg):
+  """(the eigengap rule's count on w (descending), whether
+  ``_warn_near_stop`` warns)."""
+  wt = torch.as_tensor(np.asarray(w, np.float32))
+  _, n_gap, _ = pipeline._gap(wt, cfg, True, None,
+                              torch.tensor(wscale, dtype=torch.float32))
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    warned = pipeline._warn_near_stop(np.asarray(w, np.float64), res, wscale,
+                                      cfg, "witness")
+  return max(int(n_gap), cfg.min_clusters), bool(warned or caught)
+
+
+def dc_row(name, m, cfg, precision, iterative_first):
+  info = {}
+  t = cfg.max_clusters + 1
+  seconds, out = synced_seconds(lambda: dc_ops.eigh_topk_dc(
+      m, t, torch.Generator().manual_seed(pipeline._DC_SEED), descend=True,
+      max_block=cfg.dc_max_block, sign_precision=precision,
+      try_iterative_first=iterative_first, info=info,
+      _n_bucket=pipeline.pad_bucket(m.shape[0])), m.device)
+  w, _, res, wscale = out
+  w = w.cpu().numpy().astype(np.float64)
+  n, warned = count_of(w, res, wscale, cfg)
+  if "res_trace" in info:
+    trace = info.pop("res_trace")
+    info["res_trace_first_last"] = [trace[:3], trace[-3:]]
+  return {"phase": "witness_dc", "case": name, "device": m.device.type,
+          "precision": precision, "iterative_first": iterative_first,
+          "seconds": seconds, "w": w.tolist(), "res": res, "wscale": wscale,
+          "count": n, "warned": warned, "info": info}
+
+
+def witness(cases, precisions, cpu_cases, dev):
+  """The witness recordings' routes (module docstring, ``--witness``)."""
+  sys.path.insert(0, ROOT)
+  from portbench import generator, run
+  traffic = run.load_json("portbench", "traffic", "long.json")
+  clusterer = configs.make_icassp2018_clusterer(device=dev.type)
+  cfg = clusterer._config()
+  pools = {}
+  for name in cases:
+    seed, index = (int(v) for v in name.split("/"))
+    if seed not in pools:
+      pools[seed] = generator.make_pool(traffic, seed)
+    rec = pools[seed][index]
+    seconds, res = synced_seconds(
+        lambda: clusterer.predict_with_details(rec.embeddings), dev)
+    log({"phase": "witness_predict", "case": name,
+         "n": int(rec.embeddings.shape[0]), "speakers": rec.n_speakers,
+         "seconds": seconds, "n_clusters": int(res.n_clusters),
+         "eigenvalues": np.asarray(res.eigenvalues)[:8].tolist()})
+    m = witness_operand(rec, cfg, dev)
+    for precision in precisions:
+      for first in (True, False):
+        log(dc_row(name, m, cfg, precision, first))
+    t = cfg.max_clusters + 1
+    seconds, w32 = synced_seconds(
+        lambda: eigen_ops.sorted_eigh(m)[0][:t + 8].cpu().numpy(), dev)
+    w64 = torch.flip(torch.linalg.eigvalsh(m.double()), (0,))[:t + 8]
+    w64 = w64.cpu().numpy()
+    log({"phase": "witness_eigh", "case": name, "eigh_seconds": seconds,
+         "float32": w32.tolist(), "float64": w64.tolist(),
+         "count_float32": count_of(w32[:t], 0.0, float(np.abs(w32).max()),
+                                   cfg)[0],
+         "count_float64": count_of(w64[:t], 0.0, float(np.abs(w64).max()),
+                                   cfg)[0]})
+    if name in cpu_cases:
+      m_cpu = m.cpu()
+      del m
+      torch.cuda.empty_cache()
+      log(dc_row(name, m_cpu, cfg, "high", False))
+      del m_cpu
+    else:
+      del m
+    torch.cuda.empty_cache()
+
+
+def pool_routes(seeds, dev):
+  """The route of every recording of the long traffic's pools (module
+  docstring, ``--pool``)."""
+  sys.path.insert(0, ROOT)
+  from portbench import generator, run
+  traffic = run.load_json("portbench", "traffic", "long.json")
+  clusterer = configs.make_icassp2018_clusterer(device=dev.type,
+                                                staged_stage_timings=True)
+  infos, solve = [], dc_ops.eigh_topk_dc
+
+  def recording(*a, **kw):
+    infos.append({})
+    return solve(*a, info=infos[-1], **kw)
+
+  dc_ops.eigh_topk_dc = recording
+  try:
+    for seed in seeds:
+      for rec in generator.make_pool(traffic, seed):
+        infos.clear()
+        seconds, res = synced_seconds(
+            lambda: clusterer.predict_with_details(rec.embeddings), dev)
+        info = infos[0] if infos else {}
+        log({"phase": "pool_route", "seed": seed, "index": rec.index,
+             "n": int(rec.embeddings.shape[0]), "speakers": rec.n_speakers,
+             "route": info.get("route"),
+             "certified_iters": info.get("iters"),
+             "branches": [(lv.get("depth"), lv.get("branch"),
+                           lv.get("reason")) for lv in info.get("levels", [])],
+             "counters": res.counters, "n_clusters": int(res.n_clusters),
+             "eigenvalues": np.asarray(res.eigenvalues)[:8].tolist(),
+             "timings": res.timings, "seconds": seconds})
+  finally:
+    dc_ops.eigh_topk_dc = solve
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--cases", default="20480,k4,k7")
@@ -218,6 +361,16 @@ def main() -> int:
                       "for each of --seeds, and the CPU's loop on the card "
                       "operand for the --cpu-loops cases")
   parser.add_argument("--seeds", default="17")
+  parser.add_argument("--witness", default="",
+                      help="seed/index of portbench's long traffic, "
+                      "comma-separated: the routes of those recordings")
+  parser.add_argument("--precisions", default="high,highest")
+  parser.add_argument("--pool", default="",
+                      help="seeds of portbench's long traffic: the route "
+                      "of every recording of their pools")
+  parser.add_argument("--cpu-witness", default="",
+                      help="witness recordings whose split also runs on "
+                      "the CPU from the card's operand")
   parser.add_argument("--out")
   args = parser.parse_args()
   if not torch.cuda.is_available():
@@ -229,7 +382,14 @@ def main() -> int:
   dev, cpu = torch.device("cuda"), torch.device("cpu")
   cpu_loops = set(filter(None, args.cpu_loops.split(",")))
   seeds = [int(v) for v in args.seeds.split(",")]
-  for case in args.cases.split(","):
+  if args.witness:
+    witness(args.witness.split(","), args.precisions.split(","),
+            set(filter(None, args.cpu_witness.split(","))), dev)
+    args.cases = ""
+  if args.pool:
+    pool_routes([int(v) for v in args.pool.split(",")], dev)
+    args.cases = ""
+  for case in filter(None, args.cases.split(",")):
     x = embeddings(case)
     if args.bisect_small_ops:
       _, m_card = operand(x, dev)
