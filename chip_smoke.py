@@ -109,19 +109,22 @@ result line):
          warm): kernels 1-4 (RowWiseNormalize is absorbed into the eigh
          similarity transform there) and the subspace solver's 6-7, as
          the host API leg below. Auto runs the exact top-k route
-         (ops/dc.py, stage staged_dc); each Auto leg prints the route its
-         dc solve took and fails on a certified residual above 1e-5;
+         (stage staged_dc), whose first solve on this descending scan is
+         Lanczos (kernel 6 at one column); each Auto leg prints the solves
+         it ran and fails on a certified residual above 1e-5;
        * Auto at N=20480 (labels_20480), and at N=10240 on
          make_embeddings_k(N, k) for k=4 and k=7
          (benchmarks/reference_labels_multi.npz), one cold run and one
-         warm; each Auto leg's dc solves must take the JAX package's
-         recorded route (tests/data/reference_dc_route.json: certified)
-         and stop below the iteration cap where the CPU did, and launch the
-         subspace solver's kernels (6-7) as well as 1-4; then Auto at
-         N=10240 with the dc route forced to decline,
-         on make_embeddings(N) and make_embeddings_k(N, 4): the split
-         only, the same labels, eigenvalues within 2e-4·scale of the
-         certified legs';
+         warm; each Auto leg must answer by Lanczos and launch kernel 6
+         as well as 1-4; then each of these four legs again with Lanczos
+         declining (its residual handed back as inf): the certified
+         attempt must take the JAX package's recorded route
+         (tests/data/reference_dc_route.json: certified), stop below the
+         iteration cap where the CPU did, and launch kernels 6-7; then
+         Auto at N=10240 with Lanczos declining and the iterative routes
+         off (ops/dc.py's _TRY_ITERATIVE_FIRST), on make_embeddings(N) and
+         make_embeddings_k(N, 4): the split only, the same labels,
+         eigenvalues within 2e-4·scale of the certified legs';
        * HostGeneral at N=4096 (one cold run, one warm): all five kernels;
          its host LAPACK eig is reported apart from the device stages. N is
          cut from 10240 because the float64 general eig is O(N^3) on the
@@ -228,6 +231,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1748,21 +1752,31 @@ def main() -> int:
   # The subspace solver's kernels: every leg that runs a subspace solve
   # (SubspaceIteration, the certified route, the split's remainder).
   solver_kernels = ("panel_matmul", "cholqr_pass_pair")
-  # Every dc solve of the pipeline reports its route here; a leg may force
-  # the route to decline.
+  # Every solve of the pipeline's top-k route reports its route here
+  # (Lanczos as "lanczos"); a leg may have Lanczos decline (its residual
+  # handed back as inf) and turn the iterative routes off.
   dc_infos = []
-  dc_force = {"decline": False}
-  solve_dc = dc_ops.eigh_topk_dc
+  lanczos_declines = {"on": False}
+  solve_dc, solve_lanczos = dc_ops.eigh_topk_dc, dc_ops.lanczos_topt
 
   def recording_dc(*a, **kw):
     info = {}
-    if dc_force["decline"]:
-      kw["try_iterative_first"] = False
     out = solve_dc(*a, info=info, **kw)
-    dc_infos.append({**info, "res_returned": out[2], "scale": out[3]})
+    dc_infos.append({**info, "res_returned": out and out[2],
+                     "scale": out and out[3],
+                     "w": out and [float(v) for v in out[0]]})
     return out
 
+  def recording_lanczos(*a, **kw):
+    stats = kw.setdefault("stats", {})
+    out = solve_lanczos(*a, **kw)
+    dc_infos.append({"route": "lanczos", "steps": stats["steps"],
+                     "res_returned": out[2], "scale": out[3],
+                     "declined": lanczos_declines["on"]})
+    return (*out[:2], math.inf, out[3]) if lanczos_declines["on"] else out
+
   dc_ops.eigh_topk_dc = recording_dc
+  dc_ops.lanczos_topt = recording_lanczos
 
   def drive(leg, clusterer, n, warm_runs, expected, emb=None, want=None,
             small_sizes=(512, 2048), **extra):
@@ -1800,7 +1814,8 @@ def main() -> int:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if dc_infos:
-      # The dc solve of the last warm run, and the routes of all of them.
+      # The route's last solve in the last warm run, and the routes of all
+      # of them.
       run["dc_routes"] = [i["route"] for i in dc_infos]
       run["dc"] = dc_infos[-1]
     if "host_eig" in result.timings:
@@ -1826,11 +1841,13 @@ def main() -> int:
     return run
 
   runs = {}
-  for solver in (EigenSolver.Auto, EigenSolver.SubspaceIteration):
+  # Auto's top-k route answers by Lanczos, which launches kernel 6 alone.
+  for solver, kernels in ((EigenSolver.Auto, ("panel_matmul",)),
+                          (EigenSolver.SubspaceIteration, solver_kernels)):
     runs[solver.name] = drive(
         solver.name, configs.make_icassp2018_clusterer(
             eigensolver=solver, staged_stage_timings=True),
-        N_MAIN, WARM_RUNS, main_kernels + solver_kernels, solver=solver.name)
+        N_MAIN, WARM_RUNS, main_kernels + kernels, solver=solver.name)
   runs["HostGeneral"] = drive(
       "HostGeneral", configs.make_icassp2018_clusterer(
           eigensolver=EigenSolver.HostGeneral),
@@ -1846,46 +1863,69 @@ def main() -> int:
       post_eigen_cluster_function="run_kmeans")
   # The exact top-k route at the other record sizes and speaker counts.
   auto = configs.make_icassp2018_clusterer(staged_stage_timings=True)
-  runs["Auto_20480"] = drive("Auto_20480", auto, N_BIG, 1,
-                             main_kernels + solver_kernels, small_sizes=(),
-                             solver="Auto")
+  lanczos_kernels = main_kernels + ("panel_matmul",)
+  runs["Auto_20480"] = drive("Auto_20480", auto, N_BIG, 1, lanczos_kernels,
+                             small_sizes=(), solver="Auto")
   for k in MULTI_KS:
     emb, _ = make_embeddings_k(N_MAIN, k, D_MAIN)
     runs[f"Auto_k{k}"] = drive(
-        f"Auto_k{k}", auto, N_MAIN, 1, main_kernels + solver_kernels, emb=emb,
+        f"Auto_k{k}", auto, N_MAIN, 1, lanczos_kernels, emb=emb,
         want=ref_multi[f"labels_{N_MAIN}_k{k}"], small_sizes=(),
         solver="Auto", fixture=f"make_embeddings_k(N, k={k})")
-  dc_force["decline"] = True
+  # The certified attempt on the same fixtures, Lanczos declining: the
+  # subspace solver's kernels 6-7 launch; then the split alone.
+  lanczos_declines["on"] = True
+  for leg, n, k in (("Auto", N_MAIN, 2), ("Auto_20480", N_BIG, 2),
+                    *((f"Auto_k{k}", N_MAIN, k) for k in MULTI_KS)):
+    emb, want, extra = None, None, {}
+    if k != 2:
+      emb, _ = make_embeddings_k(N_MAIN, k, D_MAIN)
+      want = ref_multi[f"labels_{N_MAIN}_k{k}"]
+      extra = {"fixture": f"make_embeddings_k(N, k={k})"}
+    runs[f"{leg}_certified"] = drive(
+        f"{leg}_certified", auto, n, 1, main_kernels + solver_kernels, emb=emb,
+        want=want, small_sizes=(), solver="Auto", forced="Lanczos declines",
+        **extra)
+  dc_ops._TRY_ITERATIVE_FIRST = False
+  forced_how = "Lanczos declines, _TRY_ITERATIVE_FIRST=False"
   runs["Auto_forced_decline"] = drive(
       "Auto_forced_decline", auto, N_MAIN, 1, main_kernels, small_sizes=(),
-      solver="Auto", forced="try_iterative_first=False")
+      solver="Auto", forced=forced_how)
   emb, _ = make_embeddings_k(N_MAIN, 4, D_MAIN)
   runs["Auto_k4_forced_decline"] = drive(
       "Auto_k4_forced_decline", auto, N_MAIN, 1, main_kernels, emb=emb,
       want=ref_multi[f"labels_{N_MAIN}_k4"], small_sizes=(), solver="Auto",
-      fixture="make_embeddings_k(N, k=4)", forced="try_iterative_first=False")
-  dc_force["decline"] = False
-  # Each Auto leg's dc solves take the route that the JAX package took on
+      fixture="make_embeddings_k(N, k=4)", forced=forced_how)
+  dc_ops._TRY_ITERATIVE_FIRST = True
+  lanczos_declines["on"] = False
+  # Each Auto leg's top-k route answers by Lanczos, its first solve. Each
+  # certified leg's attempt takes the route that the JAX package took on
   # the same operand built on the CPU (tests/data/reference_dc_route.json),
-  # and certify below the iteration cap where the CPU did.
+  # and certifies below the iteration cap where the CPU did.
   for leg, case in (("Auto", f"n{N_MAIN}_k2"), ("Auto_20480", f"n{N_BIG}_k2"),
                     *((f"Auto_k{k}", f"n{N_MAIN}_k{k}") for k in MULTI_KS)):
+    if set(runs[leg]["dc_routes"]) != {"lanczos"}:
+      raise SystemExit(f"{leg} took {runs[leg]['dc_routes']}, not Lanczos")
     want = "certified" if route_ref[case]["jax"]["accepted"] else "split"
-    if set(runs[leg]["dc_routes"]) != {want}:
-      raise SystemExit(f"{leg} took {runs[leg]['dc_routes']}, the JAX "
-                       f"package's route is {want}")
-    iters = runs[leg]["dc"]["iters"]
+    routes = runs[f"{leg}_certified"]["dc_routes"]
+    if routes != ["lanczos", want]:
+      raise SystemExit(f"{leg}_certified took {routes}: Lanczos declining, "
+                       f"then the JAX package's route, {want}")
+    iters = runs[f"{leg}_certified"]["dc"]["iters"]
     cpu_iters = route_ref[case]["port"]["iters"]
     if cpu_iters < dc_ops._SUBSPACE_MAX_ITERS <= iters:
-      raise SystemExit(f"{leg}: the certified route ran to the iteration cap "
-                       f"where the CPU certified after {cpu_iters}")
-  for leg, certified in (("Auto_forced_decline", "Auto"),
-                         ("Auto_k4_forced_decline", "Auto_k4")):
+      raise SystemExit(f"{leg}_certified: the certified route ran to the "
+                       f"iteration cap where the CPU certified after "
+                       f"{cpu_iters}")
+  for leg, certified in (("Auto_forced_decline", "Auto_certified"),
+                         ("Auto_k4_forced_decline", "Auto_k4_certified")):
     forced = runs[leg]
-    if set(forced["dc_routes"]) != {"split"}:
+    if forced["dc_routes"] != ["lanczos", "split"]:
       raise SystemExit(f"{leg} took {forced['dc_routes']}")
+    # The split's own eigenvalues, whichever solve's answer the pipeline
+    # kept.
     scale = runs[certified]["dc"]["scale"]
-    err = float(np.max(np.abs(np.subtract(forced["eigenvalues"],
+    err = float(np.max(np.abs(np.subtract(forced["dc"]["w"],
                                           runs[certified]["eigenvalues"]))))
     forced["max_abs_diff_vs_certified_leg"] = err
     if not err <= 2e-4 * scale:

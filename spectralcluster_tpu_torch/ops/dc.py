@@ -37,9 +37,11 @@ Routes, in the JAX order (dc.py:703-939):
     deflation of the solved pairs and a certified subspace solve above it.
     A zero block, a split that does not reduce, an empty capture or a
     degraded solve go to the certified subspace fallback, as in JAX.
-    With ``split_on_decline=False`` a decline returns None instead: the
-    staged executor then re-solves (``lanczos_topt``, else the full eigh;
-    ``pipeline._dc_topk``).
+    With ``split_on_decline=False`` a decline returns None instead, for
+    the staged executor (``pipeline._dc_topk``), which then solves by
+    Lanczos (``lanczos_topt``) or the full eigh. On a descending scan it
+    asks ``lanczos_topt`` first and this route only where Lanczos cannot
+    vouch for its pairs.
 
 Differences from the JAX module, by design:
 
@@ -111,7 +113,7 @@ _MISS_MARGIN = 1e-3
 # (JAX dc.py:1098).
 _TRY_ITERATIVE_FIRST = True
 
-# The re-solve's Lanczos (``lanczos_topt``): its step caps, at each of which
+# The staged executor's Lanczos (``lanczos_topt``): its step caps, at each of which
 # it reads its residual, and the worst relative residual at which it stops.
 _LANCZOS_CAPS = (160, 320, 640, 1280)
 _LANCZOS_TOL = 1e-6
@@ -844,10 +846,12 @@ def subspace_iterations(info: dict) -> int:
 
 
 def lanczos_topt(m: torch.Tensor, t: int, generator: torch.Generator,
-                 descend: bool = True, n_valid=None):
+                 descend: bool = True, n_valid=None,
+                 stats: typing.Optional[dict] = None):
   """The t extreme eigenpairs of a symmetric m by Lanczos with full
-  reorthogonalization (every step twice against the whole basis), the
-  re-solve of ``pipeline._dc_topk``.
+  reorthogonalization (every step twice against the whole basis):
+  ``pipeline._dc_topk``'s first solve on a descending scan, its re-solve
+  after the certified attempt on an ascending one.
 
   On the icassp2018 operand at long sizes the spectrum past the few large
   eigenvalues decays from order 1 to a cluster at 0. A subspace iteration
@@ -862,7 +866,8 @@ def lanczos_topt(m: torch.Tensor, t: int, generator: torch.Generator,
   that lost its orthonormality (the Krylov space exhausted before a cap)
   reads res = inf. Returns (w (t,), u (n, t), res, scale) in scan order
   like ``eigh_topk_dc``: res the worst residual over scale, scale the
-  largest |Ritz value|, the spectrum's max|w| from below.
+  largest |Ritz value|, the spectrum's max|w| from below. ``stats``
+  receives "steps", the Krylov steps taken.
   """
   n = m.shape[0]
   nv = n if n_valid is None else int(n_valid)
@@ -903,6 +908,8 @@ def lanczos_topt(m: torch.Tensor, t: int, generator: torch.Generator,
       break
     if res <= _LANCZOS_TOL:
       break
+  if stats is not None:
+    stats["steps"] = steps
   return (theta if descend else -theta), u, res, scale
 
 

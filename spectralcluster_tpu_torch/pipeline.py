@@ -51,10 +51,11 @@ for ``Eigh`` in ``eig_topk_staged``, is the exact top-k route of
 extreme eigenpairs in scan order with a residual certificate, snapped
 against the solver's norm estimate; on a descending scan
 ``_warn_near_stop`` warns when the cluster count depends on digits that
-certificate cannot vouch for, as in JAX. The port then, where the pairs
-are not certified to be the extreme ones (``dc.complete_beyond``), and
-where the certified attempt declines, re-solves: Lanczos, else the full
-eigh (``_dc_topk``).
+certificate cannot vouch for, as in JAX. The port keeps only pairs
+certified to be the extreme ones (``dc.complete_beyond``): on a
+descending scan Lanczos answers first and the certified attempt only
+where Lanczos cannot vouch; on an ascending one the certified attempt
+first, then Lanczos; else the full eigh (``_dc_topk``).
 
 The batched step. ``prepare_affinity``, ``refine_and_eigendecompose`` and
 the ops under them take a leading batch axis, with ``n_valid`` a (B,)
@@ -313,53 +314,94 @@ def _subspace(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
 def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
              timings=None):
   """The exact top-k route past ``dc_max_block`` (JAX pipeline.py:815-830,
-  :970-991): ``ops/dc.eigh_topk_dc`` for the max_clusters+1 extreme
-  eigenpairs, then ``_warn_near_stop`` on a descending scan. Returns (w, u,
-  wscale), wscale being the solver's norm estimate as a 0-dim tensor.
+  :970-991): the max_clusters+1 extreme eigenpairs, certified, then
+  ``_warn_near_stop`` on a descending scan. Returns (w, u, wscale), wscale
+  being the solver's norm estimate as a 0-dim tensor.
 
-  The JAX executor hands the solver its bucket-padded m; the port's m is
-  unpadded, so the solver is told the bucket (``_n_bucket``), which decides
-  its dense branch and its sign chain's schedule as JAX's size does, while
-  ``dc_max_block`` bounds its recursion's blocks.
+  The JAX executor hands ``ops/dc.eigh_topk_dc`` its bucket-padded m; the
+  port's m is unpadded, so the solver is told the bucket (``_n_bucket``),
+  which decides its dense branch and its sign chain's schedule as JAX's
+  size does, while ``dc_max_block`` bounds its recursion's blocks.
 
   Unlike the JAX executor, the port keeps no answer whose count its own
-  certificate cannot decide (``_undecided``: ``_warn_near_stop`` warns, or
-  ``dc_ops.complete_beyond`` finds an eigenvalue the pairs missed), and a
-  declined certified attempt does not go on to the split. There it
-  re-solves: Lanczos (``dc_ops.lanczos_topt``), held to the certified
-  route's residual and to the same checks, else the full eigh
-  (``_full_topt``, which consumes m; wscale the full spectrum's max|w|). A
-  split forced by ``try_iterative_first=False`` still answers, under the
-  same checks. With ``timings``' detail: the route's spans "dc_certified"
-  and "dc_split" and counters "dc_certified" and "dc_subspace_iters", the
-  span "dc_resolve" around the re-solve, and the counters "dc_resolved"
-  (1 where the answer is the re-solve's), "dc_full_eigh" (1 where it is
-  the full eigh's) and "panel_matmul_mnb", "panel_matmul_io"
+  certificate cannot decide (``_undecided``: the count depends on a value
+  within the certified uncertainty, where the first such solve warns by
+  ``_warn_near_stop``, or ``dc_ops.complete_beyond`` finds an eigenvalue
+  the pairs missed), and a
+  declined certified attempt does not go on to the split. Solves, in
+  order, each held to those checks:
+
+    * on a descending scan (an affinity operand): Lanczos
+      (``dc_ops.lanczos_topt``, also held to the certified route's
+      residual), which separates the few large eigenvalues from the
+      decaying tail at the square root of a shifted subspace iteration's
+      rate; then, where it cannot vouch for its pairs (a repeated
+      eigenvalue a single Krylov vector misses), ``eigh_topk_dc``'s
+      certified attempt;
+    * on an ascending scan: ``eigh_topk_dc`` first, then Lanczos;
+    * last, the full eigh (``_full_topt``, which consumes m; wscale the
+      full spectrum's max|w|).
+
+  With ``timings``' detail: ``eigh_topk_dc``'s spans "dc_certified" and
+  "dc_split", the span "dc_lanczos" around Lanczos and "dc_resolve" around
+  every solve after the first, and on every call the counters
+  "dc_certified" and "dc_subspace_iters" (``eigh_topk_dc``'s, 0 where it
+  did not run), "dc_lanczos" (1 where the answer is Lanczos's),
+  "dc_lanczos_steps" (its Krylov steps), "dc_resolved" (1 where the answer
+  came from a solve after the first), "dc_full_eigh" (1 where it is the
+  full eigh's) and "panel_matmul_mnb", "panel_matmul_io"
   (``fused.panel_work``'s sums over the call's products).
   """
   t = cfg.max_clusters + 1
   work = fused_kernels.panel_work()
-  out = dc_ops.eigh_topk_dc(
-      m, t, torch.Generator().manual_seed(_DC_SEED),
-      descend=descend, n_valid=None if n_valid is None else int(n_valid),
-      max_block=cfg.dc_max_block, sign_precision=cfg.dc_sign_precision,
-      _n_bucket=pad_bucket(m.shape[0]), timings=timings,
-      split_on_decline=False)
-  resolve = out is None or _undecided(m, *out, cfg, descend, warn=True)
-  full = False
-  if resolve:
+  stats = {}
+
+  def route():
+    return dc_ops.eigh_topk_dc(
+        m, t, torch.Generator().manual_seed(_DC_SEED),
+        descend=descend, n_valid=None if n_valid is None else int(n_valid),
+        max_block=cfg.dc_max_block, sign_precision=cfg.dc_sign_precision,
+        _n_bucket=pad_bucket(m.shape[0]), timings=timings,
+        split_on_decline=False)
+
+  def lanczos():
+    with _span(timings, "dc_lanczos"):
+      out = dc_ops.lanczos_topt(m, t, torch.Generator().manual_seed(_DC_SEED),
+                                descend, n_valid, stats=stats)
+    return None if out[2] > dc_ops._ITER_ACCEPT_RES else out
+
+  warned = False
+
+  def answer(solve):
+    # The first solve whose count is undecided warns; later ones do not.
+    nonlocal warned
+    out = solve()
+    if out is None:
+      return None
+    if descend and not warned:
+      warned = _warn_near_stop(out[0].cpu().numpy(), out[2], out[3], cfg,
+                               "spectral D&C top-k")
+      if warned:
+        return None
+    return None if _undecided(m, *out, cfg, descend) else out
+
+  first, second = (lanczos, route) if descend else (route, lanczos)
+  solver, out = first, answer(first)
+  if out is None:
     with _span(timings, "dc_resolve"):
-      w, u, res, wscale = dc_ops.lanczos_topt(
-          m, t, torch.Generator().manual_seed(_DC_SEED), descend, n_valid)
-      full = (res > dc_ops._ITER_ACCEPT_RES
-              or _undecided(m, w, u, res, wscale, cfg, descend))
-      if full:
+      solver, out = second, answer(second)
+      if out is None:
+        solver = _full_topt
         w, u, wscale = _full_topt(m, t, descend, n_valid)
-  else:
+  if out is not None:
     w, u, _, wscale = out
   if timings is not None:
-    timings.count("dc_resolved", int(resolve))
-    timings.count("dc_full_eigh", int(full))
+    timings.count("dc_certified", 0)
+    timings.count("dc_subspace_iters", 0)
+    timings.count("dc_lanczos", int(solver is lanczos))
+    timings.count("dc_lanczos_steps", stats.get("steps", 0))
+    timings.count("dc_resolved", int(solver is not first))
+    timings.count("dc_full_eigh", int(solver is _full_topt))
     after = fused_kernels.panel_work()
     timings.count("panel_matmul_mnb", after[0] - work[0])
     timings.count("panel_matmul_io", after[1] - work[1])
@@ -367,19 +409,15 @@ def _dc_topk(m: torch.Tensor, cfg: PipelineConfig, n_valid, descend: bool,
 
 
 def _undecided(m, w, u, res: float, wscale: float, cfg: PipelineConfig,
-               descend: bool, warn: bool = False) -> bool:
+               descend: bool) -> bool:
   """Whether the count of the top-k pairs (w, u) is one their residual
   certificate cannot decide: on a descending scan the count depends on a
   value within the certified uncertainty of stop_eigenvalue
-  (``_count_undecided``; ``warn``: ``_warn_near_stop``'s warning), or an
-  eigenvalue past the pairs reaches w_t ± that uncertainty, the snap's
-  edge where w_t reads 0 (``dc_ops.complete_beyond``)."""
-  if descend:
-    undecided = (_warn_near_stop(w.cpu().numpy(), res, wscale, cfg,
-                                 "spectral D&C top-k") if warn
-                 else _count_undecided(w.cpu().numpy(), res, wscale, cfg)[0])
-    if undecided:
-      return True
+  (``_count_undecided``), or an eigenvalue past the pairs reaches w_t ±
+  that uncertainty, the snap's edge where w_t reads 0
+  (``dc_ops.complete_beyond``)."""
+  if descend and _count_undecided(w.cpu().numpy(), res, wscale, cfg)[0]:
+    return True
   return not dc_ops.complete_beyond(m, w, u, max(res, 1e-6) * wscale,
                                     descend, cfg.eigenvalue_snap_tol * wscale)
 

@@ -221,21 +221,31 @@ def test_warn_near_stop_matches_jax(case):
   assert hits == [expected, expected]
 
 
-def test_staged_pipeline_surfaces_the_warning(monkeypatch):
-  # The staged executor's dc route warns when the solver hands back values
-  # inside the uncertainty band (test_eigen_dc.py:576-595).
+@pytest.mark.parametrize("first_answers", [True, False])
+def test_staged_pipeline_surfaces_the_warning(monkeypatch, first_answers):
+  # The staged executor's dc route warns when a solve hands back values
+  # inside the uncertainty band (test_eigen_dc.py:576-595): on this
+  # descending scan its first solve, Lanczos, held to the certified
+  # route's residual; or, where Lanczos declines on its residual, the
+  # certified attempt. Only the first such solve warns.
   def fake_dc(m, t, generator, **kw):
     w = torch.tensor([5.0, 0.01] + [1e-6] * 6)
     return w, torch.eye(m.shape[0], 8), 1e-3, 5.0
 
+  def fake_lanczos(m, t, generator, *a, **kw):
+    w, u, _, scale = fake_dc(m, t, generator)
+    res = dc._ITER_ACCEPT_RES if first_answers else 2 * dc._ITER_ACCEPT_RES
+    return w, u, res, scale
+
   monkeypatch.setattr(dc, "eigh_topk_dc", fake_dc)
+  monkeypatch.setattr(dc, "lanczos_topt", fake_lanczos)
   cfg = convert.pipeline_config_from(_icassp_cfg(dc_max_block=64))
   x = torch.as_tensor(np.random.RandomState(0).randn(128, 8).astype(
       np.float32))
   with warnings.catch_warnings(record=True) as rec:
     warnings.simplefilter("always")
     pipeline.spectral_cluster_fixed_k_staged(x, _gen(), cfg)
-  assert any("stop_eigenvalue" in str(r.message) for r in rec)
+  assert sum("stop_eigenvalue" in str(r.message) for r in rec) == 1
 
 
 def _staged_embeddings(n=96, d=16, k=3, seed=0):
@@ -278,9 +288,12 @@ def _laplacian_cfg():
 
 def _record_routes(monkeypatch):
   """Lists that receive the route each package's dc solver takes:
-  "certified", or its decline, the sign-chain "split"."""
+  "certified", or its decline, the sign-chain "split"; and the port's
+  "lanczos" where its staged executor runs Lanczos (on a descending scan
+  before the certified attempt)."""
   routes, j_routes = [], []
   solve, j_certified = dc.eigh_topk_dc, j_dc._certified_iterative_topt
+  lanczos = dc.lanczos_topt
 
   def recording(*a, **kw):
     info = {}
@@ -288,12 +301,17 @@ def _record_routes(monkeypatch):
     routes.append(info["route"])
     return out
 
+  def recording_lanczos(*a, **kw):
+    routes.append("lanczos")
+    return lanczos(*a, **kw)
+
   def j_recording(*a, **kw):
     out = j_certified(*a, **kw)
     j_routes.append("split" if out is None else "certified")
     return out
 
   monkeypatch.setattr(dc, "eigh_topk_dc", recording)
+  monkeypatch.setattr(dc, "lanczos_topt", recording_lanczos)
   monkeypatch.setattr(j_dc, "_certified_iterative_topt", j_recording)
   return routes, j_routes
 
@@ -319,9 +337,12 @@ def test_staged_dc_matches_jax(case, monkeypatch):
       j_pipeline.spectral_cluster_fixed_k_staged(
           jnp.asarray(x), jax.random.PRNGKey(0), jcfg,
           n_valid=None if n_valid is None else jnp.int32(n_valid)))
-  assert routes == j_routes == ["certified"]
+  # The port's first solve: Lanczos on a descending scan, the certified
+  # attempt on an ascending one; both answer here.
+  first = "certified" if case == "laplacian_ascend" else "lanczos"
+  assert routes == [first] and j_routes == ["certified"]
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
-                                    "dc_certified", "staged_finish",
+                                    "dc_" + first, "staged_finish",
                                     "kmeans"}
   nv = x.shape[0] if n_valid is None else n_valid
   assert int(n_c) == int(jn_c)
@@ -343,7 +364,7 @@ def test_eig_topk_staged_eigh_runs_dc(monkeypatch):
   w, _, n_c, delta = pipeline.eig_topk_staged(aff, cfg)
   jaff = j_pipeline.prepare_affinity(jnp.asarray(x), jcfg)
   jw, _, jn_c, jdelta = j_pipeline.eig_topk_staged(jaff, jcfg)
-  assert routes == j_routes == ["certified"]
+  assert routes == ["lanczos"] and j_routes == ["certified"]
   assert int(n_c) == int(jn_c) == 3
   np.testing.assert_allclose(w.numpy(), np.asarray(jw),
                              atol=2e-4 * float(np.max(np.abs(jw))))

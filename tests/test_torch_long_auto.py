@@ -10,6 +10,7 @@ an answer the route cannot vouch for to the full eigh.
 """
 
 import json
+import math
 import os
 import warnings
 
@@ -37,23 +38,56 @@ def _cfg():
       dc_max_block=128)
 
 
-@pytest.mark.parametrize("certified_first", [True, False])
-def test_staged_dc_matches_the_float64_reference(monkeypatch,
-                                                 certified_first):
+_ROUTE_COUNTERS = ("dc_certified", "dc_subspace_iters", "dc_lanczos",
+                   "dc_lanczos_steps", "dc_resolved", "dc_full_eigh")
+
+
+def _lanczos_declines(*a, **kw):
+  """``dc.lanczos_topt`` handing back pairs it cannot vouch for."""
+  return None, None, math.inf, None
+
+
+@pytest.mark.parametrize("route", ["lanczos", "certified", "split"])
+def test_staged_dc_matches_the_float64_reference(monkeypatch, route):
   config = _json("portbench", "configs", "icassp2018_auto.json")
   traffic = _json("portbench", "traffic", "long.json")
   limits = _json("portbench", "limits", "icassp2018.long.json")["limits"]
-  # 320 segments of six speakers; the certified route answers here.
+  # 320 segments of six speakers. The scan descends, so Lanczos answers
+  # first; where it declines, the certified attempt (after 1,088
+  # iterations), or with the iterative routes off the forced split.
   rec = generator.make_recording(generator.rng_for(2, 1, 6), 0, 320, 6,
                                  traffic)
-  monkeypatch.setattr(dc, "_TRY_ITERATIVE_FIRST", certified_first)
+  if route != "lanczos":
+    monkeypatch.setattr(dc, "lanczos_topt", _lanczos_declines)
+  monkeypatch.setattr(dc, "_TRY_ITERATIVE_FIRST", route != "split")
+  infos, solve = [], dc.eigh_topk_dc
+
+  def recording(*a, **kw):
+    infos.append({})
+    return solve(*a, info=infos[-1], **kw)
+
+  monkeypatch.setattr(dc, "eigh_topk_dc", recording)
   timings = StageTimings("cpu")
   labels, n_clusters, w, _ = pipeline.spectral_cluster_fixed_k_staged(
       torch.as_tensor(rec.embeddings), torch.Generator().manual_seed(0),
       _cfg(), timings=timings)
   counters = timings.counters()
-  assert counters["dc_certified"] == int(certified_first)
-  assert counters["dc_resolved"] == 0
+  assert set(_ROUTE_COUNTERS) <= set(counters)
+  assert [i["route"] for i in infos] == ([] if route == "lanczos"
+                                         else [route])
+  assert counters["dc_lanczos"] == int(route == "lanczos")
+  assert (counters["dc_lanczos_steps"] > 0) == (route == "lanczos")
+  assert counters["dc_certified"] == int(route == "certified")
+  assert counters["dc_subspace_iters"] == (
+      dc.subspace_iterations(infos[0]) if infos else 0)
+  assert counters["dc_subspace_iters"] == (1088 if route == "certified"
+                                           else 0)
+  assert counters["dc_resolved"] == int(route != "lanczos")
+  assert counters["dc_full_eigh"] == 0
+  spans = timings.as_dict()
+  assert "dc_lanczos" in spans
+  assert "dc_" + route in spans
+  assert ("dc_resolve" in spans) == bool(infos)
   got = compare.call_numbers(
       {"labels": labels.numpy(), "n_clusters": int(n_clusters),
        "eigenvalues": w.numpy()},
@@ -101,11 +135,12 @@ def test_completeness_certificate_at_the_snap():
   assert not dc.complete_beyond(m, w, v, 1e-3, True, snap=0.01)
 
 
-@pytest.mark.parametrize("lanczos_answers", [True, False])
-def test_an_incomplete_answer_is_re_solved(monkeypatch, lanczos_answers):
-  # The route hands back a cluster pair in place of the fourth largest,
-  # with a small residual: the staged executor re-solves (span
-  # "dc_resolve", counter "dc_resolved") by Lanczos, or, where Lanczos
+@pytest.mark.parametrize("second_answers", [True, False])
+def test_an_incomplete_answer_is_re_solved(monkeypatch, second_answers):
+  # The first solve (Lanczos, on this descending scan) hands back a
+  # cluster pair in place of the fourth largest, with a small residual:
+  # the staged executor re-solves (span "dc_resolve", counter
+  # "dc_resolved") by eigh_topk_dc (here its dense branch), or, where that
   # too misses a pair, by the full eigh (counter "dc_full_eigh"), and
   # returns their t extreme pairs.
   m, q = _spectrum([50.0, 40.0, 3.0, 1.0, 0.5]
@@ -116,9 +151,9 @@ def test_an_incomplete_answer_is_re_solved(monkeypatch, lanczos_answers):
     w = torch.tensor([50.0, 40.0, 3.0] + [0.005] * (t - 3))
     return w, torch.cat([q[:, :3], q[:, 10:10 + t - 3]], dim=1), 1e-6, 50.0
 
-  monkeypatch.setattr(dc, "eigh_topk_dc", incomplete)
-  if not lanczos_answers:
-    monkeypatch.setattr(dc, "lanczos_topt", incomplete)
+  monkeypatch.setattr(dc, "lanczos_topt", incomplete)
+  if not second_answers:
+    monkeypatch.setattr(dc, "eigh_topk_dc", incomplete)
   full, vectors = torch.linalg.eigh(m)
   timings = StageTimings("cpu")
   with warnings.catch_warnings():
@@ -133,7 +168,59 @@ def test_an_incomplete_answer_is_re_solved(monkeypatch, lanczos_answers):
   assert "dc_resolve" in timings.as_dict()
   counters = timings.counters()
   assert counters["dc_resolved"] == 1
-  assert counters["dc_full_eigh"] == int(not lanczos_answers)
+  assert counters["dc_lanczos"] == 0
+  assert counters["dc_full_eigh"] == int(not second_answers)
+
+
+# Eight isolated values over a cluster at 0: every solve of the route can
+# answer. dc_max_block=32 puts n=64 past the dense branch.
+_ISOLATED = [50.0, 40.0, 30.0, 20.0, 10.0, 8.0, 6.0, 4.0] + list(
+    np.linspace(-0.01, 0.01, 56))
+
+
+@pytest.mark.parametrize("case", ["lanczos", "lanczos_declines",
+                                  "ascending"])
+def test_the_route_answers_by_its_first_sound_solve(monkeypatch, case):
+  # A descending scan asks Lanczos first and the certified attempt only
+  # where Lanczos cannot vouch; an ascending one keeps the certified
+  # attempt first and does not run Lanczos when it answers.
+  descend = case != "ascending"
+  sign = 1.0 if descend else -1.0
+  m, _ = _spectrum([sign * v for v in _ISOLATED])
+  lanczos = dc.lanczos_topt
+  runs = []
+
+  def spy(*a, **kw):
+    runs.append(case)
+    w, u, res, scale = lanczos(*a, **kw)
+    return w, u, math.inf if case == "lanczos_declines" else res, scale
+
+  monkeypatch.setattr(dc, "lanczos_topt", spy)
+  timings = StageTimings("cpu")
+  with warnings.catch_warnings():
+    warnings.simplefilter("error")
+    w, _, _ = pipeline._dc_topk(m, _cfg().replace(dc_max_block=32), None,
+                                descend, timings)
+  want = np.sort(sign * np.asarray(_ISOLATED))
+  want = want[::-1] if descend else want
+  # Within the certificate's bound: the accepted residual times the scale.
+  np.testing.assert_allclose(w.numpy(), want[:8],
+                             atol=dc._ITER_ACCEPT_RES * 50.0)
+  counters = timings.counters()
+  assert set(_ROUTE_COUNTERS) <= set(counters)
+  assert counters["dc_full_eigh"] == 0
+  assert len(runs) == int(descend)
+  if case == "lanczos":
+    assert counters["dc_lanczos"] == 1 and counters["dc_lanczos_steps"] > 0
+    assert counters["dc_certified"] == counters["dc_subspace_iters"] == 0
+    assert counters["dc_resolved"] == 0
+    assert set(timings.as_dict()) == {"dc_lanczos"}
+  else:
+    assert counters["dc_lanczos"] == 0
+    assert counters["dc_certified"] == 1
+    assert counters["dc_subspace_iters"] > 0
+    assert counters["dc_resolved"] == int(descend)
+    assert ("dc_lanczos" in timings.as_dict()) == descend
 
 
 @pytest.mark.parametrize("descend", [True, False])

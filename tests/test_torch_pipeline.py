@@ -134,9 +134,10 @@ def test_staged_matches_monolithic(solver):
 
 
 def test_staged_auto_past_dc_max_block_returns_topk():
-  # The route there is the exact top-k route of ops/dc.py (stage
-  # staged_dc): max_clusters+1 extreme eigenvalues in scan order, from a
-  # certified float32 solve (within 2e-4·max|w| of the full eigh's).
+  # The route there is the exact top-k route (stage staged_dc):
+  # max_clusters+1 extreme eigenvalues in scan order, from a certified
+  # float32 solve, Lanczos on this descending scan (within 2e-4·max|w| of
+  # the full eigh's).
   x = torch.as_tensor(make_embeddings(512))
   timings = StageTimings("cpu")
   topk = pipeline.spectral_cluster_fixed_k_staged(
@@ -145,7 +146,7 @@ def test_staged_auto_past_dc_max_block_returns_topk():
   full = pipeline.spectral_cluster_fixed_k(
       x, torch.Generator().manual_seed(0), _cfg())
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
-                                    "dc_certified", "staged_finish",
+                                    "dc_lanczos", "staged_finish",
                                     "kmeans"}
   assert topk[2].shape == (8,) and full[2].shape == (512,)
   np.testing.assert_allclose(topk[2].numpy(), full[2].numpy()[:8],

@@ -289,10 +289,15 @@ def test_cuda_spans_are_event_pairs_read_once(record, monkeypatch):
   assert all(s.host_s < 0.25 for s in call.spans)
 
 
-# The top-k route of ops/dc.py inside the staged executor: a recording of
-# portbench's long traffic at a CPU size, dc_max_block lowered so that the
-# route runs (it certifies here after 1,088 iterations).
-def _route_call(monkeypatch, certified_first, detail=True):
+# The top-k route inside the staged executor: a recording of portbench's
+# long traffic at a CPU size, dc_max_block lowered so that the route runs.
+# Lanczos answers first on this descending scan, in its first cap's 160
+# steps; where it declines, the certified attempt, after 1,088 iterations;
+# with the iterative routes off as well, the split.
+LANCZOS_STEPS = 160
+
+
+def _route_call(monkeypatch, route, detail=True):
   from portbench import generator
   from spectralcluster_tpu_torch import pipeline
   from spectralcluster_tpu_torch.ops import dc
@@ -300,7 +305,10 @@ def _route_call(monkeypatch, certified_first, detail=True):
              "centre_scale": 3.0, "noise": 0.4}
   rec = generator.make_recording(generator.rng_for(2, 1, 6), 0, 320, 6,
                                  traffic)
-  monkeypatch.setattr(dc, "_TRY_ITERATIVE_FIRST", certified_first)
+  if route != "lanczos":
+    monkeypatch.setattr(dc, "lanczos_topt",
+                        lambda *a, **kw: (None, None, math.inf, None))
+  monkeypatch.setattr(dc, "_TRY_ITERATIVE_FIRST", route != "split")
   infos, solve = [], dc.eigh_topk_dc
 
   def recording(*a, **kw):
@@ -314,36 +322,50 @@ def _route_call(monkeypatch, certified_first, detail=True):
   pipeline.spectral_cluster_fixed_k_staged(
       torch.as_tensor(rec.embeddings), torch.Generator().manual_seed(0), cfg,
       timings=timings)
-  (info,) = infos
-  return timings, info
+  return timings, infos
 
 
-@pytest.mark.parametrize("certified_first", [True, False])
-def test_the_dc_route_records_its_spans_and_counters(monkeypatch,
-                                                     certified_first):
+@pytest.mark.parametrize("route", ["lanczos", "certified", "split"])
+def test_the_dc_route_records_its_spans_and_counters(monkeypatch, route):
   from spectralcluster_tpu_torch.ops import dc
-  timings, info = _route_call(monkeypatch, certified_first)
-  assert info["route"] == ("certified" if certified_first else "split")
-  span = "dc_certified" if certified_first else "dc_split"
-  assert set(timings.as_dict()) == {"staged_prep", "staged_dc", span,
-                                    "staged_finish", "kmeans"}
-  assert {s.name: s.parent for s in timings.spans()}[span] == "staged_dc"
+  timings, infos = _route_call(monkeypatch, route)
+  assert [i["route"] for i in infos] == ([] if route == "lanczos"
+                                         else [route])
+  span = "dc_" + route
+  # Lanczos's span wraps the first solve, whether it answers or declines;
+  # "dc_resolve" every solve after it.
+  resolved = {"dc_resolve", span} if infos else set()
+  assert set(timings.as_dict()) == {"staged_prep", "staged_dc", "dc_lanczos",
+                                    "staged_finish", "kmeans", *resolved}
+  parents = {s.name: s.parent for s in timings.spans()}
+  assert parents["dc_lanczos"] == "staged_dc"
+  if infos:
+    assert parents["dc_resolve"] == "staged_dc"
+    assert parents[span] == "dc_resolve"
   counters = timings.counters()
-  assert counters["dc_certified"] == int(certified_first)
-  assert counters["dc_resolved"] == 0
-  assert counters["dc_subspace_iters"] == dc.subspace_iterations(info)
-  assert counters["dc_subspace_iters"] == (1088 if certified_first else 0)
+  assert counters["dc_lanczos"] == int(route == "lanczos")
+  assert counters["dc_lanczos_steps"] == (LANCZOS_STEPS if route == "lanczos"
+                                          else 0)
+  assert counters["dc_certified"] == int(route == "certified")
+  assert counters["dc_subspace_iters"] == (
+      dc.subspace_iterations(infos[0]) if infos else 0)
+  assert counters["dc_subspace_iters"] == (1088 if route == "certified"
+                                           else 0)
+  assert counters["dc_resolved"] == int(route != "lanczos")
+  assert counters["dc_full_eigh"] == 0
 
 
 def test_the_dc_route_records_nothing_without_detail(monkeypatch):
-  timings, _ = _route_call(monkeypatch, False, detail=False)
+  timings, _ = _route_call(monkeypatch, "split", detail=False)
   assert set(timings.as_dict()) == {"staged_prep", "staged_dc",
                                     "staged_finish"}
   assert timings.counters() == {}
 
 
-def test_panel_work_counts_the_routes_products(monkeypatch):
-  # Kernel 6's shape sums against the products its CPU twin made.
+@pytest.mark.parametrize("route", ["lanczos", "certified"])
+def test_panel_work_counts_the_routes_products(monkeypatch, route):
+  # Kernel 6's shape sums against the products its CPU twin made: Lanczos's
+  # at one column, or the certified attempt's panels.
   from spectralcluster_tpu_torch.kernels import fused
   shapes, plain = [], fused.panel_matmul_plain
 
@@ -352,7 +374,7 @@ def test_panel_work_counts_the_routes_products(monkeypatch):
     return plain(mat, x)
 
   monkeypatch.setattr(fused, "panel_matmul_plain", twin)
-  timings, _ = _route_call(monkeypatch, True)
+  timings, _ = _route_call(monkeypatch, route)
   counters = timings.counters()
   assert shapes and all(m == n == 320 for m, n, _ in shapes)
   assert counters["panel_matmul_mnb"] == sum(m * n * b for m, n, b in shapes)

@@ -51,7 +51,15 @@ the CPU from the card's operand. With ``--pool seed,...``, every recording
 of those seeds' pools through the preset's ``predict``: the route, each
 split level's branch and reason, the route's counters (``dc_certified``,
 ``dc_subspace_iters``, ``dc_resolved``: whether the full eigh re-solved
-it), the count and the stage and span seconds.
+it), the count and the stage and span seconds. With ``--topk`` too, each
+such recording's operand goes instead through ``pipeline._dc_topk`` as
+the staged executor calls it (descending, unpadded, with its stage
+timings on the card): the solve that answered ("lanczos", "certified" or
+"full_eigh"), Lanczos's steps, the route's counters and spans, the seconds
+(card synced), and the count the eigengap rule gives on its pairs against
+the float64 reference's (``portbench/reference/icassp2018.py``, on the
+card) and its admissible counts, with the eigenvalues' largest gap over the
+largest.
 
 With ``--bisect-small-ops``, only the card's operand, for each of
 ``--seeds``: ``cublas``, ``kernels``, the kernels' product and Gram with
@@ -350,6 +358,45 @@ def pool_routes(seeds, dev):
     dc_ops.eigh_topk_dc = solve
 
 
+def topk_pool_routes(seeds, dev):
+  """The staged executor's top-k route on every recording of the long
+  traffic's pools, against the float64 reference (module docstring,
+  ``--pool`` with ``--topk``)."""
+  from portbench import generator, run
+  from portbench.reference import icassp2018 as reference
+  from spectralcluster_tpu_torch.observability import StageTimings
+  traffic = run.load_json("portbench", "traffic", "long.json")
+  config = run.load_json("portbench", "configs", "icassp2018_auto.json")
+  cfg = configs.make_icassp2018_clusterer(device=dev.type)._config()
+  for seed in seeds:
+    for rec in generator.make_pool(traffic, seed):
+      m = witness_operand(rec, cfg, dev)
+      timings = StageTimings(dev)
+      seconds, (w, _, wscale) = synced_seconds(
+          lambda: pipeline._dc_topk(m, cfg, None, True, timings), dev)
+      del m
+      torch.cuda.empty_cache()
+      counters = timings.counters()
+      answered = ("full_eigh" if counters["dc_full_eigh"] else
+                  "lanczos" if counters["dc_lanczos"] else "certified")
+      w = w.cpu().numpy().astype(np.float64)
+      count, _ = count_of(w, 0.0, float(wscale), cfg)
+      ref = reference.solve(rec, config, "float64", dev.type)
+      torch.cuda.empty_cache()
+      w_ref = np.asarray(ref["eigenvalues"], np.float64)
+      log({"phase": "topk_route", "seed": seed, "index": rec.index,
+           "n": int(rec.embeddings.shape[0]), "speakers": rec.n_speakers,
+           "answered": answered,
+           "lanczos_steps": counters["dc_lanczos_steps"],
+           "counters": counters, "spans": timings.as_dict(),
+           "seconds": seconds, "count": count,
+           "reference_count": ref["n_clusters"],
+           "admissible": sorted(int(c) for c in ref["counts"]),
+           "count_admissible": count in ref["counts"],
+           "eig_err": float(np.max(np.abs(w[:w_ref.shape[0]] - w_ref))
+                            / np.max(np.abs(w_ref)))})
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--cases", default="20480,k4,k7")
@@ -368,6 +415,10 @@ def main() -> int:
   parser.add_argument("--pool", default="",
                       help="seeds of portbench's long traffic: the route "
                       "of every recording of their pools")
+  parser.add_argument("--topk", action="store_true",
+                      help="with --pool: each recording's operand through "
+                      "pipeline._dc_topk as the staged executor calls it, "
+                      "against the float64 reference")
   parser.add_argument("--cpu-witness", default="",
                       help="witness recordings whose split also runs on "
                       "the CPU from the card's operand")
@@ -387,7 +438,11 @@ def main() -> int:
             set(filter(None, args.cpu_witness.split(","))), dev)
     args.cases = ""
   if args.pool:
-    pool_routes([int(v) for v in args.pool.split(",")], dev)
+    pool_seeds = [int(v) for v in args.pool.split(",")]
+    if args.topk:
+      topk_pool_routes(pool_seeds, dev)
+    else:
+      pool_routes(pool_seeds, dev)
     args.cases = ""
   for case in filter(None, args.cases.split(",")):
     x = embeddings(case)
